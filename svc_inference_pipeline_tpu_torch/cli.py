@@ -4,8 +4,10 @@
         --input clip.wav --singer svcc_CDF1 --output out.wav \\
         --random-weights --whisper-size medium
 
-Flags follow ``svc_inference_pipeline_tpu.cli`` where they apply, plus
-``--device`` (default cuda) and ``--timings-json``. One clip per call;
+Flags follow ``svc_inference_pipeline_tpu.cli`` where they apply
+(``--sampler {ddpm,plms,ddim,dpmpp}``, ``--speedup``, ``--quantize
+{int8,int8-w1}``, ``--quantize-tail``, mapped onto the config as there),
+plus ``--device`` (default cuda) and ``--timings-json``. One clip per call;
 checkpoint loading is not ported yet, so ``--random-weights`` is required.
 """
 
@@ -15,6 +17,7 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -26,6 +29,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input", "-i", required=True, help="source wav")
     p.add_argument("--singer", "-s", required=True, help="target singer name")
     p.add_argument("--output", "-o", required=True, help="output wav path")
+    p.add_argument("--sampler", choices=["ddpm", "plms", "ddim", "dpmpp"], default=None,
+                   help="override cfg.mapper.sampler")
+    p.add_argument("--speedup", type=int, default=None, help="stride of plms/ddim/dpmpp (default from config)")
+    p.add_argument("--quantize", choices=["int8", "int8-w1"], default=None,
+                   help="int8 denoiser matmuls (int8-w1 keeps the output projection at the compute dtype)")
+    p.add_argument("--quantize-tail", type=int, default=None, metavar="K",
+                   help="run the LAST K DDPM steps unquantised (cfg.denoiser_quantize_tail)")
     p.add_argument("--seed", type=int, default=0, help="seed of the weight and sampling generators")
     p.add_argument("--random-weights", action="store_true", help="random-init models (no checkpoints needed)")
     p.add_argument("--whisper-size", default="tiny", help="whisper size when random-init (tiny...large)")
@@ -35,7 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def main(argv=None, built: Optional[dict] = None) -> int:
+    """Run the CLI; a caller that converts again on the same models passes a
+    dict as ``built`` and finds the pipeline under ``built["pipeline"]``."""
     args = build_parser().parse_args(argv)
     import torch
 
@@ -47,23 +59,45 @@ def main(argv=None) -> int:
         print("error: checkpoint loading is not ported yet; pass --random-weights", file=sys.stderr)
         return 2
     cfg = load_config(args.config)
+    if args.sampler:
+        cfg.mapper.sampler = args.sampler
+    if args.speedup:
+        cfg.mapper.plms_speedup = args.speedup
+    if args.quantize:
+        cfg.denoiser_quantize = args.quantize
+    if args.quantize_tail is not None:
+        cfg.denoiser_quantize_tail = args.quantize_tail
     print("Loading models (random weights)...")
     t0 = time.perf_counter()
     pipe = SVCPipeline.from_config(cfg, random_weights=True, whisper_size=args.whisper_size,
                                    seed=args.seed, device=args.device)
     print(f"Models ready in {time.perf_counter() - t0:.2f}s on {pipe.device}")
+    if built is not None:
+        built["pipeline"] = pipe
     generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
     wave = pipe.convert(args.input, args.singer, generator=generator)
     save_audio(args.output, wave, cfg.fs)
     t = pipe.timings
     seconds = len(wave) / cfg.fs
     print(f"Converted {seconds:.2f}s of audio in {t['total_s']:.2f}s (RTF {t['total_s'] / max(seconds, 1e-9):.4f}): "
-          f"front-end {t['frontend_s']:.3f}s, DDPM {t['ddpm_s']:.3f}s, vocoder {t['vocoder_s']:.3f}s")
+          f"front-end {t['frontend_s']:.3f}s, {sampler_name(pipe)} {t['ddpm_s']:.3f}s, "
+          f"vocoder {t['vocoder_s']:.3f}s")
     print("Saved", args.output)
     if args.timings_json:
         with open(args.timings_json, "w") as f:
             json.dump(dict(t, audio_s=seconds), f)
     return 0
+
+
+def sampler_name(pipe) -> str:
+    """The pipeline's default sampler and int8 mode, e.g. "plms@10 int8-w1"."""
+    sampler, speedup = pipe._resolve_sampler(None, None)
+    name = sampler if sampler == "ddpm" else f"{sampler}@{speedup}"
+    if pipe.denoiser_quantize:
+        name += f" {pipe.denoiser_quantize}"
+        if pipe.denoiser_quantize_tail:
+            name += f" (tail {pipe.denoiser_quantize_tail})"
+    return name
 
 
 if __name__ == "__main__":

@@ -1,0 +1,122 @@
+"""Warm conversion times of the port on one GPU, by sampler and int8 mode.
+
+    python -m svc_inference_pipeline_tpu_torch.measure [--profile]
+
+Builds one pipeline at the width of ``config/config.json`` with random
+weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
+sampler and int8 mode of the port, three times each, and prints one JSON
+line per (clip, path): the median over runs 2-3 of each phase's wall seconds
+(``SVCPipeline.timings``) and the RTF. ``--profile`` adds, for one warm 4 s
+conversion per path, the device time by kernel from ``torch.profiler`` and
+the device's busy share of the conversion. Every line names the card
+(``nvidia-smi`` name and power limit). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+CLIP_SECONDS = (4.0, 10.0)
+RUNS = 3
+# (sampler, speedup, int8 mode, tail) of every measured path
+PATHS = (
+    ("ddpm", 1, None, 0), ("ddpm", 1, "int8-w1", 0), ("ddpm", 1, "int8", 0), ("ddpm", 1, "int8", 50),
+    ("plms", 10, None, 0), ("plms", 10, "int8-w1", 0), ("ddim", 10, None, 0),
+    ("dpmpp", 10, None, 0), ("dpmpp", 10, "int8", 0),
+)
+
+
+def synth_clip(fs: int, seconds: float) -> np.ndarray:
+    """A harmonic tone with vibrato, a 0.4 s silent gap and a little noise."""
+    t = np.arange(int(seconds * fs)) / fs
+    f0 = 220.0 * 2 ** (0.5 / 12 * np.sin(2 * np.pi * 5.5 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    x = sum((0.3 / k) * np.sin(k * phase) for k in range(1, 7))
+    x[(t > 1.8) & (t < 2.2)] = 0.0
+    return (x + 1e-3 * np.random.default_rng(0).standard_normal(len(t))).astype(np.float32)
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def path_name(sampler: str, speedup: int, quantize, tail: int) -> str:
+    name = sampler if sampler == "ddpm" else f"{sampler}@{speedup}"
+    name += f" {quantize or 'bf16'}"
+    return name + (f" tail {tail}" if tail else "")
+
+
+def profile_conversion(pipe, wav, sampler, speedup) -> dict:
+    """Device milliseconds by kernel over one warm conversion under
+    ``torch.profiler``, and the device's busy share of it (summed kernel time
+    over the conversion's wall time, both under the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.convert(wav, "svcc_CDF1", generator=torch.Generator(device=pipe.device).manual_seed(0),
+                     sampler=sampler, speedup=speedup)
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if dev_us and ev.key and not ev.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "ProfilerStep")):
+            by_kernel[ev.key[:90]] = (round(dev_us / 1e3, 3), ev.count)
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
+    kernel_ms = sum(ms for ms, _ in by_kernel.values())
+    wall_ms = pipe.timings["total_s"] * 1e3
+    return {"device_ms_by_kernel": top, "device_kernel_ms": round(kernel_ms, 3),
+            "profiled_total_ms": round(wall_ms, 3), "device_busy_share": round(kernel_ms / wall_ms, 4)}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--profile", action="store_true")
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("measure: no CUDA device", file=sys.stderr)
+        return 2
+    from svc_inference_pipeline_tpu_torch.config import DEFAULT_CONFIG, load_config
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
+
+    gpu = card()
+    cfg = load_config(DEFAULT_CONFIG)
+    root = os.path.dirname(os.path.dirname(DEFAULT_CONFIG))
+    for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):
+        cfg[key] = os.path.join(root, cfg[key].lstrip("./"))
+    pipe = SVCPipeline.from_config(cfg, random_weights=True, whisper_size="medium", seed=0)
+    for seconds in CLIP_SECONDS:
+        wav = synth_clip(cfg.fs, seconds)
+        for sampler, speedup, quantize, tail in PATHS:
+            pipe.set_quantize(quantize, tail)
+            runs = []
+            for _ in range(RUNS):
+                t0 = time.perf_counter()
+                pipe.convert(wav, "svcc_CDF1", generator=torch.Generator(device=pipe.device).manual_seed(0),
+                             sampler=sampler, speedup=speedup)
+                runs.append(dict(pipe.timings, wall_s=time.perf_counter() - t0))
+            warm = runs[1:]
+            med = {k: statistics.median(r[k] for r in warm) for k in warm[0]}
+            line = {"card": gpu, "clip_s": seconds, "path": path_name(sampler, speedup, quantize, tail),
+                    **med, "rtf": med["total_s"] / seconds,
+                    "first_total_s": runs[0]["total_s"]}
+            if args.profile and seconds == CLIP_SECONDS[0]:
+                line.update(profile_conversion(pipe, wav, sampler, speedup))
+            print(json.dumps(line), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

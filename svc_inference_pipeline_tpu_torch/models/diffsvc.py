@@ -109,7 +109,8 @@ class DiffSVCDenoiser(nn.Module):
                 diffusion_step: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or mel_spec.dtype
         x = torch.relu(linear(self.mel_preprocess, mel_spec, dtype))
-        step = self.diffusion_embedding(diffusion_step.reshape(mel_spec.shape[0], -1)).to(dtype)
+        t = diffusion_step.reshape(mel_spec.shape[0], -1).to(mel_spec.device)
+        step = self.diffusion_embedding(t).to(dtype)
         cond = conditioner.to(dtype)
         skip_sum = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         for i in range(self.n_layers):

@@ -1,18 +1,39 @@
-"""K1: one whole ancestral DDPM reverse step of the DiffSVC denoiser.
+"""The DiffSVC denoiser's kernels: K1, K5 and their int8 form K6.
 
-Counterpart of ``svc_inference_pipeline_tpu/ops/pallas/denoiser_step.py``
-(``_ddpm_step_pallas`` driven by ``_ddpm_sample_fused``); the kernel is
-``csrc/denoiser_step.cu`` (2 + 2L GEMM launches per step with fused
-epilogues). One step: mel preprocess, L gated dilated-conv layers over the
-precomputed conditioner and step rows, skip and output projections, then
-x0 = clamp(c0 x - c1 eps, +-1) and x' = c2 x0 + c3 x + sigma z.
+Counterpart of ``svc_inference_pipeline_tpu/ops/pallas/denoiser_step.py``:
+
+- K1 (``_ddpm_step_pallas``, driven by ``_ddpm_sample_fused``): one whole
+  ancestral DDPM reverse step, :func:`ddpm_step`;
+- K5 (``_denoise_pallas``, the forward returning eps for PLMS, DDIM and
+  DPM++), :func:`denoise`;
+- K6 (the ``quant1``/``quant2`` variants of the body K1 and K5 share): the
+  same two entry points on a stack made with ``quantize="int8"`` or
+  ``"int8-w1"``.
+
+All are ``csrc/denoiser_step.cu`` (2 + 2L GEMM launches per call with fused
+epilogues). One forward: mel preprocess, L gated dilated-conv layers over
+the precomputed conditioner and step rows, skip and output projections;
+K1 then applies x0 = clamp(c0 x - c1 eps, +-1), x' = c2 x0 + c3 x + sigma z.
 
 Numerics follow the TPU kernel: operands rounded to the compute dtype, f32
 accumulation, f32 gates and skip sum, h stored at the compute dtype, the
 carry x in f32 with the mel padded to ``LANE`` channels (pad lanes stay 0).
+int8 (K6): the conv input y = h + step_row (f32, not rounded first) is
+quantised with s_y = max(max|y|, 1e-12)/127 per batch element, the weights
+per output column (:func:`quantize_cols`); the int32 sums are scaled by
+s_y * w1s[col]. In "int8" mode the gate g is quantised with the static
+scale 127 and the output projection runs in int8 too (wouts[col]/127);
+"int8-w1" keeps the output projection at the compute dtype.
 
-CPU tensors take :func:`ddpm_step_plain`; CUDA tensors launch the kernel
-(bf16 only) or raise.
+The plain versions compute the int8 products exactly, in float64 (a sum
+is at most 3C * 127^2, about 1.9e7 at C = 384, far inside float64's 2^53)
+and round it to f32 as the kernel's int32 -> f32 conversion does. For the
+same int8 operands kernel and plain version therefore agree exactly; they
+differ only where a bf16 h of an earlier layer, summed in another order,
+moves a value across a rounding tie of the quantiser.
+
+CPU tensors take the plain versions; CUDA tensors launch the kernels (bf16
+compute only) or raise.
 """
 
 from __future__ import annotations
@@ -25,14 +46,17 @@ import torch
 import torch.nn.functional as F
 
 from svc_inference_pipeline_tpu_torch.models.diffsvc import INV_SQRT2, DiffSVCDenoiser
-from svc_inference_pipeline_tpu_torch.sampling.ddpm import INIT_NOISE_STD
+from svc_inference_pipeline_tpu_torch.sampling.ddpm import initial_noise
 from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 
 LANE = 128  # mel channels padded to this width in the carry
+QUANTIZE_MODES = (None, "int8", "int8-w1")
+INV_127 = np.float32(1.0 / 127.0)
 
 
 class StackedDenoiser(NamedTuple):
-    """Per-layer weights stacked for the kernel, all in the compute dtype."""
+    """Per-layer weights stacked for the kernels, in the compute dtype, except
+    the int8 weights of a quantised stack and their f32 column scales."""
 
     w1: torch.Tensor     # [L, 3C, 2C]  tap-major rows: [left; mid; right]
     wout: torch.Tensor   # [L, C, 2C]
@@ -44,9 +68,33 @@ class StackedDenoiser(NamedTuple):
     wo: torch.Tensor     # [C, M_pad]
     bo: torch.Tensor     # [M_pad]
     cycle: int           # dilation 2^(layer mod cycle)
+    w1s: Optional[torch.Tensor] = None    # [L, 2C] f32 when w1 is int8
+    wouts: Optional[torch.Tensor] = None  # [L, 2C] f32 when wout is int8
+
+    @property
+    def mode(self) -> str:
+        """Launch-counter key: "bf16" (no int8 matmul), "int8-w1" or "int8"."""
+        if self.wouts is not None:
+            return "int8"
+        return "int8-w1" if self.w1s is not None else "bf16"
 
 
-def stack_denoiser_params(den: DiffSVCDenoiser, dtype=torch.bfloat16) -> StackedDenoiser:
+def quantize_cols(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-column int8: w [K, N] ~ q * s, q in [-127, 127],
+    s = max(max_k |w|, 1e-12) / 127 (f32)."""
+    w = w.float()
+    s = torch.clamp(w.abs().amax(dim=0), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def stack_denoiser_params(den: DiffSVCDenoiser, dtype=torch.bfloat16,
+                          quantize: Optional[str] = None) -> StackedDenoiser:
+    """Stack the denoiser for the kernels. ``quantize`` "int8" makes w1 and
+    wout int8 with column scales, "int8-w1" only w1; the int8 weights are
+    quantised from the stored weights cast to f32."""
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {quantize!r} (use None, 'int8' or 'int8-w1')")
     cfg = den.cfg
     n_mel = cfg.n_mel
     m_pad = -(-n_mel // LANE) * LANE
@@ -56,16 +104,29 @@ def stack_denoiser_params(den: DiffSVCDenoiser, dtype=torch.bfloat16) -> Stacked
     def cast(x):
         return x.detach().to(dtype).contiguous()
 
-    w1 = torch.stack([b.dilated_conv.weight.permute(2, 1, 0).reshape(-1, 2 * c) for b in blocks])
-    wout = torch.stack([b.output_projection.weight.t() for b in blocks])
+    def stack_q(ws):
+        qs = [quantize_cols(w) for w in ws]
+        return torch.stack([q for q, _ in qs]), torch.stack([s for _, s in qs])
+
+    w1_f = [b.dilated_conv.weight.detach().permute(2, 1, 0).reshape(-1, 2 * c).float() for b in blocks]
+    wout_f = [b.output_projection.weight.detach().t().float() for b in blocks]
+    w1s = wouts = None
+    if quantize is None:
+        w1 = cast(torch.stack(w1_f))
+    else:
+        w1, w1s = stack_q(w1_f)
+    if quantize == "int8":
+        wout, wouts = stack_q(wout_f)
+    else:
+        wout = cast(torch.stack(wout_f))
     bout = torch.stack([b.output_projection.bias for b in blocks])
     wmel = F.pad(den.mel_preprocess.weight.t(), (0, 0, 0, m_pad - n_mel))
     wo = F.pad(den.output_projection.weight.t(), (0, m_pad - n_mel))
     bo = F.pad(den.output_projection.bias, (0, m_pad - n_mel))
     return StackedDenoiser(
-        cast(w1), cast(wout), cast(bout), cast(wmel), cast(den.mel_preprocess.bias),
+        w1.contiguous(), wout.contiguous(), cast(bout), cast(wmel), cast(den.mel_preprocess.bias),
         cast(den.skip_projection.weight.t()), cast(den.skip_projection.bias),
-        cast(wo), cast(bo), cfg.dilation_cycle_length,
+        cast(wo), cast(bo), cfg.dilation_cycle_length, w1s, wouts,
     )
 
 
@@ -91,9 +152,22 @@ def schedule_rows(schedule: DiffusionSchedule) -> np.ndarray:
     ], axis=1).astype(np.float32)
 
 
-def ddpm_step_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
-                    x: torch.Tensor, z: torch.Tensor, srow: Sequence[float]) -> torch.Tensor:
-    """Plain PyTorch version: x, z [B, T, M_pad] f32 -> x' [B, T, M_pad] f32."""
+def _taps(y: torch.Tensor, d: int) -> torch.Tensor:
+    """[B, T, C] -> [B, T, 3C]: rows t-d, t, t+d, zero outside [0, T)."""
+    t_len = y.shape[1]
+    yp = F.pad(y, (0, 0, d, d))
+    return torch.cat([yp[:, :t_len], yp[:, d:d + t_len], yp[:, 2 * d:2 * d + t_len]], dim=-1)
+
+
+def _int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact product of integer-valued a and int8 w, rounded once to f32."""
+    return (a.double() @ w.double()).float()
+
+
+def forward_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the shared forward: x [B, T, M_pad] f32 ->
+    eps [B, T, M_pad] f32."""
     cd = st.wmel.dtype
 
     def r(a):  # round to the compute dtype, keep computing in f32
@@ -101,110 +175,191 @@ def ddpm_step_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch
 
     n_layers = st.w1.shape[0]
     c = st.wskip.shape[0]
-    t_len = x.shape[1]
     h = r(torch.relu(r(x) @ st.wmel.float() + st.bmel.float()))
     skip = torch.zeros(x.shape[:-1] + (c,), dtype=torch.float32, device=x.device)
     for i in range(n_layers):
         d = 2 ** (i % st.cycle)
-        y = F.pad(r(h + step_rows_t[i].float()), (0, 0, d, d))
-        y3 = torch.cat([y[:, :t_len], y[:, d:d + t_len], y[:, 2 * d:2 * d + t_len]], dim=-1)
-        acc = y3 @ st.w1[i].float() + condb[i].float()
+        y = h + step_rows_t[i].float()
+        if st.w1s is not None:
+            s_y = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-12) * INV_127
+            yq = torch.clamp(torch.round(y * (1.0 / s_y)), -127.0, 127.0)
+            acc = _int8_matmul(_taps(yq, d), st.w1[i]) * (s_y * st.w1s[i])
+        else:
+            acc = _taps(r(y), d) @ st.w1[i].float()
+        acc = acc + condb[i].float()
         g = torch.sigmoid(acc[..., :c]) * torch.tanh(acc[..., c:])
-        yo = r(g) @ st.wout[i].float() + st.bout[i].float()
+        if st.wouts is not None:
+            gq = torch.clamp(torch.round(g * 127.0), -127.0, 127.0)
+            yo = _int8_matmul(gq, st.wout[i]) * (st.wouts[i] * INV_127)
+        else:
+            yo = r(g) @ st.wout[i].float()
+        yo = yo + st.bout[i].float()
         h = r((h + yo[..., :c]) * INV_SQRT2)
         skip = skip + yo[..., c:]
     inv_sqrt_l = float(np.float32(1.0 / math.sqrt(n_layers)))
     s1 = torch.relu(r(skip * inv_sqrt_l) @ st.wskip.float() + st.bskip.float())
-    eps = r(s1) @ st.wo.float() + st.bo.float()
+    return r(s1) @ st.wo.float() + st.bo.float()
+
+
+def ddpm_step_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
+                    x: torch.Tensor, z: torch.Tensor, srow: Sequence[float]) -> torch.Tensor:
+    """Plain PyTorch version of K1: x, z [B, T, M_pad] f32 -> x' [B, T, M_pad] f32."""
+    eps = forward_plain(st, condb, step_rows_t, x)
     s0, s1c, s2, s3, s4 = (float(v) for v in srow)
     x0 = torch.clamp(s0 * x - s1c * eps, -1.0, 1.0)
     return s2 * x0 + s3 * x + s4 * z
 
 
-def _check_cuda_args(st, condb, step_rows_t, x, z) -> None:
-    b, t_len, m_pad = x.shape
+def denoise_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: x [B, T, n_mel] f32 -> eps [B, T, n_mel] f32."""
+    n_mel = x.shape[-1]
+    eps = forward_plain(st, condb, step_rows_t, F.pad(x, (0, st.wmel.shape[0] - n_mel)))
+    return eps[..., :n_mel].contiguous()
+
+
+def _check_cuda_args(name, st, condb, step_rows_t, x) -> None:
+    b, t_len = x.shape[:2]
     n_layers, k3, c2 = st.w1.shape
     c = c2 // 2
+    m_pad = st.wmel.shape[0]
     if k3 != 3 * c or c % 64 or m_pad % 64:
-        raise ValueError(f"ddpm_step: kernel needs k=3 and C, M_pad multiples of 64 (C={c}, M_pad={m_pad})")
+        raise ValueError(f"{name}: kernel needs k=3 and C, M_pad multiples of 64 (C={c}, M_pad={m_pad})")
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     want = {
-        "w1": (n_layers, 3 * c, 2 * c), "wout": (n_layers, c, 2 * c), "bout": (n_layers, 2 * c),
-        "wmel": (m_pad, c), "bmel": (c,), "wskip": (c, c), "bskip": (c,), "wo": (c, m_pad),
-        "bo": (m_pad,),
+        "w1": ((n_layers, 3 * c, 2 * c), bf if st.w1s is None else i8),
+        "wout": ((n_layers, c, 2 * c), bf if st.wouts is None else i8),
+        "bout": ((n_layers, 2 * c), bf), "wmel": ((m_pad, c), bf), "bmel": ((c,), bf),
+        "wskip": ((c, c), bf), "bskip": ((c,), bf), "wo": ((c, m_pad), bf), "bo": ((m_pad,), bf),
+        "condb": ((n_layers, b, t_len, 2 * c), bf), "step_rows_t": ((n_layers, c), bf),
     }
+    if st.w1s is not None:
+        want["w1s"] = ((n_layers, 2 * c), f32)
+    if st.wouts is not None:
+        want["wouts"] = ((n_layers, 2 * c), f32)
     tensors = dict(st._asdict(), condb=condb, step_rows_t=step_rows_t)
-    want.update(condb=(n_layers, b, t_len, 2 * c), step_rows_t=(n_layers, c))
-    for name, shape in want.items():
-        v = tensors[name]
-        if v.dtype != torch.bfloat16 or tuple(v.shape) != shape or not v.is_contiguous():
-            raise ValueError(f"ddpm_step: {name} must be contiguous bf16 {shape}, got {v.dtype} {tuple(v.shape)}")
+    for key, (shape, dtype) in want.items():
+        v = tensors[key]
+        if v.dtype != dtype or tuple(v.shape) != shape or not v.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous {dtype} {shape}, got {v.dtype} {tuple(v.shape)}")
         if v.device != x.device:
-            raise ValueError(f"ddpm_step: {name} is on {v.device}, x on {x.device}")
-    for name, v in (("x", x), ("z", z)):
-        if v.dtype != torch.float32 or v.shape != x.shape or not v.is_contiguous():
-            raise ValueError(f"ddpm_step: {name} must be contiguous f32 {tuple(x.shape)}")
+            raise ValueError(f"{name}: {key} is on {v.device}, x on {x.device}")
+
+
+def _check_f32(name, key, v, shape) -> None:
+    if v.dtype != torch.float32 or tuple(v.shape) != tuple(shape) or not v.is_contiguous():
+        raise ValueError(f"{name}: {key} must be contiguous f32 {tuple(shape)}, got {v.dtype} {tuple(v.shape)}")
+
+
+def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
+    return None if v is None else v.data_ptr()
+
+
+def _forward_operands(st, condb, step_rows_t, x):
+    """Scratch buffers and the pointer arguments every entry point shares:
+    h, skip, g, s1, step rows, the weights, the scales and the [L, B]
+    per-layer abs-max buffer of the int8 conv input."""
+    b, t_len = x.shape[:2]
+    n_layers, _, c2 = st.w1.shape
+    c = c2 // 2
+    h = torch.empty((b * t_len, c), dtype=torch.bfloat16, device=x.device)
+    g = torch.empty_like(h)  # bf16 gate, or int8 gate in its first half
+    s1 = torch.empty_like(h)
+    skip = torch.empty((b * t_len, c), dtype=torch.float32, device=x.device)
+    amax = None if st.w1s is None else torch.empty((n_layers, b), dtype=torch.float32, device=x.device)
+    ptrs = (h.data_ptr(), skip.data_ptr(), g.data_ptr(), s1.data_ptr(), step_rows_t.data_ptr(),
+            st.w1.data_ptr(), condb.data_ptr(), st.wout.data_ptr(), st.bout.data_ptr(),
+            st.wmel.data_ptr(), st.bmel.data_ptr(), st.wskip.data_ptr(), st.bskip.data_ptr(),
+            st.wo.data_ptr(), st.bo.data_ptr(), _ptr(st.w1s), _ptr(st.wouts), _ptr(amax))
+    dims = (b, t_len, c, n_layers, st.cycle, st.wmel.shape[0])
+    return (h, g, s1, skip, amax), ptrs, dims
+
+
+def _count(fn, mode: str) -> None:
+    fn.launches += 1
+    fn.launches_by_mode[mode] += 1
 
 
 def ddpm_step(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
               x: torch.Tensor, z: torch.Tensor, srow: Sequence[float]) -> torch.Tensor:
-    """One reverse step x_t -> x_{t-1}.
+    """One reverse step x_t -> x_{t-1} (K1; K6 on an int8 stack).
 
     st: stacked weights; condb [L, B, T, 2C] (conditioner + conv bias);
     step_rows_t [L, C] (this step's rows); x, z [B, T, M_pad] f32; srow the
     five schedule scalars of this step. CUDA launches are counted in
-    ``ddpm_step.launches`` (one per step).
+    ``ddpm_step.launches`` and, by ``st.mode``, ``ddpm_step.launches_by_mode``.
     """
     if x.device.type == "cpu":
         return ddpm_step_plain(st, condb, step_rows_t, x, z, srow)
-    _check_cuda_args(st, condb, step_rows_t, x, z)
+    _check_cuda_args("ddpm_step", st, condb, step_rows_t, x)
+    for key, v in (("x", x), ("z", z)):
+        _check_f32("ddpm_step", key, v, (x.shape[0], x.shape[1], st.wmel.shape[0]))
     from svc_inference_pipeline_tpu_torch.ops.pallas import _build
 
-    b, t_len, m_pad = x.shape
-    n_layers, _, c2 = st.w1.shape
-    c = c2 // 2
     out = torch.empty_like(x)
-    h = torch.empty((b * t_len, c), dtype=torch.bfloat16, device=x.device)
-    g = torch.empty_like(h)
-    s1 = torch.empty_like(h)
-    skip = torch.empty((b * t_len, c), dtype=torch.float32, device=x.device)
+    _scratch, ptrs, dims = _forward_operands(st, condb, step_rows_t, x)  # alive until enqueued
     status = _build.lib().svc_ddpm_step(
-        x.data_ptr(), z.data_ptr(), out.data_ptr(), h.data_ptr(), skip.data_ptr(),
-        g.data_ptr(), s1.data_ptr(), step_rows_t.data_ptr(),
-        st.w1.data_ptr(), condb.data_ptr(), st.wout.data_ptr(), st.bout.data_ptr(),
-        st.wmel.data_ptr(), st.bmel.data_ptr(), st.wskip.data_ptr(), st.bskip.data_ptr(),
-        st.wo.data_ptr(), st.bo.data_ptr(),
-        b, t_len, c, n_layers, st.cycle, m_pad, *(float(v) for v in srow),
+        x.data_ptr(), z.data_ptr(), out.data_ptr(), *ptrs, *dims, *(float(v) for v in srow),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "svc_ddpm_step")
-    ddpm_step.launches += 1
+    _count(ddpm_step, st.mode)
     return out
 
 
-ddpm_step.launches = 0
+def denoise(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
+            x: torch.Tensor) -> torch.Tensor:
+    """The denoiser forward (K5; K6 on an int8 stack): x [B, T, n_mel] f32,
+    rounded to the compute dtype, -> eps [B, T, n_mel] f32. CUDA launches are
+    counted in ``denoise.launches`` and ``denoise.launches_by_mode``."""
+    if x.device.type == "cpu":
+        return denoise_plain(st, condb, step_rows_t, x)
+    _check_cuda_args("denoise", st, condb, step_rows_t, x)
+    b, t_len, n_mel = x.shape
+    m_pad = st.wmel.shape[0]
+    if n_mel > m_pad:
+        raise ValueError(f"denoise: x has {n_mel} mel channels, the stack {m_pad}")
+    _check_f32("denoise", "x", x, (b, t_len, n_mel))
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    xp = F.pad(x, (0, m_pad - n_mel))
+    eps = torch.empty_like(x)
+    _scratch, ptrs, dims = _forward_operands(st, condb, step_rows_t, x)  # alive until enqueued
+    status = _build.lib().svc_denoise(
+        xp.data_ptr(), eps.data_ptr(), *ptrs, *dims, n_mel,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "svc_denoise")
+    _count(denoise, st.mode)
+    return eps
+
+
+for _fn in (ddpm_step, denoise):
+    _fn.launches = 0
+    _fn.launches_by_mode = {"bf16": 0, "int8": 0, "int8-w1": 0}
 
 
 def ddpm_sample_fused(st: StackedDenoiser, condb: torch.Tensor, step_rows: torch.Tensor,
                       schedule: DiffusionSchedule, shape: Tuple[int, int, int],
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                      noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      st_fp: Optional[StackedDenoiser] = None, tail: int = 0) -> torch.Tensor:
     """Full ancestral DDPM reverse process with the update inside each step.
 
     shape (B, T, M). Step i runs t = steps-1-i with noise z[i]. Noise comes
     from ``generator`` on the carry's device, or from ``noise = (x_T [B,T,M],
     z [steps, B, T, M])`` (x_T already scaled by INIT_NOISE_STD), which tests
-    use to feed both frameworks the same draws. Returns x_0 [B, T, M] f32.
+    use to feed both frameworks the same draws. With ``st_fp``, the last
+    ``tail`` steps run on it (the full-precision stack of an int8 ``st``).
+    Returns x_0 [B, T, M] f32.
     """
     b, t_len, n_mel = shape
     m_pad = st.wmel.shape[0]
     device = condb.device
     num_steps = schedule.num_steps
-    pad = (0, m_pad - n_mel)
-    if noise is None:
-        x_t = INIT_NOISE_STD * torch.randn(shape, generator=generator, device=device)
-    else:
-        x_t = noise[0].to(device=device, dtype=torch.float32)
-    x = F.pad(x_t, pad).contiguous()
+    tail = min(max(int(tail), 0), num_steps) if st_fp is not None else 0
+    x_t = initial_noise(shape, device, generator, None if noise is None else noise[0])
+    x = F.pad(x_t, (0, m_pad - n_mel)).contiguous()
     z = torch.zeros_like(x)
     rows = schedule_rows(schedule)
     for i in range(num_steps):
@@ -212,20 +367,49 @@ def ddpm_sample_fused(st: StackedDenoiser, condb: torch.Tensor, step_rows: torch
             z[..., :n_mel].normal_(generator=generator)
         else:
             z[..., :n_mel] = noise[1][i].to(device=device, dtype=torch.float32)
-        x = ddpm_step(st, condb, step_rows[num_steps - 1 - i], x, z, rows[i])
+        stack = st if i < num_steps - tail else st_fp
+        x = ddpm_step(stack, condb, step_rows[num_steps - 1 - i], x, z, rows[i])
     return x[..., :n_mel]
+
+
+def denoiser_stacks(den: DiffSVCDenoiser, dtype=torch.bfloat16, quantize: Optional[str] = None,
+                    quantize_tail: int = 0) -> Tuple[StackedDenoiser, Optional[StackedDenoiser]]:
+    """(st, st_fp): the stack of the ``quantize`` mode and, for an int8 mode
+    with a DDPM tail, the unquantised stack the tail runs on (else None).
+    They depend on the weights only, so a pipeline makes them once."""
+    st = stack_denoiser_params(den, dtype, quantize)
+    st_fp = stack_denoiser_params(den, dtype) if quantize and quantize_tail > 0 else None
+    return st, st_fp
+
+
+def make_denoise_fn(den: DiffSVCDenoiser, cond: torch.Tensor, num_steps: int,
+                    dtype=torch.bfloat16, quantize: Optional[str] = None, quantize_tail: int = 0,
+                    stacks: Optional[Tuple[StackedDenoiser, Optional[StackedDenoiser]]] = None):
+    """Sampler-compatible ``fn(x, cond, t) -> eps`` over the hoisted
+    conditioning and the stacked (optionally int8) weights; ``t`` is the
+    [B, 1] step argument of which ``t[0, 0]`` is read. ``fn.fused_ddpm(
+    schedule, shape, generator=None, noise=None)`` runs the whole DDPM chain
+    on K1, its last ``quantize_tail`` steps on the unquantised stack.
+    ``stacks`` passes :func:`denoiser_stacks` made earlier for the same
+    ``quantize`` and ``quantize_tail``; without it they are made here."""
+    cond_projs, step_rows = den.precompute(cond, num_steps, dtype)
+    st, st_fp = stacks or denoiser_stacks(den, dtype, quantize, quantize_tail)
+    condb = fold_conditioner(den, cond_projs, dtype)
+    step_rows = step_rows.contiguous()
+
+    def fn(x, _cond_unused, t):
+        return denoise(st, condb, step_rows[int(t[0, 0])], x)
+
+    def fused_ddpm(schedule, shape, generator=None, noise=None):
+        return ddpm_sample_fused(st, condb, step_rows, schedule, shape, generator, noise,
+                                 st_fp=st_fp, tail=quantize_tail)
+
+    fn.fused_ddpm = fused_ddpm
+    return fn
 
 
 def make_fused_sampler(den: DiffSVCDenoiser, cond: torch.Tensor, num_steps: int,
                        dtype=torch.bfloat16):
-    """Sampler closure over the hoisted conditioning and stacked weights:
+    """The DDPM chain of :func:`make_denoise_fn` at the compute dtype:
     ``sample(schedule, shape, generator=None, noise=None) -> x_0``."""
-    cond_projs, step_rows = den.precompute(cond, num_steps, dtype)
-    st = stack_denoiser_params(den, dtype)
-    condb = fold_conditioner(den, cond_projs, dtype)
-    step_rows = step_rows.contiguous()
-
-    def sample(schedule, shape, generator=None, noise=None):
-        return ddpm_sample_fused(st, condb, step_rows, schedule, shape, generator, noise)
-
-    return sample
+    return make_denoise_fn(den, cond, num_steps, dtype).fused_ddpm

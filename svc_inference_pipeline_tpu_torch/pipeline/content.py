@@ -23,6 +23,7 @@ from svc_inference_pipeline_tpu_torch.models.whisper import (
     WhisperAudioEncoder,
     WhisperDims,
 )
+from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
 
 
 def cast_matmul_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -45,8 +46,10 @@ class WhisperPPGExtractor:
 
     @classmethod
     def random_init(cls, size_or_dims: Union[str, WhisperDims] = "tiny",
-                    generator: Optional[torch.Generator] = None, device="cpu",
+                    generator: Optional[torch.Generator] = None, device=None,
                     compute_dtype=torch.bfloat16, fs: int = 24000) -> "WhisperPPGExtractor":
+        """Random weights on ``device`` (None: the GPU, see ``resolve_device``)."""
+        device = resolve_device(device)
         dims = WHISPER_SIZES[size_or_dims] if isinstance(size_or_dims, str) else size_or_dims
         with torch.device(device):
             enc = WhisperAudioEncoder(dims)
@@ -55,8 +58,10 @@ class WhisperPPGExtractor:
         return cls(cast_matmul_weights_(enc.to(device).eval(), compute_dtype), fs)
 
     @classmethod
-    def from_jax_params(cls, dims: WhisperDims, params: Dict[str, Any], device="cpu",
+    def from_jax_params(cls, dims: WhisperDims, params: Dict[str, Any], device=None,
                         compute_dtype=torch.bfloat16, fs: int = 24000) -> "WhisperPPGExtractor":
+        """JAX weights (numpy) on ``device`` (None: the GPU)."""
+        device = resolve_device(device)
         enc = WhisperAudioEncoder(dims)
         load_jax_params(enc, unstack_blocks(params, dims.n_audio_layer))
         return cls(cast_matmul_weights_(enc.to(device).eval(), compute_dtype), fs)

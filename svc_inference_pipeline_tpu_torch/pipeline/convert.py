@@ -1,20 +1,28 @@
 """End-to-end singing voice conversion: wav in -> converted wav out.
 
-Counterpart of ``svc_inference_pipeline_tpu/pipeline/convert.py`` for the
-single-clip DDPM path:
+Counterpart of ``svc_inference_pipeline_tpu/pipeline/convert.py`` for single
+clips:
 
-    pipe = SVCPipeline.from_config(cfg, random_weights=True, device="cuda")
+    pipe = SVCPipeline.from_config(cfg, random_weights=True)   # on the GPU
     wav  = pipe.convert("clip.wav", "svcc_CDF1")
+    wav  = pipe.convert("clip.wav", "svcc_CDF1", sampler="plms", speedup=10)
 
 Stages: load -> [host thread: Praat F0 + median shift to the target singer]
 overlapping [device: mel energy, 24->16 kHz resample, Whisper log-mel and
-encoder (30 s windows), 480->256 hop remap] -> condition encoder -> DDPM
-(one K1 launch per reverse step) -> mel denormalisation -> BigVGAN (K2 per
-stage, K3 for the last activation) -> fade-out and trim at the true length.
-Frame counts are padded to a bucket multiple, as in the JAX pipeline.
+encoder (30 s windows), 480->256 hop remap] -> condition encoder -> the
+sampler -> mel denormalisation -> BigVGAN (K2 per stage, K3 for the last
+activation) -> fade-out and trim at the true length. Frame counts are padded
+to a bucket multiple, as in the JAX pipeline.
+
+Samplers (``cfg.mapper.sampler``, ``plms_speedup``, or per call): "ddpm"
+runs one K1 launch per reverse step; "plms", "ddim" and "dpmpp" evaluate the
+denoiser through K5. ``cfg.denoiser_quantize`` "int8" or "int8-w1" runs
+the denoiser's int8 form (K6) on either; ``denoiser_quantize_tail`` runs
+the last K DDPM steps on the unquantised stack.
 
 ``self.timings`` holds the wall seconds of the last conversion's phases,
-each closed by a device synchronisation.
+each closed by a device synchronisation; ``ddpm_s`` is the diffusion
+sampling phase, whichever sampler ran it.
 """
 
 from __future__ import annotations
@@ -35,14 +43,18 @@ from svc_inference_pipeline_tpu_torch.models.encoder import ConditionEncoder
 from svc_inference_pipeline_tpu_torch.models.whisper import WhisperDims
 from svc_inference_pipeline_tpu_torch.ops.f0 import get_f0_features
 from svc_inference_pipeline_tpu_torch.ops.mel import extract_mel_features
-from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import make_fused_sampler
+from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import QUANTIZE_MODES, denoiser_stacks, make_denoise_fn
 from svc_inference_pipeline_tpu_torch.ops.remap import remap_features_device
 from svc_inference_pipeline_tpu_torch.ops.resample import _out_len, _resample_conv
 from svc_inference_pipeline_tpu_torch.ops.whisper_mel import N_SAMPLES, log_mel_spectrogram
 from svc_inference_pipeline_tpu_torch.pipeline.content import WhisperPPGExtractor
+from svc_inference_pipeline_tpu_torch.sampling.ddim import ddim_sample
+from svc_inference_pipeline_tpu_torch.sampling.dpmpp import dpmpp_sample
+from svc_inference_pipeline_tpu_torch.sampling.plms import plms_sample
 from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 from svc_inference_pipeline_tpu_torch.utils.artifacts import load_mel_min_max, pitch_shift
 from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio
+from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
 from svc_inference_pipeline_tpu_torch.utils.registry import get_singer_id
 
 DEFAULT_BUCKET = 64  # frame-count padding granularity
@@ -56,17 +68,6 @@ def mel_frame_count(cfg: HParams, n_samples: int) -> int:
     """Frame count of the mel front-end for ``n_samples`` samples, analytically."""
     padded_len = n_samples + 2 * int((cfg.n_fft - cfg.hop_length) / 2)
     return 1 + (padded_len - cfg.n_fft) // cfg.hop_length
-
-
-def resolve_device(name: Optional[str]) -> torch.device:
-    """Config/CLI device name -> torch device: "tpu", "cuda" and "gpu" all
-    name the GPU (the JAX config's default is "tpu")."""
-    name = (name or "cuda").lower()
-    if name in ("tpu", "cuda", "gpu"):
-        return torch.device("cuda")
-    if name.startswith("cuda:") or name == "cpu":
-        return torch.device(name)
-    raise ValueError(f"unknown device {name!r} (use cuda, tpu or cpu)")
 
 
 def compute_dtype(cfg: HParams) -> torch.dtype:
@@ -85,9 +86,6 @@ class SVCPipeline:
     def __init__(self, cfg: HParams, cond_encoder: ConditionEncoder, denoiser: DiffSVCDenoiser,
                  vocoder: BigVGANGenerator, whisper: WhisperPPGExtractor,
                  device: Union[str, torch.device]):
-        sampler = cfg.mapper.get("sampler", "ddpm")
-        if sampler != "ddpm":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet (only 'ddpm')")
         self.cfg = cfg
         self.device = torch.device(device)
         self.compute_dtype = cd = compute_dtype(cfg)
@@ -108,6 +106,9 @@ class SVCPipeline:
         self._mel_min = torch.as_tensor(mel_min, device=self.device)
         self._mel_max = torch.as_tensor(mel_max, device=self.device)
         self.timings: Dict[str, float] = {}
+        self.sampler = cfg.mapper.get("sampler", "ddpm")
+        self.plms_speedup = int(cfg.mapper.get("plms_speedup", 10))
+        self.set_quantize(cfg.get("denoiser_quantize", None), int(cfg.get("denoiser_quantize_tail", 0)))
 
     # ------------------------------------------------------------------
     # Builders
@@ -148,8 +149,10 @@ class SVCPipeline:
 
     @classmethod
     def from_jax_params(cls, cfg: HParams, cond_params, den_params, voc_params,
-                        whisper_dims: WhisperDims, whisper_params, device="cpu") -> "SVCPipeline":
-        """Build from JAX parameter trees (numpy), through the weights bridge."""
+                        whisper_dims: WhisperDims, whisper_params, device=None) -> "SVCPipeline":
+        """Build from JAX parameter trees (numpy), through the weights bridge,
+        on ``device`` (None: the GPU, see ``resolve_device``)."""
+        device = resolve_device(device)
         cd = compute_dtype(cfg)
         whisper = WhisperPPGExtractor.from_jax_params(whisper_dims, whisper_params, device, cd, cfg.fs)
         cfg = cls._adapt_content_width(cfg, whisper_dims.n_audio_state)
@@ -207,20 +210,73 @@ class SVCPipeline:
         return batch, n_frames
 
     # ------------------------------------------------------------------
-    # Core: cond encode -> DDPM -> denorm -> vocode -> finalize
+    # Core: cond encode -> sampler -> denorm -> vocode -> finalize
     # ------------------------------------------------------------------
+
+    SAMPLERS = ("ddpm", "plms", "ddim", "dpmpp")
+
+    def _resolve_sampler(self, sampler: Optional[str], speedup: Optional[int]) -> Tuple[str, int]:
+        """Validated (sampler, speedup) with the pipeline defaults; ddpm pins
+        the stride to 1 (it has none)."""
+        sampler = sampler or self.sampler
+        if sampler not in self.SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r} (choose from {self.SAMPLERS})")
+        speedup = int(speedup) if speedup is not None else self.plms_speedup
+        if speedup < 1:
+            raise ValueError(f"speedup must be >= 1, got {speedup}")
+        if sampler == "ddpm":
+            speedup = 1
+        return sampler, speedup
+
+    def set_sampler(self, sampler: str, speedup: Optional[int] = None) -> None:
+        """Switch the default sampler ("ddpm" | "plms" | "ddim" | "dpmpp")."""
+        if sampler not in self.SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r} (choose from {self.SAMPLERS})")
+        if speedup is not None and int(speedup) < 1:
+            raise ValueError(f"speedup must be >= 1, got {speedup}")
+        self.sampler = sampler
+        if speedup is not None:
+            self.plms_speedup = int(speedup)
+
+    def set_quantize(self, quantize: Optional[str], tail: int = 0) -> None:
+        """Switch the denoiser's int8 mode: None, "int8" (conv and output
+        matmuls) or "int8-w1" (conv only); ``tail`` runs the last K DDPM
+        steps on the unquantised stack. Takes effect at the next conversion.
+        The kernels' weight stacks are made here, from the denoiser's
+        weights as they are now."""
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"denoiser_quantize={quantize!r}: use 'int8', "
+                             "'int8-w1' (output projection stays at compute dtype) or unset")
+        self.denoiser_quantize = quantize
+        self.denoiser_quantize_tail = tail = int(tail)
+        with torch.no_grad():
+            self._stacks = denoiser_stacks(self.denoiser, self.compute_dtype, quantize, tail)
+
+    def _run_sampler(self, denoise_fn, cond, shape, sampler, speedup, generator, noise):
+        if sampler == "plms":
+            return plms_sample(denoise_fn, cond, shape, self.schedule, speedup, generator, noise)
+        if sampler == "ddim":
+            return ddim_sample(denoise_fn, cond, shape, self.schedule, speedup,
+                               generator=generator, noise=noise)
+        if sampler == "dpmpp":
+            return dpmpp_sample(denoise_fn, cond, shape, self.schedule, speedup,
+                                generator=generator, noise=noise)
+        return denoise_fn.fused_ddpm(self.schedule, shape, generator, noise)
 
     @torch.no_grad()
     def _convert_core(self, batch: Dict[str, torch.Tensor], n_true: torch.Tensor, n_frames: int,
-                      generator: Optional[torch.Generator] = None,
-                      noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None, noise=None,
+                      sampler: Optional[str] = None, speedup: Optional[int] = None) -> torch.Tensor:
         """Waveform [B, n_frames * hop] (f32) of a padded feature batch.
-        ``noise = (x_T, z [steps, B, T, M])`` injects the sampler's draws."""
+        ``noise`` injects the sampler's draws: (x_T, z [steps, B, T, M]) for
+        DDPM and DDIM, x_T for PLMS and DPM++ (x_T scaled by INIT_NOISE_STD)."""
+        sampler, speedup = self._resolve_sampler(sampler, speedup)
         t0 = time.perf_counter()
         cond = self.cond_encoder(batch)
         shape = (cond.shape[0], n_frames, self.cfg.mapper.n_mel)
-        sample = make_fused_sampler(self.denoiser, cond, self.schedule.num_steps, self.compute_dtype)
-        mel_norm = sample(self.schedule, shape, generator, noise)
+        denoise_fn = make_denoise_fn(self.denoiser, cond, self.schedule.num_steps, self.compute_dtype,
+                                     self.denoiser_quantize, self.denoiser_quantize_tail, self._stacks)
+        mel_norm = self._run_sampler(denoise_fn, cond, shape, sampler, speedup, generator, noise)
         _sync(self.device)
         t1 = time.perf_counter()
         lo, hi = self._mel_min, self._mel_max
@@ -233,15 +289,18 @@ class SVCPipeline:
         return wave
 
     def convert(self, wav: Union[str, np.ndarray], singer_name: str,
-                generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """Convert one utterance to the target singer -> waveform at cfg.fs."""
+                generator: Optional[torch.Generator] = None, sampler: Optional[str] = None,
+                speedup: Optional[int] = None) -> np.ndarray:
+        """Convert one utterance to the target singer -> waveform at cfg.fs.
+        ``sampler``/``speedup`` override the pipeline defaults for this call."""
+        sampler, speedup = self._resolve_sampler(sampler, speedup)
         t0 = time.perf_counter()
         batch, n_frames = self.extract_features(wav, singer_name)
         _sync(self.device)
         self.timings = {"frontend_s": time.perf_counter() - t0}
         padded = batch["melody"].shape[1]
         n_true = torch.tensor([n_frames], device=self.device)
-        wave = self._convert_core(batch, n_true, padded, generator)
+        wave = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup)
         audio = wave[0, : n_frames * self.cfg.hop_length].cpu().numpy().copy()
         self.timings["total_s"] = time.perf_counter() - t0
         return audio

@@ -24,6 +24,20 @@ INIT_NOISE_STD = 1.0 / 1.2
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+def step_index(t: int, batch: int) -> torch.Tensor:
+    """The fast samplers' step argument: int64 [B, 1] on the CPU, so a
+    kernel-backed ``denoise_fn`` reads it without a device synchronisation."""
+    return torch.full((batch, 1), int(t), dtype=torch.int64)
+
+
+def initial_noise(shape: Sequence[int], device, generator: Optional[torch.Generator],
+                  noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """x_T: ``noise`` (already scaled by INIT_NOISE_STD) or a fresh draw."""
+    if noise is None:
+        return INIT_NOISE_STD * torch.randn(tuple(shape), generator=generator, device=device)
+    return noise.to(device=device, dtype=torch.float32)
+
+
 def p_sample_step(denoise_fn: DenoiseFn, schedule: DiffusionSchedule, x: torch.Tensor,
                   t: int, cond: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """One reverse step x_t -> x_{t-1} with the given standard-normal z."""
@@ -47,10 +61,7 @@ def ddpm_sample(denoise_fn: DenoiseFn, cond: torch.Tensor, shape: Sequence[int],
     device of ``cond``.
     """
     device = cond.device
-    if noise is None:
-        x = INIT_NOISE_STD * torch.randn(tuple(shape), generator=generator, device=device)
-    else:
-        x = noise[0].to(device=device, dtype=torch.float32)
+    x = initial_noise(shape, device, generator, None if noise is None else noise[0])
     num_steps = schedule.num_steps
     for i in range(num_steps):
         if noise is None:

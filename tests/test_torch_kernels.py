@@ -53,7 +53,7 @@ def test_library_builds_and_binds(dev):
     path, _, _ = _build.build()
     assert path.exists()
     lib = _build.lib()
-    for name in ("svc_ddpm_step", "svc_encoder_attention", "svc_activation1d", "svc_conv1d"):
+    for name in ("svc_ddpm_step", "svc_denoise", "svc_encoder_attention", "svc_activation1d", "svc_conv1d"):
         assert getattr(lib, name).restype is not None
 
 
@@ -83,6 +83,78 @@ def test_k1_ddpm_step(dev, b, t_len, c, layers):
             _close(got, denoiser_step.ddpm_step_plain(st, condb, rows[3], x, z, srow),
                    tol=lambda m: 1e-2 * m, view=lambda y, s=srow: y - s[3] * x - s[4] * z)
             assert torch.all(got[..., 100:] == 0)
+
+
+def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0):
+    """A random denoiser stacked for the kernels (bf16, or int8 with
+    ``quantize``), its conditioner and step rows, and x [b, t_len, 100] f32
+    whose element i is scaled by 8^i, so that a second element's int8 scale
+    is ~8x the first's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
+                  diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
+    with torch.device(dev):
+        den = DiffSVCDenoiser(cfg, BF)
+    with torch.no_grad():
+        for p in den.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) / (p.shape[-1] ** 0.5 if p.dim() > 1 else 10))
+        den = den.to(BF)
+        cp, rows = den.precompute(torch.randn((b, t_len, c), generator=g, device=dev), 10, BF)
+        st = denoiser_step.stack_denoiser_params(den, BF, quantize)
+        condb = denoiser_step.fold_conditioner(den, cp, BF)
+    scale = (8.0 ** torch.arange(b, device=dev)).view(b, 1, 1)
+    x = scale * torch.randn((b, t_len, 100), generator=g, device=dev)
+    return st, condb, rows, x, g
+
+
+_SHAPES = [(1, 64, 128, 4), (2, 100, 128, 5), (2, 37, 192, 5)]
+
+
+@pytest.mark.parametrize("quantize", [None, "int8-w1", "int8"])
+@pytest.mark.parametrize("b,t_len,c,layers", _SHAPES)
+def test_k5_k6_denoise(dev, quantize, b, t_len, c, layers):
+    """K5 (bf16) and K6 in its K5 form: eps of each batch element to 1e-2 of
+    that element's range; the elements' int8 scales differ by ~8x."""
+    st, condb, rows, x, _ = _denoiser_operands(dev, b, t_len, c, layers, quantize)
+    before = dict(denoiser_step.denoise.launches_by_mode)
+    got = denoiser_step.denoise(st, condb, rows[3], x)
+    ref = denoiser_step.denoise_plain(st, condb, rows[3], x)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    for i in range(b):
+        _close(got, ref, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
+        # each clip's eps is the kernel's eps of that clip alone, exactly
+        alone = denoiser_step.denoise(st, condb[:, i:i + 1].contiguous(), rows[3], x[i:i + 1].contiguous())
+        assert torch.equal(got[i:i + 1], alone)
+    assert denoiser_step.denoise.launches_by_mode[st.mode] == before[st.mode] + 1 + b
+
+
+@pytest.mark.parametrize("quantize", ["int8-w1", "int8"])
+@pytest.mark.parametrize("b,t_len,c,layers", _SHAPES)
+def test_k6_ddpm_step(dev, quantize, b, t_len, c, layers):
+    """K6 in its K1 form, held on x' - x/2 - z/2 (= eps) per batch element."""
+    st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, c, layers, quantize)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
+    srow = (0.0, -1 / 16, 16.0, 0.5, 0.5)
+    got = denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
+    ref = denoiser_step.ddpm_step_plain(st, condb, rows[3], xp, z, srow)
+    for i in range(b):
+        _close(got, ref, tol=lambda m: 1e-2 * m, view=lambda y, i=i: (y - 0.5 * xp - 0.5 * z)[i])
+    assert torch.all(got[..., 100:] == 0)
+
+
+def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    st, condb, rows, x, _ = _denoiser_operands(dev, 1, 64, 128, 4, "int8")
+    with pytest.raises(ValueError, match="x must be contiguous f32"):
+        denoiser_step.denoise(st, condb, rows[3], x.to(BF))
+    with pytest.raises(ValueError, match="condb must be"):
+        denoiser_step.denoise(st, condb[:, :, :32].contiguous(), rows[3], x)
+    with pytest.raises(ValueError, match="w1 must be contiguous torch.int8"):
+        denoiser_step.denoise(st._replace(w1=st.w1.to(BF)), condb, rows[3], x)
+    with pytest.raises(ValueError, match="is on cpu"):
+        denoiser_step.denoise(st._replace(w1s=st.w1s.cpu()), condb, rows[3], x)
+    with pytest.raises(ValueError, match="is on cpu"):
+        denoiser_step.ddpm_step(st, condb, rows[3].cpu(), x, x, (0.0,) * 5)
 
 
 @pytest.mark.parametrize("b,t_len,heads,masked_tail", [
