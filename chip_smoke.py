@@ -13,7 +13,9 @@
    differ 8x, also on the first two layers frame by frame), K4 one Whisper
    layer's attention and a masked-tail case (with
    ``scaled_dot_product_attention`` timed beside it), K2 the six vocoder
-   stages, K3 the final activation;
+   stages, K3 the final activation, K7 every AMPBlock1 pair of stages 1-5
+   (C <= 384) and two clips shorter than a pair's two halos, K8 the
+   one-launch eps forward at T=944 (against its plain version and K5);
 4. drives the main paths, each with the launch counters set to 0 just before
    it and read just after, on a synthetic 4 s clip at full width (random
    weights, Whisper-medium, DiffSVC 20x384, BigVGAN 1536):
@@ -24,9 +26,16 @@
    e. DDPM-1000 in "int8" with a 50-step bf16 tail (K1 int8 x 950, bf16 x 50);
    then the correlation of the int8-w1 DDPM-1000 final mel with the bf16 one
    for the same conditioning and noise, held to >= 0.9999;
+   f. the CLI with a resblock-"2" vocoder (AMPBlock2, dilations [1, 3]) and
+      PLMS@10 in bf16 (K5 x 101, K4 x 24, K3 x 37);
+   g. the vocoder block by block on the clip's mel (384 frames):
+      ``forward_per_block`` (K7 x 45, K3 x 19), then the generator's own
+      forward on the same mel (K2 x 6, K3 x 1); the two waveforms must
+      correlate >= 0.97;
+   h. the TPU harness's loop x <- 1e-3 eps + 0.999 x over 100 steps at
+      T=944, once through K8 (x 100) and once through K5 (x 100);
 5. prints the card again, the kernels' JSON line (``launches`` summed over
-   the five paths; K6 counts K1's and K5's int8 launches), then the result
-   line.
+   the paths; K6 counts K1's and K5's int8 launches), then the result line.
 
 Imports nothing of JAX. Exits non-zero, without a result line, when there is
 no CUDA device or any check fails.
@@ -49,6 +58,9 @@ CLIP_SECONDS = 4.0
 SINGER = "svcc_CDF1"
 WHISPER_SIZE = "medium"
 TPU_KERNELS = "svc_inference_pipeline_tpu/ops/pallas"
+HARNESS_FRAMES = 944  # the TPU harness's clip (perf_kernel3.main)
+HARNESS_STEPS = 100
+VOCODER_MIN_CORR = 0.97  # per-block vs K2 waveform (the repo's bf16 tolerance, tests/test_bf16_drift.py)
 
 # Published peaks of one H100 SXM (dense): tensor-core bf16 and int8, f32
 # outside the tensor cores, HBM bandwidth. bound_ms is the largest of bytes /
@@ -248,10 +260,12 @@ def random_denoiser(cfg, g, device):
 
 def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     """K1, K5 and K6 at B=1, T=n_frames, C=384, L=20, bf16 compute; K6 also at
-    B=2 with the second clip's mel (so its int8 scale) 8x the first's."""
+    B=2 with the second clip's mel (so its int8 scale) 8x the first's; K8 at
+    B=1, T=HARNESS_FRAMES."""
     import torch
 
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step as ds
+    from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_v2 as dv2
     from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 
     bf = torch.bfloat16
@@ -261,10 +275,10 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     t_mid = sched.num_steps // 2
     rows = {}
 
-    def operands(b, quantize, layers=None):
+    def operands(b, quantize, layers=None, t_len=n_frames):
         """The stack, conditioner blocks and step rows; with ``layers`` cut to
         the first ``layers`` layers."""
-        cond = torch.randn((b, n_frames, cfg.mapper.conditioner_size), generator=g, device=device)
+        cond = torch.randn((b, t_len, cfg.mapper.conditioner_size), generator=g, device=device)
         cond_projs, step_rows = den.precompute(cond, sched.num_steps, bf)
         st = ds.stack_denoiser_params(den, bf, quantize)
         condb, srow = ds.fold_conditioner(den, cond_projs, bf), step_rows[t_mid].contiguous()
@@ -275,9 +289,9 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
             condb, srow = condb[:layers].contiguous(), srow[:layers].contiguous()
         return st, condb, srow
 
-    def mel(b):
+    def mel(b, t_len=n_frames):
         scale = (8.0 ** torch.arange(b, device=device)).view(b, 1, 1)
-        return scale * torch.randn((b, n_frames, n_mel), generator=g, device=device)
+        return scale * torch.randn((b, t_len, n_mel), generator=g, device=device)
 
     # a schedule row that gives x' = clamp(eps/16, +-1) * 16 + x/2 + z/2 = eps + x/2 + z/2
     # (|eps| < 16): eps at full weight, and the update's x and z terms in use.
@@ -336,15 +350,99 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     # clip alone: a kernel with one int8 scale over both clips quantises the
     # first 8x too coarsely
     rows["K6 int8-w1 B=2"] = eps_form("K6 B=2", "int8-w1", b=2)
+
+    # K8 at the TPU harness's shape, against its plain version and against K5
+    # on the same operands (K5's time there printed beside K8's)
+    st, condb, srow = operands(1, None, t_len=HARNESS_FRAMES)
+    x = mel(1, HARNESS_FRAMES)
+    print(f"K8 denoise_v2 [1, {HARNESS_FRAMES}, {n_mel}] f32, C=384, L=20, bf16 stack")
+    k8 = compare("K8 eps", lambda: dv2.denoise_v2(st, condb, srow, x),
+                 lambda: ds.denoise_plain(st, condb, srow, x), EPS_TOL)
+    k5 = compare("K8 vs K5 eps", lambda: dv2.denoise_v2(st, condb, srow, x),
+                 lambda: ds.denoise(st, condb, srow, x), EPS_TOL)
+    print(f"  K8 {k5['ms']:.4f} ms in one launch of {dv2.denoise_v2.grid} blocks; "
+          f"K5 {k5['plain_ms']:.4f} ms in {2 + 2 * st.w1.shape[0]} launches, T={HARNESS_FRAMES}")
+    k8.update(k5_ms=k5["plain_ms"], k5_err=k5["max_abs_err"], grid=dv2.denoise_v2.grid)
+    k8["bound_ms"], k8["bound_by"] = denoiser_bound(st, condb, 1, HARNESS_FRAMES, 2 * x.nbytes)
+    rows["K8"] = k8
     return rows
 
 
-def check_kernels(cfg, device) -> dict:
-    """Kernel vs plain at the 4 s main-path shapes; returns per-kernel rows."""
+def random_vocoder(vcfg, g, device):
+    """BigVGAN at full width in bf16 (the pipeline's cast policy: leaves of
+    2+ dimensions bf16, 1-D leaves f32 and random), kernel parameters made."""
     import torch
 
     from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
     from svc_inference_pipeline_tpu_torch.models.bigvgan import BigVGANGenerator
+
+    with torch.device(device):
+        voc = BigVGANGenerator(vcfg, compute_dtype=torch.bfloat16)
+    random_init_(voc, g)
+    randomize_vectors_(voc, g)
+    with torch.no_grad():
+        for p in voc.parameters():
+            if p.dim() >= 2:
+                p.data = p.data.to(torch.bfloat16)
+    voc.prepare_kernel_params()
+    return voc
+
+
+def check_k7(voc, g, device, n_frames: int) -> dict:
+    """K7 on every AMPBlock1 pair of the stages with C <= 384 (stages 1-5) at
+    the 4 s shapes, one random input per stage; then two clips shorter than
+    a pair's two halos (tiles that touch both edges). Times are summed over
+    the pairs: the per-block route's K7 time for one 4 s clip."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.ops.pallas import amp_pair
+
+    vcfg = voc.cfg
+    row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    nbytes, ops = 0, {"bf16": 0, "f32": 0}
+    t_len = n_frames
+    blocks = {}
+    for i, u in enumerate(vcfg.upsample_rates):
+        t_len *= u
+        c = vcfg.upsample_initial_channel // 2 ** (i + 1)
+        if c > amp_pair.MAX_CHANNELS:
+            continue
+        xs = (0.5 * torch.randn((1, t_len, c), generator=g, device=device)).to(torch.bfloat16)
+        print(f"K7 fused_amp_pair stage {i} [1, {t_len}, {c}] bf16")
+        for j in range(len(vcfg.resblock_kernel_sizes)):
+            blk = getattr(voc, f"resblock_{i}_{j}")
+            blocks.setdefault(c, []).append(blk)
+            for pair, d in zip(blk.kernel_pairs, blk.dilations):
+                k = blk.kernel_size
+                r = compare(f"K7 stage {i} k={k} d={d}",
+                            lambda xs=xs, pair=pair, k=k, d=d: amp_pair.fused_amp_pair(xs, pair, k, d),
+                            lambda xs=xs, pair=pair, k=k, d=d: amp_pair.amp_pair_plain(xs, pair, k, d),
+                            BF16_TOL, reps=3)
+                row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+                row["ms"] += r["ms"]
+                row["plain_ms"] += r["plain_ms"]
+                nbytes += 2 * xs.nbytes + sum(v.nbytes for v in pair)
+                ops["bf16"] += 2 * 2 * t_len * c * c * k
+                ops["f32"] += 2 * SNAKE_OPS * t_len * c
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+    # the widest K7 stage's block with the most taps, the narrowest stage's with the fewest
+    widest, narrowest = max(blocks), min(blocks)
+    for blk, t_short in ((max(blocks[widest], key=lambda b: b.kernel_size), 50),
+                         (min(blocks[narrowest], key=lambda b: b.kernel_size), 7)):
+        c, k, pair, d = blk.channels, blk.kernel_size, blk.kernel_pairs[-1], blk.dilations[-1]
+        xs = (0.5 * torch.randn((2, t_short, c), generator=g, device=device)).to(torch.bfloat16)
+        print(f"K7 fused_amp_pair [2, {t_short}, {c}] k={k} d={d}: T < 2H = {2 * amp_pair.pair_halo(k, d)}")
+        r = compare(f"K7 short clip C={c}", lambda: amp_pair.fused_amp_pair(xs, pair, k, d),
+                    lambda: amp_pair.amp_pair_plain(xs, pair, k, d), BF16_TOL, reps=2)
+        row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+    return row
+
+
+def check_kernels(cfg, device) -> tuple:
+    """Kernel vs plain at the 4 s main-path shapes; returns the per-kernel
+    rows and the random full-width vocoder they used."""
+    import torch
+
     from svc_inference_pipeline_tpu_torch.ops.pallas import amp_stage, snake
 
     g = torch.Generator(device=device).manual_seed(1234)
@@ -355,15 +453,7 @@ def check_kernels(cfg, device) -> dict:
 
     # K2: the six stages of BigVGAN-1536 for a 4 s clip; K3: activation_post
     vcfg = cfg.vocoder
-    with torch.device(device):
-        voc = BigVGANGenerator(vcfg, compute_dtype=bf)
-    random_init_(voc, g)
-    randomize_vectors_(voc, g)
-    with torch.no_grad():
-        for p in voc.parameters():  # the pipeline's cast policy
-            if p.dim() >= 2:
-                p.data = p.data.to(bf)
-    voc.prepare_kernel_params()
+    voc = random_vocoder(vcfg, g, device)
     ks = tuple(vcfg.resblock_kernel_sizes)
     dils = tuple(tuple(d) for d in vcfg.resblock_dilation_sizes)
     n_convs = 2 * sum(len(d) for d in dils)
@@ -404,7 +494,8 @@ def check_kernels(cfg, device) -> dict:
         BF16_TOL,
     )
     rows["K3"]["bound_ms"], rows["K3"]["bound_by"] = bound(2 * xa.nbytes, {"f32": SNAKE_OPS * xa.numel()})
-    return rows
+    rows["K7"] = check_k7(voc, g, device, n_frames)
+    return rows, voc
 
 
 def synth_clip(path: str, fs: int, seconds: float) -> int:
@@ -419,14 +510,16 @@ def synth_clip(path: str, fs: int, seconds: float) -> int:
 
 
 class Counters:
-    """The kernels' launch counters: K1 and K5 by stack mode, K4, K2, K3."""
+    """The kernels' launch counters: K1 and K5 by stack mode, K4, K2, K3, K7, K8."""
 
     def __init__(self):
-        from svc_inference_pipeline_tpu_torch.ops.pallas import amp_stage, attention, denoiser_step, snake
+        from svc_inference_pipeline_tpu_torch.ops.pallas import (
+            amp_pair, amp_stage, attention, denoiser_step, denoiser_v2, snake)
 
         self.by_mode = {"K1": denoiser_step.ddpm_step, "K5": denoiser_step.denoise}
         self.plain = {"K4": attention.encoder_attention, "K2": amp_stage.fused_amp_stage,
-                      "K3": snake.fused_activation1d}
+                      "K3": snake.fused_activation1d, "K7": amp_pair.fused_amp_pair,
+                      "K8": denoiser_v2.denoise_v2}
 
     def reset(self) -> None:
         for fn in self.by_mode.values():
@@ -463,21 +556,122 @@ def drive(name: str, counters: Counters, run, expected: dict, paths: list) -> No
     want = dict.fromkeys(counts, 0)
     want.update(expected)
     print(f"path {name}: launches {({k: n for k, n in counts.items() if n})}")
-    print(f"  front-end {timings['frontend_s']:.3f}s, sampling {timings['ddpm_s']:.3f}s, vocoder "
-          f"{timings['vocoder_s']:.3f}s, conversion {timings['total_s']:.3f}s "
-          f"(RTF {timings['total_s'] / CLIP_SECONDS:.4f}), wall {wall:.2f}s")
+    if "total_s" in timings:
+        print(f"  front-end {timings['frontend_s']:.3f}s, sampling {timings['ddpm_s']:.3f}s, vocoder "
+              f"{timings['vocoder_s']:.3f}s, conversion {timings['total_s']:.3f}s "
+              f"(RTF {timings['total_s'] / CLIP_SECONDS:.4f}), wall {wall:.2f}s")
+    else:
+        print("  " + ", ".join(f"{k} {v:.4f}" for k, v in timings.items()) + f", wall {wall:.2f}s")
     if counts != want:
         raise AssertionError(f"{name}: launch counts {counts} != expected {want}")
     paths.append({"path": name, "launches": counts, **timings})
 
 
-def main_paths(cfg, device) -> tuple:
-    """The five main paths (module docstring, step 4); returns their records
-    and the int8-w1 vs bf16 final-mel correlation."""
+def per_block_counts(vcfg) -> dict:
+    """Launches of ``forward_per_block``: one K7 per pair of every block up to
+    384 channels, two K3 per pair of a wider block, one K3 for
+    activation_post."""
+    from svc_inference_pipeline_tpu_torch.ops.pallas.amp_pair import MAX_CHANNELS
+
+    pairs = sum(len(rd) for rd in vcfg.resblock_dilation_sizes)
+    widths = [vcfg.upsample_initial_channel // 2 ** (i + 1) for i in range(len(vcfg.upsample_rates))]
+    return {"K7": pairs * sum(c <= MAX_CHANNELS for c in widths),
+            "K3": 2 * pairs * sum(c > MAX_CHANNELS for c in widths) + 1}
+
+
+def vocoder_paths(cfg, voc, counters, paths, device, audio) -> dict:
+    """Path g: the vocoder block by block, then through K2, on the clip's
+    log-mel (cut or edge-padded to 384 frames), each timed warm; returns the
+    two waveforms' max abs difference and correlation."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from svc_inference_pipeline_tpu_torch.ops.mel import extract_mel_features
+
+    n_frames = 384
+    mel, _ = extract_mel_features(torch.as_tensor(audio, device=device), cfg)
+    mel = mel[None, :, :n_frames]
+    mel = F.pad(mel, (0, n_frames - mel.shape[-1]), mode="replicate").transpose(1, 2).contiguous()
+    waves = {}
+
+    def vocode(name, fn):
+        def run():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                waves[name] = fn(mel)
+            torch.cuda.synchronize()
+            return {"vocoder_s": time.perf_counter() - t0}
+        return run
+
+    with torch.no_grad():  # each route once untimed (first use of its conv shapes), so both times are warm
+        voc.forward_per_block(mel), voc(mel)
+    torch.cuda.synchronize()
+    drive("vocoder per block", counters, vocode("block", voc.forward_per_block), per_block_counts(voc.cfg),
+          paths)
+    drive("vocoder K2 route", counters, vocode("k2", voc), {"K2": len(voc.cfg.upsample_rates), "K3": 1}, paths)
+    a, b = (waves[k][0].double().cpu().numpy() for k in ("block", "k2"))
+    if not (np.isfinite(a).all() and a.shape == b.shape == (n_frames * 256,)):
+        raise AssertionError(f"per-block waveform {a.shape}, finite {bool(np.isfinite(a).all())}")
+    out = {"max_abs_diff": float(np.abs(a - b).max()), "corr": float(np.corrcoef(a, b)[0, 1])}
+    print(f"vocoder per block vs K2 route: max_abs_diff {out['max_abs_diff']:.4e}, correlation "
+          f"{out['corr']:.6f} (gate {VOCODER_MIN_CORR})")
+    if not out["corr"] >= VOCODER_MIN_CORR:
+        raise AssertionError(f"per-block vs K2 waveform correlation {out['corr']} < {VOCODER_MIN_CORR}")
+    return out
+
+
+def harness_paths(cfg, counters, paths, device) -> dict:
+    """Path h: the TPU harness's loop x <- 1e-3 eps + 0.999 x over
+    HARNESS_STEPS steps (t = 99 .. 0 of the 1000-step schedule) at
+    T = HARNESS_FRAMES, through K8 and then through K5; returns ms per step of
+    each and the two final x's max abs difference."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import make_denoise_fn
+    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_v2 import build_v2_fn
+
+    g = torch.Generator(device=device).manual_seed(4321)
+    steps = int(cfg.mapper.noise_schedule_factors[2])
+    den = random_denoiser(cfg, g, device)
+    cond = torch.randn((1, HARNESS_FRAMES, cfg.mapper.conditioner_size), generator=g, device=device)
+    x0 = torch.randn((1, HARNESS_FRAMES, cfg.mapper.n_mel), generator=g, device=device)
+    with torch.no_grad():
+        fns = {"K8": build_v2_fn(den, cond, steps), "K5": make_denoise_fn(den, cond, steps)}
+    finals, out = {}, {}
+
+    def loop(key):
+        def run():
+            x = x0.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(HARNESS_STEPS - 1, -1, -1):
+                x = 1e-3 * fns[key](x, cond, torch.full((1, 1), t)) + 0.999 * x
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            finals[key] = x
+            out[f"{key}_ms_per_step"] = 1e3 * seconds / HARNESS_STEPS
+            return {"ms_per_step": out[f"{key}_ms_per_step"]}
+        return run
+
+    drive("harness loop K8", counters, loop("K8"), {"K8": HARNESS_STEPS}, paths)
+    drive("harness loop K5", counters, loop("K5"), {"K5 bf16": HARNESS_STEPS}, paths)
+    out["max_abs_diff"] = (finals["K8"] - finals["K5"]).abs().max().item()
+    print(f"harness loop, {HARNESS_STEPS} steps at T={HARNESS_FRAMES}: K8 {out['K8_ms_per_step']:.4f} ms/step, "
+          f"K5 {out['K5_ms_per_step']:.4f} ms/step; final x max_abs_diff {out['max_abs_diff']:.3e}")
+    if not torch.isfinite(finals["K8"]).all() or not out["max_abs_diff"] <= 1e-2 * finals["K5"].abs().max().item():
+        raise AssertionError(f"harness loop: K8 and K5 final x differ by {out['max_abs_diff']}")
+    return out
+
+
+def main_paths(cfg, device, voc) -> tuple:
+    """The main paths (module docstring, step 4); returns their records and
+    the checks' numbers (int8-w1 mel correlation, per-block vocoder, harness)."""
     import numpy as np
     import torch
 
     from svc_inference_pipeline_tpu_torch import cli
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
     from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import make_denoise_fn
     from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
     from svc_inference_pipeline_tpu_torch.utils.audio_io import read_wav
@@ -545,7 +739,21 @@ def main_paths(cfg, device) -> tuple:
               f"(gate {INT8_W1_MIN_CORR})")
         if not corr >= INT8_W1_MIN_CORR:
             raise AssertionError(f"int8-w1 final mel correlation {corr} < {INT8_W1_MIN_CORR}")
-    return paths, corr
+
+        # f. resblock "2": the generator's block route (AMPBlock2, K3 + conv per dilation)
+        d = cfg.to_dict()
+        d["vocoder"].update(resblock="2", resblock_dilation_sizes=[[1, 3]] * 3)
+        cfg2 = os.path.join(tmp, "config_resblock2.json")
+        with open(cfg2, "w") as f:
+            json.dump(d, f)
+        n_act = sum(len(rd) for rd in d["vocoder"]["resblock_dilation_sizes"])
+        drive("cli plms@10 bf16 resblock 2", counters,
+              lambda: run_cli("plms_rb2", "--config", cfg2, "--sampler", "plms", "--speedup", "10"),
+              {"K5 bf16": steps // 10 + 1, "K4": 24, "K3": len(cfg.vocoder.upsample_rates) * n_act + 1}, paths)
+    checks = {"int8_w1_mel_corr": corr,
+              "vocoder_per_block": vocoder_paths(cfg, voc, counters, paths, device, clip(cfg.fs, CLIP_SECONDS)),
+              "harness": harness_paths(cfg, counters, paths, device)}
+    return paths, checks
 
 
 def main() -> int:
@@ -576,9 +784,9 @@ def main() -> int:
     cfg = load_config(os.path.join(ROOT, "config", "config.json"))
     device = torch.device("cuda")
     with torch.no_grad():
-        rows = check_kernels(cfg, device)
+        rows, voc = check_kernels(cfg, device)
     torch.cuda.synchronize()
-    paths, corr = main_paths(cfg, device)
+    paths, checks = main_paths(cfg, device, voc)
     total = {}
     for p in paths:
         for k, n in p["launches"].items():
@@ -589,26 +797,29 @@ def main() -> int:
     launches = {
         "K1": total["K1 bf16"], "K5": total["K5 bf16"], "K4": total["K4"], "K2": total["K2"], "K3": total["K3"],
         "K6": sum(total[f"{k} {m}"] for k in ("K1", "K5") for m in ("int8", "int8-w1")),
+        "K7": total["K7"], "K8": total["K8"],
     }
     sources = {
-        "K1": ("ddpm_step", "denoiser_step.cu", "denoiser_step.py:376"),
-        "K4": ("encoder_attention", "attention.cu", "attention.py:57"),
-        "K2": ("fused_amp_stage", "amp_stage.cu", "amp_stage.py:432"),
-        "K3": ("fused_activation1d", "snake.cu", "snake.py:131"),
-        "K5": ("denoise", "denoiser_step.cu", "denoiser_step.py:284"),
-        "K6": ("ddpm_step/denoise on an int8 stack", "denoiser_step.cu", "denoiser_step.py:204"),
+        "K1": ("ddpm_step", "denoiser_step.cu", f"{TPU_KERNELS}/denoiser_step.py:376"),
+        "K4": ("encoder_attention", "attention.cu", f"{TPU_KERNELS}/attention.py:57"),
+        "K2": ("fused_amp_stage", "amp_stage.cu", f"{TPU_KERNELS}/amp_stage.py:432"),
+        "K3": ("fused_activation1d", "snake.cu", f"{TPU_KERNELS}/snake.py:131"),
+        "K5": ("denoise", "denoiser_step.cu", f"{TPU_KERNELS}/denoiser_step.py:284"),
+        "K6": ("ddpm_step/denoise on an int8 stack", "denoiser_step.cu", f"{TPU_KERNELS}/denoiser_step.py:204"),
+        "K7": ("fused_amp_pair", "amp_pair.cu", f"{TPU_KERNELS}/amp_pair.py:156"),
+        "K8": ("denoise_v2", "denoiser_v2.cu", "perf_kernel3.py:170"),
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():
         r = rows[key]
         kernels.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
-                        "replaces": f"{TPU_KERNELS}/{replaces}", "launches": launches[key],
+                        "replaces": replaces, "launches": launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
-    print(json.dumps({"paths": paths, "int8_w1_mel_corr": corr}))
+    print(json.dumps({"paths": paths, **checks}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

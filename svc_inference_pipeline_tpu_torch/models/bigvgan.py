@@ -6,8 +6,12 @@ Counterpart of ``svc_inference_pipeline_tpu/models/bigvgan.py``, channels-last
 bridge in ``checkpoints/from_jax.py`` converts the JAX trees.
 
 The generator's AMP stages run through K2 (``ops/pallas/amp_stage.py``) and
-its final activation through K3 (``ops/pallas/snake.py``); both take their
-plain PyTorch versions on CPU tensors. ``upsample1d``/``downsample1d`` with
+its final activation through K3 (``ops/pallas/snake.py``). Its per-block
+route (resblock "2", and resblock "1" through ``forward_per_block``) applies
+the blocks one by one: an AMPBlock1 pair is one K7 launch
+(``ops/pallas/amp_pair.py``) up to 384 channels, K3 and a conv otherwise.
+Every kernel wrapper takes its plain PyTorch version on CPU tensors.
+``upsample1d``/``downsample1d`` with
 ``snake``/``snake_beta`` are the composed anti-aliased activation, the
 reference those kernels are held to.
 """
@@ -140,7 +144,8 @@ class Activation1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from svc_inference_pipeline_tpu_torch.ops.pallas.snake import fused_activation1d
 
-        return fused_activation1d(x, *self.params(), self.kind, self.logscale)
+        # a conv's output is a transposed view; the kernel reads [B, T, C] rows
+        return fused_activation1d(x.contiguous(), *self.params(), self.kind, self.logscale)
 
 
 # ---------------------------------------------------------------------------
@@ -217,20 +222,30 @@ class TorchConvTranspose1d(nn.ConvTranspose1d):
 
 
 class AMPBlock1(nn.Module):
-    """Parameters of one AMP block: per dilation d_j an activation, a k-tap
-    conv with dilation d_j, an activation and a k-tap conv, applied as
-    x <- x + conv2_j(act2_j(conv1_j(act1_j(x)))). The generator runs whole
-    stages of these blocks through K2 (:meth:`pair_params`)."""
+    """One AMP block: per dilation d_j an activation, a k-tap conv with
+    dilation d_j, an activation and a k-tap conv, applied as the pair
+    x <- x + conv2_j(act2_j(conv1_j(act1_j(x)))).
+
+    ``forward`` is the per-block route (JAX ``AMPBlock1(use_pallas=True)``):
+    up to 384 channels each pair is one K7 launch on the card
+    (``ops/pallas/amp_pair.py``), wider blocks compose the activations (K3)
+    and the convs, each pair's output in x's dtype. The generator's default
+    route runs whole stages of these blocks through K2 instead
+    (:meth:`pair_params`, :meth:`prepare_kernel_params`)."""
 
     def __init__(self, cfg: Any, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3, 5)):
         super().__init__()
+        self.channels = channels
+        self.kernel_size = kernel_size
         self.dilations = tuple(dilations)
+        self.kind, self.logscale = cfg.activation, cfg.snake_logscale
         for j, d in enumerate(self.dilations):
             self.add_module(f"act1_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale))
             self.add_module(f"act2_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale))
             self.add_module(f"conv1_{j}", TorchConv1d(channels, channels, kernel_size, d))
             self.add_module(f"conv2_{j}", TorchConv1d(channels, channels, kernel_size, 1))
+        self.kernel_pairs: Optional[tuple] = None
 
     def pair_params(self) -> tuple:
         """Per pair (w1 [k,C,C], b1, w2, b2, alpha1, beta1, alpha2, beta2), conv
@@ -243,16 +258,75 @@ class AMPBlock1(nn.Module):
             out.append((c1.kernel_kio(), c1.conv.bias, c2.kernel_kio(), c2.conv.bias, a1, b1, a2, b2))
         return tuple(out)
 
+    @torch.no_grad()
+    def prepare_kernel_params(self, dtype: torch.dtype) -> None:
+        """Put the pairs' parameters in kernel form once (``kernel_pairs``,
+        the operands of K7 and, per stage, K2): each conv weight is stored
+        contiguous as [k, Cin, Cout] and the module's [Cout, Cin, k] weight
+        becomes a view of it, so nothing is duplicated and no launch copies a
+        weight. Call when the weights are final and on their device."""
+        from svc_inference_pipeline_tpu_torch.ops.pallas.amp_stage import kernel_params
+
+        for j in range(len(self.dilations)):
+            for name in (f"conv1_{j}", f"conv2_{j}"):
+                w = getattr(self, name).conv.weight
+                w.data = w.data.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+        self.kernel_pairs = kernel_params((self.pair_params(),), self.kind, self.logscale, dtype)[0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from svc_inference_pipeline_tpu_torch.ops.pallas.amp_pair import MAX_CHANNELS, fused_amp_pair
+
+        if self.channels <= MAX_CHANNELS:
+            w = None if self.kernel_pairs is None else self.kernel_pairs[0][0]
+            if w is None or w.dtype != x.dtype or w.device != x.device:
+                self.prepare_kernel_params(x.dtype)
+            x = x.contiguous()
+            for pair, d in zip(self.kernel_pairs, self.dilations):
+                x = fused_amp_pair(x, pair, self.kernel_size, d)
+            return x
+        for j in range(len(self.dilations)):
+            xt = getattr(self, f"act1_{j}")(x)
+            xt = getattr(self, f"conv1_{j}")(xt)
+            xt = getattr(self, f"act2_{j}")(xt)
+            x = getattr(self, f"conv2_{j}")(xt) + x
+        return x
+
+
+class AMPBlock2(nn.Module):
+    """The resblock "2" block: per dilation d_j an activation (K3 on the
+    card) and a k-tap conv with dilation d_j, x <- conv_j(act_j(x)) + x, in
+    x's dtype (JAX ``AMPBlock2``)."""
+
+    def __init__(self, cfg: Any, channels: int, kernel_size: int = 3,
+                 dilations: Sequence[int] = (1, 3)):
+        super().__init__()
+        self.dilations = tuple(dilations)
+        for j, d in enumerate(self.dilations):
+            self.add_module(f"act_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale))
+            self.add_module(f"conv_{j}", TorchConv1d(channels, channels, kernel_size, d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(len(self.dilations)):
+            x = getattr(self, f"conv_{j}")(getattr(self, f"act_{j}")(x)) + x
+        return x
+
 
 class BigVGANGenerator(nn.Module):
-    """mel [B, T, n_mels] -> waveform [B, T * prod(upsample_rates)] (f32)."""
+    """mel [B, T, n_mels] -> waveform [B, T * prod(upsample_rates)] (f32).
+
+    With resblock "1" every AMP stage runs as one K2 call (the JAX
+    generator's stage route, taken there for C <= 768, a VMEM budget of the
+    TPU that does not apply here); :meth:`forward_per_block` runs the same
+    weights block by block instead (K7 up to 384 channels). With resblock
+    "2" the stages always run block by block (AMPBlock2)."""
 
     def __init__(self, cfg: Any, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.resblock != "1":
-            raise NotImplementedError("resblock '2' (AMPBlock2) is not ported yet")
+        if cfg.resblock not in ("1", "2"):
+            raise ValueError(f"resblock must be '1' or '2', got {cfg.resblock!r}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        block_cls = AMPBlock1 if cfg.resblock == "1" else AMPBlock2
         ch0 = cfg.upsample_initial_channel
         self.conv_pre = TorchConv1d(cfg.input_dim, ch0, 7, dtype=compute_dtype)
         ch = ch0
@@ -260,7 +334,7 @@ class BigVGANGenerator(nn.Module):
             cin, ch = ch, ch0 // (2 ** (i + 1))
             self.add_module(f"up_{i}", TorchConvTranspose1d(cin, ch, k, u, dtype=compute_dtype))
             for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
-                self.add_module(f"resblock_{i}_{j}", AMPBlock1(cfg, ch, rk, tuple(rd)))
+                self.add_module(f"resblock_{i}_{j}", block_cls(cfg, ch, rk, tuple(rd)))
         self.activation_post = Activation1d(ch, cfg.activation, cfg.snake_logscale)
         self.conv_post = TorchConv1d(ch, 1, 7, dtype=compute_dtype)
         self.kernel_stages: Optional[tuple] = None
@@ -272,41 +346,60 @@ class BigVGANGenerator(nn.Module):
 
     @torch.no_grad()
     def prepare_kernel_params(self) -> None:
-        """Put K2's parameters in kernel form once (``kernel_stages[i]``):
-        each AMP conv weight is stored contiguous as [k, Cin, Cout] and the
-        module's [Cout, Cin, k] weight becomes a view of it, so nothing is
-        duplicated and no launch copies a weight. Call when the weights are
-        final and on their device."""
-        from svc_inference_pipeline_tpu_torch.ops.pallas.amp_stage import kernel_params
+        """Put every AMPBlock1's parameters in kernel form once
+        (:meth:`AMPBlock1.prepare_kernel_params`) and gather them per stage
+        for K2 (``kernel_stages[i]``). Call when the weights are final and on
+        their device; nothing to do for resblock "2"."""
+        if self.cfg.resblock != "1":
+            return
+        dtype = self.compute_dtype or self.conv_pre.conv.weight.dtype
+        n = len(self.cfg.resblock_kernel_sizes)
+        stages = []
+        for i in range(len(self.cfg.upsample_rates)):
+            blocks = [getattr(self, f"resblock_{i}_{j}") for j in range(n)]
+            for blk in blocks:
+                blk.prepare_kernel_params(dtype)
+            stages.append(tuple(blk.kernel_pairs for blk in blocks))
+        self.kernel_stages = tuple(stages)
 
-        for m in self.modules():
-            if isinstance(m, AMPBlock1):
-                for j in range(len(m.dilations)):
-                    for name in (f"conv1_{j}", f"conv2_{j}"):
-                        w = getattr(m, name).conv.weight
-                        w.data = w.data.permute(2, 1, 0).contiguous().permute(2, 1, 0)
-        cfg = self.cfg
-        self.kernel_stages = tuple(
-            kernel_params(self.stage_params(i), cfg.activation, cfg.snake_logscale,
-                          self.compute_dtype or self.conv_pre.conv.weight.dtype)
-            for i in range(len(cfg.upsample_rates)))
+    def stage_blocks(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Stage i's blocks applied one by one to x, summed at x's dtype and
+        divided by their number (the JAX generator's block route)."""
+        n = len(self.cfg.resblock_kernel_sizes)
+        acc = None
+        for j in range(n):
+            y = getattr(self, f"resblock_{i}_{j}")(x)
+            acc = y if acc is None else acc + y
+        return acc / n
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def _forward(self, mel: torch.Tensor, per_block: bool) -> torch.Tensor:
         from svc_inference_pipeline_tpu_torch.ops.pallas.amp_stage import fused_amp_stage
 
         cfg = self.cfg
         dtype = self.compute_dtype or mel.dtype
-        if self.kernel_stages is None:
+        if not per_block and self.kernel_stages is None:
             self.prepare_kernel_params()
         x = self.conv_pre(mel.to(dtype))
         ks = tuple(cfg.resblock_kernel_sizes)
         dils = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
         for i in range(len(cfg.upsample_rates)):
             x = getattr(self, f"up_{i}")(x)
-            x = fused_amp_stage(x.contiguous(), self.kernel_stages[i], ks, dils)
+            if per_block:
+                x = self.stage_blocks(i, x)
+            else:
+                x = fused_amp_stage(x.contiguous(), self.kernel_stages[i], ks, dils)
         x = self.activation_post(x)
         x = self.conv_post(x)
         return torch.tanh(x.float())[..., 0]
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return self._forward(mel, per_block=self.cfg.resblock != "1")
+
+    def forward_per_block(self, mel: torch.Tensor) -> torch.Tensor:
+        """The generator block by block (resblock "1": each AMPBlock1's own
+        forward, K7 up to 384 channels), as ``perf_vocoder_stages`` runs the
+        JAX generator's layers."""
+        return self._forward(mel, per_block=True)
 
 
 def vocoder_output_finalize(wave: torch.Tensor, n_true: torch.Tensor, hop_length: int,

@@ -64,6 +64,16 @@ def kernel_params(block_params, kind: str = "snakebeta", logscale: bool = True,
     return tuple(tuple(pair(*p) for p in pairs) for pairs in block_params)
 
 
+def pair_plain(a: torch.Tensor, pair, d: int, cd: torch.dtype) -> torch.Tensor:
+    """One pair on the f32 carry a: a + conv_1(act2(conv_d(act1(a)))), the
+    conv operands rounded to ``cd``; f32 result (K2's and K7's arithmetic)."""
+    w1, b1, w2, b2, al1, ib1, al2, ib2 = pair
+    t = activation1d_plain(a, al1, ib1).to(cd)
+    t = conv1d_plain(t, w1.to(cd), b1, d)
+    t = activation1d_plain(t, al2, ib2).to(cd)
+    return a + conv1d_plain(t, w2.to(cd), b2, 1)
+
+
 def amp_stage_plain(x: torch.Tensor, block_params, ks: Sequence[int],
                     dils_per_block: Sequence[Sequence[int]]) -> torch.Tensor:
     """Plain PyTorch version of the stage, with the kernel's rounding points."""
@@ -71,11 +81,8 @@ def amp_stage_plain(x: torch.Tensor, block_params, ks: Sequence[int],
     acc = None
     for pairs, dils in zip(block_params, dils_per_block):
         a = x.float()
-        for (w1, b1, w2, b2, al1, ib1, al2, ib2), d in zip(pairs, dils):
-            t = activation1d_plain(a, al1, ib1).to(cd)
-            t = conv1d_plain(t, w1.to(cd), b1, d)
-            t = activation1d_plain(t, al2, ib2).to(cd)
-            a = a + conv1d_plain(t, w2.to(cd), b2, 1)
+        for pair, d in zip(pairs, dils):
+            a = pair_plain(a, pair, d, cd)
         acc = a if acc is None else acc + a
     return (acc * (1.0 / len(block_params))).to(cd)
 

@@ -26,6 +26,17 @@ from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 L, C, T, STEPS = 4, 128, 64, 10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in several
+    worker processes at once, and PyTorch's thread pools, each as wide as the
+    machine, slow one another down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def randomize_vectors(tree, rng, scale=0.1):
     """Random 1-D leaves: fast_random_params zeroes them, which would hide a
     bias mix-up."""

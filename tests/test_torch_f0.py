@@ -4,11 +4,23 @@ both call voiced agrees within 5 cents on >= 99% of them."""
 
 import numpy as np
 import pytest
+import torch
 
 from svc_inference_pipeline_tpu.ops import f0 as jf0
 from svc_inference_pipeline_tpu_torch.ops import f0
 
 FS, HOP = 24000, 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in several
+    worker processes at once, and PyTorch's thread pools, each as wide as the
+    machine, slow one another down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class _Cfg:

@@ -23,6 +23,17 @@ from svc_inference_pipeline_tpu_torch.ops import mel, remap, resample, whisper_m
 from svc_inference_pipeline_tpu_torch.ops.pallas import attention
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in several
+    worker processes at once, and PyTorch's thread pools, each as wide as the
+    machine, slow one another down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _audio(n, seed=0):
     rng = np.random.default_rng(seed)
     t = np.arange(n) / 24000

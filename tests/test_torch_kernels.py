@@ -15,7 +15,8 @@ import torch
 
 from svc_inference_pipeline_tpu_torch.config import HParams
 from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
-from svc_inference_pipeline_tpu_torch.ops.pallas import _build, amp_stage, attention, denoiser_step, snake
+from svc_inference_pipeline_tpu_torch.ops.pallas import (
+    _build, amp_pair, amp_stage, attention, denoiser_step, denoiser_v2, snake)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +54,8 @@ def test_library_builds_and_binds(dev):
     path, _, _ = _build.build()
     assert path.exists()
     lib = _build.lib()
-    for name in ("svc_ddpm_step", "svc_denoise", "svc_encoder_attention", "svc_activation1d", "svc_conv1d"):
+    for name in ("svc_ddpm_step", "svc_denoise", "svc_encoder_attention", "svc_activation1d", "svc_conv1d",
+                 "svc_amp_pair", "svc_denoise_v2"):
         assert getattr(lib, name).restype is not None
 
 
@@ -85,11 +87,14 @@ def test_k1_ddpm_step(dev, b, t_len, c, layers):
             assert torch.all(got[..., 100:] == 0)
 
 
-def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0):
+def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=False):
     """A random denoiser stacked for the kernels (bf16, or int8 with
     ``quantize``), its conditioner and step rows, and x [b, t_len, 100] f32
     whose element i is scaled by 8^i, so that a second element's int8 scale
-    is ~8x the first's."""
+    is ~8x the first's. Weights are N(0, 1/n) with n the last axis; with
+    ``conv_fan_in`` the dilated convs' n is their fan-in 3C, as the random
+    init draws them (with n = 3 a deep stack is chaotic: bf16 rounding
+    differences double from layer to layer)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
                   diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
@@ -97,7 +102,8 @@ def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0):
         den = DiffSVCDenoiser(cfg, BF)
     with torch.no_grad():
         for p in den.parameters():
-            p.copy_(torch.randn(p.shape, generator=g, device=dev) / (p.shape[-1] ** 0.5 if p.dim() > 1 else 10))
+            n = p.shape[1] * p.shape[2] if conv_fan_in and p.dim() == 3 else p.shape[-1]
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) / (n ** 0.5 if p.dim() > 1 else 10))
         den = den.to(BF)
         cp, rows = den.precompute(torch.randn((b, t_len, c), generator=g, device=dev), 10, BF)
         st = denoiser_step.stack_denoiser_params(den, BF, quantize)
@@ -143,6 +149,21 @@ def test_k6_ddpm_step(dev, quantize, b, t_len, c, layers):
     assert torch.all(got[..., 100:] == 0)
 
 
+@pytest.mark.parametrize("t_len,c,layers", [(944, 384, 20), (100, 128, 5), (37, 192, 6)])
+def test_k8_denoise_v2(dev, t_len, c, layers):
+    """K8 (one cooperative launch) against the plain version and against K5
+    on the same operands, each to 1e-2 of max|eps|; T = 944 and 100 are not
+    multiples of the 64-row tile, L = 5 and 6 wrap the dilation cycle."""
+    st, condb, rows, x, _ = _denoiser_operands(dev, 1, t_len, c, layers, None, conv_fan_in=True)
+    before = denoiser_v2.denoise_v2.launches
+    got = denoiser_v2.denoise_v2(st, condb, rows[3], x)
+    assert denoiser_v2.denoise_v2.launches == before + 1 and denoiser_v2.denoise_v2.grid > 0
+    assert got.shape == x.shape and got.dtype == torch.float32
+    _close(got, denoiser_step.denoise_plain(st, condb, rows[3], x), tol=lambda m: 1e-2 * m)
+    _close(got, denoiser_step.denoise(st, condb, rows[3], x), tol=lambda m: 1e-2 * m)
+    assert torch.equal(got, denoiser_v2.denoise_v2(st, condb, rows[3], x))  # no atomics: deterministic
+
+
 def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):
     st, condb, rows, x, _ = _denoiser_operands(dev, 1, 64, 128, 4, "int8")
     with pytest.raises(ValueError, match="x must be contiguous f32"):
@@ -155,6 +176,11 @@ def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):
         denoiser_step.denoise(st._replace(w1s=st.w1s.cpu()), condb, rows[3], x)
     with pytest.raises(ValueError, match="is on cpu"):
         denoiser_step.ddpm_step(st, condb, rows[3].cpu(), x, x, (0.0,) * 5)
+    with pytest.raises(ValueError, match="bf16 stacks only"):
+        denoiser_v2.denoise_v2(st, condb, rows[3], x)
+    st, condb, rows, x, _ = _denoiser_operands(dev, 2, 64, 128, 4, None)
+    with pytest.raises(ValueError, match="one clip only"):
+        denoiser_v2.denoise_v2(st, condb, rows[3], x)
 
 
 @pytest.mark.parametrize("b,t_len,heads,masked_tail", [
@@ -191,6 +217,27 @@ def test_k2_amp_stage(dev, t_len, c):
     _close(amp_stage.fused_amp_stage(x, params, KS, DILS), amp_stage.amp_stage_plain(x, params, KS, DILS))
 
 
+def _pair(c, k, g, dev):
+    w1, w2 = (torch.randn((k, c, c), generator=g, device=dev) / (k * c) ** 0.5 for _ in range(2))
+    vec = [s * torch.randn(c, generator=g, device=dev) for s in (0.05, 0.05, 0.2, 0.2, 0.2, 0.2)]
+    return amp_stage.kernel_params((((w1, vec[0], w2, vec[1], *vec[2:]),),))[0][0]
+
+
+@pytest.mark.parametrize("k,d", [(3, 1), (7, 3), (11, 5)])
+@pytest.mark.parametrize("b,t_len,c", [(1, 1001, 384), (2, 333, 96), (1, 4099, 24), (2, 37, 48)])
+def test_k7_amp_pair(dev, k, d, b, t_len, c):
+    """One launch per pair against the plain version: odd T, two clips,
+    C = 24 and 48 padded to 32 and 48 channels, and T = 37 < 2H at k = 11,
+    d = 5 (tiles that touch both edges)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    pair = _pair(c, k, g, dev)
+    x = (0.5 * torch.randn((b, t_len, c), generator=g, device=dev)).to(BF)
+    before = amp_pair.fused_amp_pair.launches
+    got = amp_pair.fused_amp_pair(x, pair, k, d)
+    assert amp_pair.fused_amp_pair.launches == before + 1
+    _close(got, amp_pair.amp_pair_plain(x, pair, k, d))
+
+
 @pytest.mark.parametrize("shape", [(1, 98304, 24), (2, 77, 40), (1, 5, 8)])
 def test_k3_activation(dev, shape):
     g = torch.Generator(device=dev).manual_seed(2)
@@ -209,3 +256,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         attention.encoder_attention(x, x, x, 2)
     with pytest.raises(ValueError, match="multiple of 8"):
         amp_stage.fused_amp_stage(x[..., :12].to(BF).contiguous(), (), (), ())
+    g = torch.Generator(device=dev).manual_seed(5)
+    pair = _pair(128, 3, g, dev)
+    with pytest.raises(ValueError, match="contiguous bf16"):
+        amp_pair.fused_amp_pair(x, pair, 3, 1)
+    with pytest.raises(ValueError, match="conv weight"):
+        amp_pair.fused_amp_pair(x.to(BF), pair, 5, 1)
+    with pytest.raises(ValueError, match="C <= 384"):
+        amp_pair.fused_amp_pair(torch.zeros((1, 8, 392), dtype=BF, device=dev), pair, 3, 1)

@@ -24,6 +24,18 @@ from svc_inference_pipeline_tpu_torch.utils.registry import get_singer_id
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "config", "config.json")
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in several
+    worker processes at once, and PyTorch's thread pools, each as wide as the
+    machine, slow one another down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # every module of the port, then one tiny conversion on CPU, in a fresh
 # interpreter that must end without jax loaded
 _NO_JAX = """

@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: BigVGAN pieces, the plain K3 and K2
-versions, and a tiny generator (f32, CPU, same weights)."""
+versions, a tiny generator, AMPBlock2 and a tiny resblock-"2" generator, and
+the per-block route against the K2 route (f32, CPU, same weights)."""
 
 import jax
 import jax.numpy as jnp
@@ -11,13 +12,24 @@ from svc_inference_pipeline_tpu.models import bigvgan as jbg
 from svc_inference_pipeline_tpu.ops.pallas.amp_stage import fused_amp_stage as jax_fused_amp_stage
 from svc_inference_pipeline_tpu.ops.pallas.snake import fused_activation1d as jax_fused_activation1d
 from svc_inference_pipeline_tpu.utils.devices import fast_random_params
-from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params
+from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params, random_init_
 from svc_inference_pipeline_tpu_torch.config import HParams
 from svc_inference_pipeline_tpu_torch.models import bigvgan
-from svc_inference_pipeline_tpu_torch.ops.pallas import amp_stage, snake
+from svc_inference_pipeline_tpu_torch.ops.pallas import amp_pair, amp_stage, snake
 
 KS = (3, 7, 11)
 DILS = ((1, 3, 5),) * 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in several
+    worker processes at once, and PyTorch's thread pools, each as wide as the
+    machine, slow one another down many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _t(x):
@@ -137,6 +149,74 @@ def test_prepare_kernel_params_shares_the_weights(tiny_vocoder):
     for (a, ib), act in (((a1, ib1), blk.act1_1), ((a2, ib2), blk.act2_1)):
         ref_a, ref_ib = snake.effective_params(*act.params())
         assert torch.equal(a, ref_a) and torch.equal(ib, ref_ib)
+
+
+def _random_tree(params, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(  # random 1-D leaves: the init zeroes them
+        lambda v: (0.1 * rng.standard_normal(v.shape)).astype(np.float32) if np.ndim(v) == 1
+        else np.asarray(v, np.float32), params)
+
+
+def test_amp_block2_matches_jax(cfg):
+    """AMPBlock2 (x <- conv_j(act_j(x)) + x, k=7, dilations 1/3) vs JAX, f32, < 2e-4."""
+    c, k, dils = 16, 7, (1, 3)
+    x = np.random.default_rng(11).standard_normal((1, 100, c)).astype(np.float32)
+    model = jbg.AMPBlock2(cfg.vocoder, c, k, dils)
+    params = _random_tree(fast_random_params(lambda: model.init(jax.random.PRNGKey(0), jnp.asarray(x)),
+                                             seed=12)["params"], 13)
+    ref = np.asarray(model.apply({"params": params}, jnp.asarray(x)))
+    port = load_jax_params(bigvgan.AMPBlock2(HParams(**cfg.vocoder.to_dict()), c, k, dils), params)
+    with torch.no_grad():
+        got = port(_t(x)).numpy()
+    assert sorted(dict(port.named_children())) == ["act_0", "act_1", "conv_0", "conv_1"]
+    assert np.abs(got - ref).max() < 2e-4
+
+
+def test_tiny_resblock2_generator_matches_jax(cfg):
+    """A resblock-"2" generator (AMPBlock2's own dilations [1, 3] in every
+    block, BigVGAN 64 wide, six stages): the block route vs JAX, f32, < 2e-4;
+    the random init covers every AMPBlock2 leaf."""
+    d = cfg.vocoder.to_dict()
+    d.update(upsample_initial_channel=64, resblock="2", resblock_dilation_sizes=[[1, 3]] * 3)
+    vcfg = cfg.vocoder.replace(**d)
+    model = jbg.BigVGANGenerator(vcfg)
+    params = _random_tree(fast_random_params(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 100))),
+                                             seed=14)["params"], 15)
+    mel = np.random.default_rng(16).standard_normal((1, 8, 100)).astype(np.float32)
+    ref = np.asarray(model.apply({"params": params}, jnp.asarray(mel)))
+    port = load_jax_params(bigvgan.BigVGANGenerator(HParams(**vcfg.to_dict())), params)
+    with torch.no_grad():
+        got = port(_t(mel)).numpy()
+    assert got.shape == ref.shape == (1, 8 * 256)
+    assert np.abs(got - ref).max() < 2e-4
+    port.prepare_kernel_params()  # nothing to put in K2's form
+    assert port.kernel_stages is None
+    drawn = random_init_(bigvgan.BigVGANGenerator(HParams(**vcfg.to_dict())), torch.Generator().manual_seed(0))
+    assert all(torch.all(p == 0) for n, p in drawn.named_parameters() if n.endswith(("alpha", "beta")))
+    assert all(p.std() > 0 for n, p in drawn.named_parameters() if ".conv_" in n and p.dim() == 3)
+
+
+def test_per_block_route_matches_k2_route(cfg):
+    """A resblock-"1" generator of two stages (64 wide, random weights and
+    1-D leaves): forward_per_block (every AMPBlock1 on its own, each pair
+    through K7's plain version, summed and divided by 3) vs forward (each
+    stage through K2's plain version), f32, <= 1e-4 of the output's range."""
+    d = cfg.vocoder.to_dict()
+    d.update(upsample_initial_channel=64, upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8])
+    g = torch.Generator().manual_seed(18)
+    port = random_init_(bigvgan.BigVGANGenerator(HParams(**d)), g)
+    with torch.no_grad():
+        for p in port.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    mel = _t(np.random.default_rng(17).standard_normal((1, 8, 100)))
+    launches = amp_pair.fused_amp_pair.launches
+    with torch.no_grad():
+        stage, block = port(mel), port.forward_per_block(mel)
+    assert amp_pair.fused_amp_pair.launches == launches  # CPU: plain versions, nothing launched
+    assert stage.shape == block.shape == (1, 8 * 16)
+    assert (stage - block).abs().max() <= 1e-4 * stage.abs().max()
 
 
 def test_conv_transpose_polyphase_matches_jax():
