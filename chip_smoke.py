@@ -8,14 +8,16 @@
 3. holds each kernel against its plain PyTorch version on the card at the
    main-path shapes of a 4 s clip, with median CUDA-event times of both and
    the least time the card could take for the same work (``bound_ms``):
-   K1 one DDPM step at T=384, K5 the eps-only forward, K6 the int8 forms of
-   both ("int8" and "int8-w1", and a batch of two clips whose int8 scales
-   differ 8x, also on the first two layers frame by frame), K4 one Whisper
-   layer's attention and a masked-tail case (with
-   ``scaled_dot_product_attention`` timed beside it), K2 the six vocoder
-   stages, K3 the final activation, K7 every AMPBlock1 pair of stages 1-5
-   (C <= 384) and two clips shorter than a pair's two halos, K8 the
-   one-launch eps forward at T=944 (against its plain version and K5);
+   K1 one DDPM step at T=384 (with ``torch.matmul`` on the step's GEMM
+   shapes timed beside it, ``gemm_library_ms``), K5 the eps-only forward,
+   K6 the int8 forms of both ("int8" and "int8-w1", and a batch of two clips
+   whose int8 scales differ 8x, also on the first two layers frame by
+   frame), K4 one Whisper layer's attention and a masked-tail case (with
+   ``scaled_dot_product_attention`` timed beside it and the ratio printed),
+   K2 the six vocoder stages, K3 the final activation, K7 every AMPBlock1
+   pair of stages 1-5 (C <= 384) and two clips shorter than a pair's two
+   halos, K8 the one-launch eps forward at T=944 (against its plain version
+   and K5);
 4. drives the main paths, each with the launch counters set to 0 just before
    it and read just after, on a synthetic 4 s clip at full width (random
    weights, Whisper-medium, DiffSVC 20x384, BigVGAN 1536):
@@ -228,7 +230,9 @@ def check_k4(g, device) -> dict:
     )
     qh, kh, vh = (x.view(1, 1500, 16, 64).transpose(1, 2) for x in (q, k, v))
     row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-    print(f"  K4 scaled_dot_product_attention: {row['library_ms']:.4f} ms")
+    row["library_ratio"] = row["ms"] / row["library_ms"]
+    print(f"  K4 scaled_dot_product_attention: {row['library_ms']:.4f} ms; "
+          f"K4 / SDPA = {row['library_ratio']:.3f}")
     row["max_abs_err"] = max(row["max_abs_err"], tail["max_abs_err"])
     row["bound_ms"], row["bound_by"] = bound(4 * q.nbytes, {"bf16": 4 * 1500 * 1500 * 1024})
     return row
@@ -256,6 +260,28 @@ def random_denoiser(cfg, g, device):
     random_init_(den, g)
     randomize_vectors_(den, g)
     return den.to(torch.bfloat16)
+
+
+def gemm_library_ms(st, b: int, t_len: int, g, device) -> float:
+    """K1's yardstick: ``torch.matmul`` on the 2 + 2L GEMM shapes of one
+    step (prologue, per layer the gate on its taps materialised as a
+    [B*T, 3C] matrix and the residual, the skip and output projections), in
+    bf16 into preallocated outputs, epilogues left out. Timed only: the port
+    never calls it."""
+    import torch
+
+    n_layers, _, c2 = st.w1.shape
+    c, m_pad, rows = c2 // 2, st.wmel.shape[0], b * t_len
+    ops = [(st.wmel, m_pad)] + [(w, k) for i in range(n_layers)
+                                for w, k in ((st.w1[i], 3 * c), (st.wout[i], c))] + [(st.wskip, c), (st.wo, c)]
+    operands = [(torch.randn((rows, k), generator=g, device=device).to(torch.bfloat16), w,
+                 torch.empty((rows, w.shape[1]), dtype=torch.bfloat16, device=device)) for w, k in ops]
+
+    def run():
+        for a, w, out in operands:
+            torch.matmul(a, w, out=out)
+
+    return cuda_ms(run)
 
 
 def check_denoiser(cfg, g, device, n_frames: int) -> dict:
@@ -311,6 +337,14 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
                       EPS_TOL if quantize is None else INT8_TOL[quantize],
                       views=(lambda y: y - 0.5 * x - 0.5 * z,))
         row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, 1, n_frames, 3 * x.nbytes)
+        # the gate's cluster sum has a fixed order and no atomics: two calls agree bit for bit
+        if not torch.equal(ds.ddpm_step(st, condb, srow, x, z, probe), ds.ddpm_step(st, condb, srow, x, z, probe)):
+            raise AssertionError(f"{name}: two calls on the same operands differ")
+        if quantize is None:
+            row["gemm_library_ms"] = gemm_library_ms(st, 1, n_frames, g, device)
+            print(f"  {name}: torch.matmul on the step's {2 + 2 * st.w1.shape[0]} GEMM shapes "
+                  f"(gemm_library_ms) {row['gemm_library_ms']:.4f} ms; {name} / that = "
+                  f"{row['ms'] / row['gemm_library_ms']:.3f}")
         return row
 
     def eps_form(name, quantize, b=1, layers=None):
@@ -815,7 +849,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                        **{k: r[k] for k in ("library_ratio", "gemm_library_ms") if k in r}})
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")

@@ -1,6 +1,7 @@
-// Tensor-core GEMM tile shared by the denoiser kernels (K1, K5) and the AMP
-// stage convolutions (K2), and its int8 variant for the denoiser's int8
-// matmuls (K6, at the end of this file).
+// Tensor-core GEMM tile of the AMP stage convolutions (K2) and the one-launch
+// denoiser (K8), and its int8 variant for the denoiser's int8 matmuls (K6,
+// at the end of this file). K1, K5 and K6's bf16 launches use the pipelined
+// tile of gemm_wg.cuh.
 //
 // One block of 4 warps computes a 64 x 64 output tile with bf16 WMMA
 // fragments (16x16x16, f32 accumulation) over K in chunks of 32. The A
@@ -8,9 +9,8 @@
 // r = b*T + t, column kk = m*cin + c reads source row t + m*dil - pad of the
 // same batch element (zero outside [0, T)) — a dilated conv1d with `taps`
 // taps, or a plain matrix when taps = 1 and pad = 0. The [T, taps*cin] im2col
-// matrix is never written to memory. An optional f32 row is added to the A
-// values before the bf16 rounding (K1's per-layer diffusion-step row), and an
-// f32 source can be scaled before rounding (K1's skip sum / sqrt(L)).
+// matrix is never written to memory. An f32 source can be scaled before
+// rounding (the skip sum / sqrt(L)).
 //
 // The B operand is a row-major [K, ldw] bf16 weight. In "paired" mode
 // (half > 0) the tile's 64 columns are two 32-column slices half apart, so a
@@ -43,7 +43,7 @@ struct TapA {
   int cin;              // channels per tap (multiple of 8)
   int dil;              // tap spacing in rows
   int pad;              // left offset of tap 0
-  const bf16* add_row;  // optional [cin] row added in f32 before rounding
+  const bf16* add_row;  // int8 tile, quantised taps: [cin] row added in f32 before quantising
   float scale;          // f32 source only: multiplied before rounding
   const float* amax;    // int8 tile, quantised taps: [B] abs max of each batch element's A
 };
@@ -90,8 +90,8 @@ __device__ __forceinline__ void load_a_tile(const TapA& a, int m0, int k0,
       const int ts = t + m * a.dil - a.pad;
       if (ts >= 0 && ts < a.T) {
         const size_t off = (size_t)(b * a.T + ts) * a.ld + c;
-        float f[8];
         if constexpr (A_F32) {
+          float f[8];
           const float4* p = reinterpret_cast<const float4*>(
               static_cast<const float*>(a.src) + off);
           const float4 x0 = p[0];
@@ -100,25 +100,11 @@ __device__ __forceinline__ void load_a_tile(const TapA& a, int m0, int k0,
           f[4] = x1.x; f[5] = x1.y; f[6] = x1.z; f[7] = x1.w;
 #pragma unroll
           for (int i = 0; i < 8; ++i) f[i] *= a.scale;
-        } else {
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              static_cast<const bf16*>(a.src) + off);
-          if (a.add_row == nullptr) {
-            packed = raw;
-          } else {
-            const bf16* hv = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(hv[i]);
-          }
-        }
-        if (A_F32 || a.add_row != nullptr) {
-          if (a.add_row != nullptr) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) f[i] += __bfloat162float(a.add_row[c + i]);
-          }
           bf16* ov = reinterpret_cast<bf16*>(&packed);
 #pragma unroll
           for (int i = 0; i < 8; ++i) ov[i] = __float2bfloat16(f[i]);
+        } else {
+          packed = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.src) + off);
         }
       }
     }

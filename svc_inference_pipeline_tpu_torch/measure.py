@@ -1,6 +1,6 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
-    python -m svc_inference_pipeline_tpu_torch.measure [--profile]
+    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
@@ -8,8 +8,9 @@ sampler and int8 mode of the port, three times each, and prints one JSON
 line per (clip, path): the median over runs 2-3 of each phase's wall seconds
 (``SVCPipeline.timings``) and the RTF. ``--profile`` adds, for one warm 4 s
 conversion per path, the device time by kernel from ``torch.profiler`` and
-the device's busy share of the conversion. Every line names the card
-(``nvidia-smi`` name and power limit). Needs a CUDA device.
+the device's busy share of the conversion. ``--steps`` times K1 steps alone
+instead (:func:`step_times`). Every line names the card (``nvidia-smi`` name
+and power limit). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import time
 import numpy as np
 
 CLIP_SECONDS = (4.0, 10.0)
+STEP_FRAMES = (384, 960)  # the denoiser's padded frames of those clips
 RUNS = 3
 # (sampler, speedup, int8 mode, tail) of every measured path
 PATHS = (
@@ -55,11 +57,27 @@ def path_name(sampler: str, speedup: int, quantize, tail: int) -> str:
     return name + (f" tail {tail}" if tail else "")
 
 
+def busy_ms(spans) -> float:
+    """Milliseconds covered by the union of (start_us, end_us) spans."""
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
 def profile_conversion(pipe, wav, sampler, speedup) -> dict:
     """Device milliseconds by kernel over one warm conversion under
-    ``torch.profiler``, and the device's busy share of it (summed kernel time
-    over the conversion's wall time, both under the profiler)."""
+    ``torch.profiler``, and the device's busy share of it: the time covered
+    by at least one device span (kernel, copy or fill) over the
+    conversion's wall time, both under the profiler. The denoiser's kernels
+    run with programmatic dependent launch, so a kernel's span starts while
+    the one before it ends: it includes its weight prefetch and its wait.
+    ``device_span_overlap_ms`` is the summed span time less the covered
+    time, the part counted twice in the per-kernel times."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -73,14 +91,78 @@ def profile_conversion(pipe, wav, sampler, speedup) -> dict:
             by_kernel[ev.key[:90]] = (round(dev_us / 1e3, 3), ev.count)
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
     kernel_ms = sum(ms for ms, _ in by_kernel.values())
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    covered_ms = busy_ms(spans)
     wall_ms = pipe.timings["total_s"] * 1e3
     return {"device_ms_by_kernel": top, "device_kernel_ms": round(kernel_ms, 3),
-            "profiled_total_ms": round(wall_ms, 3), "device_busy_share": round(kernel_ms / wall_ms, 4)}
+            "device_busy_ms": round(covered_ms, 3),
+            "device_span_overlap_ms": round(sum(e - s for s, e in spans) / 1e3 - covered_ms, 3),
+            "profiled_total_ms": round(wall_ms, 3), "device_busy_share": round(covered_ms / wall_ms, 4)}
+
+
+def step_times(cfg, gpu: str) -> None:
+    """``--steps``: K1 on one clip of each of STEP_FRAMES at the config's
+    denoiser width (random weights from a seed), for each stack mode (bf16,
+    "int8-w1", "int8"): ten steps back to back between CUDA events, the
+    median of ten such loops, measured twice; one JSON line each."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+    from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step as ds
+    from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.device(dev):
+        den = DiffSVCDenoiser(cfg.mapper, compute_dtype=bf)
+    random_init_(den, g)
+    den = den.to(bf)
+    sched = DiffusionSchedule.from_config(cfg.mapper)
+    srow = (1.0, 0.01, 0.5, 0.5, 0.01)
+    for t_len in STEP_FRAMES:
+        cond = torch.randn((1, t_len, cfg.mapper.conditioner_size), generator=g, device=dev)
+        with torch.no_grad():
+            cond_projs, step_rows = den.precompute(cond, sched.num_steps, bf)
+            condb = ds.fold_conditioner(den, cond_projs, bf)
+        x = torch.zeros((1, t_len, ds.LANE), device=dev)
+        x[..., :cfg.mapper.n_mel] = torch.randn((1, t_len, cfg.mapper.n_mel), generator=g, device=dev)
+        z = torch.zeros_like(x)
+        row = step_rows[sched.num_steps // 2].contiguous()
+        for quantize in (None, "int8-w1", "int8"):
+            st = ds.stack_denoiser_params(den, bf, quantize)
+
+            def ten_steps():
+                y = x
+                for _ in range(10):
+                    y = ds.ddpm_step(st, condb, row, y, z, srow)
+
+            ms = [cuda_ms(ten_steps) / 10 for _ in range(2)]
+            print(json.dumps({"card": gpu, "kernel": "K1 ddpm_step", "frames": t_len, "mode": st.mode,
+                              "ms_per_step": ms}), flush=True)
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of fn() between CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--steps", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -93,6 +175,9 @@ def main(argv=None) -> int:
 
     gpu = card()
     cfg = load_config(DEFAULT_CONFIG)
+    if args.steps:
+        step_times(cfg, gpu)
+        return 0
     root = os.path.dirname(os.path.dirname(DEFAULT_CONFIG))
     for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):
         cfg[key] = os.path.join(root, cfg[key].lstrip("./"))

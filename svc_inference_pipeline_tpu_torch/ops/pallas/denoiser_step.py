@@ -11,8 +11,12 @@ Counterpart of ``svc_inference_pipeline_tpu/ops/pallas/denoiser_step.py``:
   ``"int8-w1"``.
 
 All are ``csrc/denoiser_step.cu`` (2 + 2L GEMM launches per call with fused
-epilogues). One forward: mel preprocess, L gated dilated-conv layers over
-the precomputed conditioner and step rows, skip and output projections;
+epilogues; the bf16 launches on the pipelined wgmma tile of
+``csrc/gemm_wg.cuh``, the gate split over its three taps in a cluster of
+three blocks and read from the zero-halo buffer of
+:func:`conv_input_buffer`). One forward: mel preprocess, L gated
+dilated-conv layers over the precomputed conditioner and step rows, skip
+and output projections;
 K1 then applies x0 = clamp(c0 x - c1 eps, +-1), x' = c2 x0 + c3 x + sigma z.
 
 Numerics follow the TPU kernel: operands rounded to the compute dtype, f32
@@ -159,6 +163,22 @@ def _taps(y: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([yp[:, :t_len], yp[:, d:d + t_len], yp[:, 2 * d:2 * d + t_len]], dim=-1)
 
 
+def halo_rows(cycle: int) -> int:
+    """Zero rows on each side of a clip in the gate's conv-input buffer: the
+    largest dilation, 2^(cycle-1)."""
+    return 2 ** (cycle - 1)
+
+
+def conv_input_buffer(b: int, t_len: int, c: int, cycle: int, device) -> torch.Tensor:
+    """The bf16 kernels' conv-input scratch [B, T + 2*halo, C], uninitialised.
+    The prologue kernel writes zeros into each clip's halo rows, and the
+    epilogue that writes h writes y = bf16(h + step_row) into rows
+    [halo, halo + T); so tap m of the gate at dilation d is the T-row box
+    that starts at row halo + (m-1)*d: ``_taps(r(y), d)`` of the plain
+    version."""
+    return torch.empty((b, t_len + 2 * halo_rows(cycle), c), dtype=torch.bfloat16, device=device)
+
+
 def _int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact product of integer-valued a and int8 w, rounded once to f32."""
     return (a.double() @ w.double()).float()
@@ -257,8 +277,9 @@ def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
 
 def _forward_operands(st, condb, step_rows_t, x):
     """Scratch buffers and the pointer arguments every entry point shares:
-    h, skip, g, s1, step rows, the weights, the scales and the [L, B]
-    per-layer abs-max buffer of the int8 conv input."""
+    h, skip, g, s1, the bf16 stack's conv-input buffer y
+    (:func:`conv_input_buffer`), step rows, the weights, the scales and the
+    [L, B] per-layer abs-max buffer of the int8 conv input."""
     b, t_len = x.shape[:2]
     n_layers, _, c2 = st.w1.shape
     c = c2 // 2
@@ -267,12 +288,13 @@ def _forward_operands(st, condb, step_rows_t, x):
     s1 = torch.empty_like(h)
     skip = torch.empty((b * t_len, c), dtype=torch.float32, device=x.device)
     amax = None if st.w1s is None else torch.empty((n_layers, b), dtype=torch.float32, device=x.device)
-    ptrs = (h.data_ptr(), skip.data_ptr(), g.data_ptr(), s1.data_ptr(), step_rows_t.data_ptr(),
+    y = conv_input_buffer(b, t_len, c, st.cycle, x.device) if st.w1s is None else None
+    ptrs = (h.data_ptr(), skip.data_ptr(), g.data_ptr(), s1.data_ptr(), _ptr(y), step_rows_t.data_ptr(),
             st.w1.data_ptr(), condb.data_ptr(), st.wout.data_ptr(), st.bout.data_ptr(),
             st.wmel.data_ptr(), st.bmel.data_ptr(), st.wskip.data_ptr(), st.bskip.data_ptr(),
             st.wo.data_ptr(), st.bo.data_ptr(), _ptr(st.w1s), _ptr(st.wouts), _ptr(amax))
     dims = (b, t_len, c, n_layers, st.cycle, st.wmel.shape[0])
-    return (h, g, s1, skip, amax), ptrs, dims
+    return (h, g, s1, skip, amax, y), ptrs, dims
 
 
 def _count(fn, mode: str) -> None:

@@ -134,6 +134,52 @@ def test_k5_k6_denoise(dev, quantize, b, t_len, c, layers):
     assert denoiser_step.denoise.launches_by_mode[st.mode] == before[st.mode] + 1 + b
 
 
+def denoise_float64(st, condb, step_rows_t, x):
+    """``denoise_plain``'s function evaluated in float64 (same bf16 rounding
+    points): x [B, T, n_mel] -> eps [B, T, n_mel] float64, bf16 stacks."""
+    ds = denoiser_step
+
+    def r(a):
+        return a.to(st.wmel.dtype).double()
+
+    n_layers, c = st.w1.shape[0], st.wskip.shape[0]
+    xp = torch.nn.functional.pad(x, (0, st.wmel.shape[0] - x.shape[-1])).double()
+    h = r(torch.relu(r(xp) @ st.wmel.double() + st.bmel.double()))
+    skip = torch.zeros(xp.shape[:-1] + (c,), dtype=torch.float64, device=x.device)
+    for i in range(n_layers):
+        acc = ds._taps(r(h + step_rows_t[i].double()), 2 ** (i % st.cycle)) @ st.w1[i].double()
+        acc = acc + condb[i].double()
+        g = torch.sigmoid(acc[..., :c]) * torch.tanh(acc[..., c:])
+        yo = r(g) @ st.wout[i].double() + st.bout[i].double()
+        h = r((h + yo[..., :c]) * ds.INV_SQRT2)
+        skip = skip + yo[..., c:]
+    inv_sqrt_l = float(torch.tensor(1.0 / math.sqrt(n_layers), dtype=torch.float32))  # as denoise_plain
+    s1 = torch.relu(r(skip * inv_sqrt_l) @ st.wskip.double() + st.bskip.double())
+    return (r(s1) @ st.wo.double() + st.bo.double())[..., :x.shape[-1]]
+
+
+@pytest.mark.parametrize("b,t_len,c,layers", _SHAPES)
+def test_k5_chaotic_stack_against_float64(dev, b, t_len, c, layers, record_property):
+    """K5 on the bf16 stack of ``test_k5_k6_denoise`` (conv weights at fan-in
+    3, where bf16 rounding differences grow from layer to layer), held per
+    clip to 1e-2 of max|eps| of the float64 evaluation of the same function.
+    Recorded per clip (junit properties), over max|plain|: the kernel's,
+    the plain version's and, a second f32 evaluation in another summation
+    order, the plain version's on the CPU distance from that evaluation."""
+    st, condb, rows, x, _ = _denoiser_operands(dev, b, t_len, c, layers, None)
+    got = denoiser_step.denoise(st, condb, rows[3], x)
+    plain = denoiser_step.denoise_plain(st, condb, rows[3], x)
+    st_cpu = type(st)(*(v.cpu() if torch.is_tensor(v) else v for v in st))
+    on_cpu = denoiser_step.denoise_plain(st_cpu, condb.cpu(), rows[3].cpu(), x.cpu())
+    ref = denoise_float64(st, condb, rows[3], x)
+    for i in range(b):
+        m = plain[i].abs().max().item()
+        for name, y in (("kernel", got), ("plain", plain), ("plain_cpu", on_cpu)):
+            record_property(f"clip{i}_{name}_vs_f64", (y[i].double().to(ref.device) - ref[i]).abs().max().item() / m)
+        record_property(f"clip{i}_kernel_vs_plain", (got[i] - plain[i]).abs().max().item() / m)
+        _close(got.double(), ref, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
+
+
 @pytest.mark.parametrize("quantize", ["int8-w1", "int8"])
 @pytest.mark.parametrize("b,t_len,c,layers", _SHAPES)
 def test_k6_ddpm_step(dev, quantize, b, t_len, c, layers):
@@ -164,6 +210,44 @@ def test_k8_denoise_v2(dev, t_len, c, layers):
     assert torch.equal(got, denoiser_v2.denoise_v2(st, condb, rows[3], x))  # no atomics: deterministic
 
 
+@pytest.mark.parametrize("c", [128, 384])
+@pytest.mark.parametrize("t_len", [9, 100])
+def test_k1_k5_tiles_and_halos_at_clip_boundaries(dev, t_len, c):
+    """B = 2 clips of T = 9 (one partial 64-row tile) and 100 (a full and a
+    partial one), L = 5 (dilations 1, 2, 4, 8, 1 against a halo of 8): the
+    gate's row boxes reach into the halo rows of each clip and tiles end at
+    each clip's last row. K1 (on x' - x/2 - z/2 = eps) and K5 per clip to
+    1e-2 of its range, and each clip's result equal to that clip alone."""
+    st, condb, rows, x, g = _denoiser_operands(dev, 2, t_len, c, 5, None, conv_fan_in=True)
+    eps = denoiser_step.denoise(st, condb, rows[3], x)
+    ref = denoiser_step.denoise_plain(st, condb, rows[3], x)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
+    srow = (0.0, -1 / 16, 16.0, 0.5, 0.5)
+    got = denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
+    want = denoiser_step.ddpm_step_plain(st, condb, rows[3], xp, z, srow)
+    for i in range(2):
+        _close(eps, ref, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
+        _close(got, want, tol=lambda m: 1e-2 * m, view=lambda y, i=i: (y - 0.5 * xp - 0.5 * z)[i])
+        one = (condb[:, i:i + 1].contiguous(), rows[3])
+        assert torch.equal(eps[i:i + 1], denoiser_step.denoise(st, *one, x[i:i + 1].contiguous()))
+        assert torch.equal(got[i:i + 1], denoiser_step.ddpm_step(st, *one, xp[i:i + 1].contiguous(),
+                                                                  z[i:i + 1].contiguous(), srow))
+    assert torch.all(got[..., 100:] == 0)
+
+
+def test_k1_is_deterministic(dev):
+    """The gate's three tap partials are summed through distributed shared
+    memory in a fixed order, with no atomics: two K1 calls on the same
+    operands agree bit for bit (T = 384, C = 384, the main path's widths)."""
+    st, condb, rows, x, g = _denoiser_operands(dev, 1, 384, 384, 4, None, conv_fan_in=True)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
+    srow = (1.2, 0.3, 0.5, 0.4, 0.1)
+    first = denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
+    assert all(torch.equal(first, denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)) for _ in range(3))
+
+
 def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):
     st, condb, rows, x, _ = _denoiser_operands(dev, 1, 64, 128, 4, "int8")
     with pytest.raises(ValueError, match="x must be contiguous f32"):
@@ -184,7 +268,8 @@ def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("b,t_len,heads,masked_tail", [
-    (1, 1500, 16, False), (2, 300, 2, False), (1, 70, 1, False), (1, 1500, 16, True), (2, 300, 2, True)])
+    (1, 1500, 16, False), (2, 300, 2, False), (1, 70, 1, False), (1, 1500, 16, True), (2, 300, 2, True),
+    (2, 1, 2, False), (2, 63, 2, False), (2, 65, 2, False), (2, 129, 2, False), (2, 65, 2, True)])
 def test_k4_attention(dev, b, t_len, heads, masked_tail):
     """Random q/k/v; or a masked tail: every real key scores about -8 and the
     zero rows padding the last key tile would score 0, so without the mask the
