@@ -10,10 +10,12 @@
    the least time the card could take for the same work (``bound_ms``):
    K1 one DDPM step at T=384 (with ``torch.matmul`` on the step's GEMM
    shapes timed beside it, ``gemm_library_ms``), K5 the eps-only forward,
-   K6 the int8 forms of both ("int8" and "int8-w1", and a batch of two clips
-   whose int8 scales differ 8x, also on the first two layers frame by
-   frame), K4 one Whisper layer's attention and a masked-tail case (with
-   ``scaled_dot_product_attention`` timed beside it and the ratio printed),
+   K6 the int8 forms of both ("int8" and "int8-w1", with ``torch._int_mm``
+   on the step's int8 GEMM shapes timed beside them, ``int8_library_ms``,
+   and a batch of two clips whose int8 scales differ 8x, also on the first
+   two layers frame by frame), K4 one Whisper layer's attention and a
+   masked-tail case (with ``scaled_dot_product_attention`` timed beside it
+   and the ratio printed),
    K2 the six vocoder stages, K3 the final activation, K7 every AMPBlock1
    pair of stages 1-5 (C <= 384) and two clips shorter than a pair's two
    halos, K8 the one-launch eps forward at T=944 (against its plain version
@@ -110,12 +112,15 @@ def bound(nbytes: float, ops: dict) -> tuple:
 
 
 def denoiser_bound(st, condb, b: int, t_len: int, io_bytes: int) -> tuple:
-    """K1/K5/K6 forward: every weight, scale, conditioner block and this
-    step's rows read once plus ``io_bytes`` of carry, noise and result; the
-    matmuls at the rate of their operand type (int8 where the stack is)."""
+    """K1/K5/K6 forward: every weight the kernel reads (the K-major copies of
+    the int8 ones), scale, conditioner block and this step's rows read once
+    plus ``io_bytes`` of carry, noise and result; the matmuls at the rate of
+    their operand type (int8 where the stack is)."""
     n_layers, _, c2 = st.w1.shape
     c, m_pad, rows = c2 // 2, st.wmel.shape[0], b * t_len
-    weights = [st.w1, st.wout, st.bout, st.wmel, st.bmel, st.wskip, st.bskip, st.wo, st.bo, st.w1s, st.wouts]
+    w1 = st.w1 if st.w1_kmajor is None else st.w1_kmajor
+    wout = st.wout if st.wout_kmajor is None else st.wout_kmajor
+    weights = [w1, wout, st.bout, st.wmel, st.bmel, st.wskip, st.bskip, st.wo, st.bo, st.w1s, st.wouts]
     nbytes = sum(w.nbytes for w in weights if w is not None) + condb.nbytes + n_layers * c * 2 + io_bytes
     conv, out = n_layers * 2 * rows * 3 * c * c2, n_layers * 2 * rows * c * c2
     ops = {"bf16": 2 * rows * c * (2 * m_pad + c), "int8": 0}
@@ -284,6 +289,29 @@ def gemm_library_ms(st, b: int, t_len: int, g, device) -> float:
     return cuda_ms(run)
 
 
+def int8_library_ms(st, b: int, t_len: int, g, device) -> float:
+    """K6's yardstick: ``torch._int_mm`` on the int8 GEMM shapes of one step
+    of an int8 stack: the L gate GEMMs [B*T, 3C] x [3C, 2C] on the taps
+    materialised, and in "int8" mode the L residual GEMMs [B*T, C] x
+    [C, 2C]; int32 results, epilogues and quantisation left out. Timed only:
+    the port never calls it."""
+    import torch
+
+    n_layers = st.w1.shape[0]
+    rows = b * t_len
+    ws = [st.w1[i] for i in range(n_layers)]
+    if st.wouts is not None:
+        ws += [st.wout[i] for i in range(n_layers)]
+    operands = [(torch.randint(-127, 128, (rows, w.shape[0]), generator=g, device=device, dtype=torch.int8), w)
+                for w in ws]
+
+    def run():
+        for a, w in operands:
+            torch._int_mm(a, w)
+
+    return cuda_ms(run)
+
+
 def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     """K1, K5 and K6 at B=1, T=n_frames, C=384, L=20, bf16 compute; K6 also at
     B=2 with the second clip's mel (so its int8 scale) 8x the first's; K8 at
@@ -309,7 +337,7 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
         st = ds.stack_denoiser_params(den, bf, quantize)
         condb, srow = ds.fold_conditioner(den, cond_projs, bf), step_rows[t_mid].contiguous()
         if layers is not None:
-            per_layer = ("w1", "wout", "bout", "w1s", "wouts")
+            per_layer = ("w1", "wout", "bout", "w1s", "wouts", "w1_kmajor", "wout_kmajor")
             st = st._replace(**{k: getattr(st, k)[:layers].contiguous() for k in per_layer
                                 if getattr(st, k) is not None})
             condb, srow = condb[:layers].contiguous(), srow[:layers].contiguous()
@@ -337,7 +365,8 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
                       EPS_TOL if quantize is None else INT8_TOL[quantize],
                       views=(lambda y: y - 0.5 * x - 0.5 * z,))
         row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, 1, n_frames, 3 * x.nbytes)
-        # the gate's cluster sum has a fixed order and no atomics: two calls agree bit for bit
+        # the gate's cluster sum has a fixed order (f32) or is exact (int32), with no
+        # atomics: two calls agree bit for bit
         if not torch.equal(ds.ddpm_step(st, condb, srow, x, z, probe), ds.ddpm_step(st, condb, srow, x, z, probe)):
             raise AssertionError(f"{name}: two calls on the same operands differ")
         if quantize is None:
@@ -345,7 +374,16 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
             print(f"  {name}: torch.matmul on the step's {2 + 2 * st.w1.shape[0]} GEMM shapes "
                   f"(gemm_library_ms) {row['gemm_library_ms']:.4f} ms; {name} / that = "
                   f"{row['ms'] / row['gemm_library_ms']:.3f}")
+        else:
+            library(name, row, st, 1)
         return row
+
+    def library(name, row, st, b):
+        """int8_library_ms of an int8 stack's row (K6's yardstick)."""
+        row["int8_library_ms"] = int8_library_ms(st, b, n_frames, g, device)
+        n = st.w1.shape[0] * (2 if st.wouts is not None else 1)
+        print(f"  {name}: torch._int_mm on the step's {n} int8 GEMM shapes (int8_library_ms) "
+              f"{row['int8_library_ms']:.4f} ms; {name} / that = {row['ms'] / row['int8_library_ms']:.3f}")
 
     def eps_form(name, quantize, b=1, layers=None):
         st, condb, srow = operands(b, quantize, layers)
@@ -357,6 +395,8 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
                       EPS_TOL if quantize is None else INT8_TOL[quantize], views=views,
                       frames=layers is not None)
         row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, b, n_frames, 2 * x.nbytes)
+        if quantize is not None and layers is None:
+            library(name, row, st, b)
         if b > 1:
             # batch independence: each clip's eps in the batch equals the
             # kernel's eps of that clip alone (every row is computed from its
@@ -850,7 +890,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("library_ratio", "gemm_library_ms") if k in r}})
+                        **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms") if k in r}})
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")

@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(GM_THREADS) conv1d_kernel(const TapA a, const 
   __shared__ __align__(32) float Cs[GM_BM][GM_LDC];
   const int m0 = blockIdx.x * GM_BM;
   const int bx = blockIdx.y;
-  gemm_tile<false>(a, bw, m0, bx, As, Bs, Cs);
+  gemm_tile(a, bw, m0, bx, As, Bs, Cs);
   for (int idx = threadIdx.x; idx < GM_BM * GM_BN; idx += GM_THREADS) {
     const int i = idx >> 6;
     const int j = idx & 63;
@@ -86,8 +86,8 @@ extern "C" int svc_conv1d(const svc::bf16* x, const svc::bf16* w, const float* b
                           int dil, void* stream) {
   using namespace svc;
   const int M = B * T;
-  const TapA a{x, cin, M, T, k * cin, cin, dil, dil * (k - 1) / 2, nullptr, 1.0f};
-  const ColsB bw{w, cout, cout, 0};
+  const TapA a{x, cin, M, T, k * cin, cin, dil, dil * (k - 1) / 2};
+  const ColsB bw{w, cout, cout};
   const ConvEpi e{bias, res, res_bf16, acc_in, scale, out, out_bf16};
   conv1d_kernel<<<gemm_grid(M, bw), GM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, bw, e);
   return (int)cudaGetLastError();

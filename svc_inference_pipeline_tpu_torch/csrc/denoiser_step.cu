@@ -14,7 +14,9 @@
 //
 // What bounds it here: ~18 GFLOP per call at T=384, C=384, L=20 (18 us at
 //   the tensor cores' peak), but at batch 1 a launch has 72 output tiles of
-//   64 x 64 for 132 SMs, so each tile's serial K loop sets the time. The
+//   64 x 64 for 132 SMs (216 blocks for a gate split over its taps), so the
+//   latency of each tile's loads, K loop and epilogue sets the time, and a
+//   step's floor is the latency of its 2 + 2L dependent launches. The
 //   activations (h [T,C] bf16, skip [T,C] f32: ~0.9 MB at T=384) stay in the
 //   50 MB L2 between launches. 227 KB of shared memory cannot hold a
 //   sequential layer loop over the whole clip, and CUDA blocks do not run in
@@ -65,20 +67,40 @@
 //   [T, C] before the gate GEMM reads it: the epilogue that writes h (the
 //   prologue for layer 0, the residual epilogue of layer l for layer l+1)
 //   folds |bf16(h) + step_row[l+1]| into a zeroed [L, B] buffer with one
-//   atomicMax on the float bits per warp and batch element. The gate GEMM
-//   (the int8 tile of gemm_tile.cuh, which gathers and quantises its taps
-//   from h) scales its int32 sums by (s_y * w1s[col]); in "int8" mode its
-//   epilogue stores the gate as rint(g * 127) in int8 and the residual GEMM
-//   runs on int8 too, scaled by (wouts[col] * (1/127)). The other launches
-//   of the int8 modes are bf16 and take the pipelined tile. The dequantising
-//   epilogues use round-to-nearest intrinsics without contraction, as the
-//   plain version computes them. The int8 sums are exact (|sum| <= 3C * 127^2
-//   < 2^31), and the int32 -> f32 conversion rounds to nearest as the plain
-//   version's float64 -> f32 does.
+//   atomicMax on the float bits per warp and batch element. That max is
+//   complete only when every block of that launch has folded its share, so
+//   the taps cannot be quantised by the epilogue that writes h.
+//   The int8 GEMMs run on the wgmma s8 tile (gemm_wg_s8.cuh), whose operands
+//   are K-major: the stack carries K-major copies of the int8 weights
+//   (w1 as [L, 3, 2C, C], wout as [L, 2C, C]).
+//   - The gate is split over its 3 taps as the bf16 gate, in a cluster of
+//     3 taps x 2 column tiles. Each block issues its tap's weight chunks,
+//     waits for the launch before and reads s_y of its clip. The three taps'
+//     64-row boxes of y = h + step_row overlap: together they are the clip's
+//     rows [t0 - d, t0 + 64 + d). The cluster's six blocks quantise that
+//     union once, each an interleaved share, and store every quantised row
+//     through distributed shared memory into the resident K-major int8 tile
+//     (the whole K = C) of each block whose tap box holds it; rows outside
+//     the clip are 0, since the conv pads the quantised input. Quantising
+//     per block instead repeats the work 12x over the column tiles and
+//     ~2.7x over the taps: on an H100 an int8 step at T = 384 took
+//     0.61 ms that way and takes 0.54 ms this way (0.91 and 0.81 at T = 960).
+//     The three int32 partials are summed in int32 through distributed
+//     shared memory (exact, so the same bits in any order) and scaled once
+//     by (s_y * w1s[col]): one rounding of the exact sum, as the plain
+//     version. In "int8" mode the gated epilogue stores rint(g * 127) in
+//     int8.
+//   - "int8" mode's residual reads that int8 g by cp.async and scales its
+//     int32 sums by (wouts[col] * (1/127)).
+//   The other launches of the int8 modes are bf16 and take the bf16 tile.
+//   The dequantising epilogues use round-to-nearest intrinsics without
+//   contraction, as the plain version computes them. The int8 sums are exact
+//   (|sum| <= 3C * 127^2 < 2^31), and the int32 -> f32 conversion rounds to
+//   nearest as the plain version's float64 -> f32 does.
 #include <cooperative_groups.h>
 
-#include "gemm_tile.cuh"
 #include "gemm_wg.cuh"
+#include "gemm_wg_s8.cuh"
 
 namespace svc {
 namespace {
@@ -86,7 +108,16 @@ namespace {
 namespace cg = cooperative_groups;
 
 enum Epilogue { EPI_RELU = 0, EPI_GATE = 1, EPI_RESSKIP = 2, EPI_DDPM = 3, EPI_EPS = 4 };
-enum AKind { A_Q8_TAPS = 0, A_I8 = 1 };
+
+// s = max(amax, 1e-12) / 127, and q = clip(rint(v), -127, 127), as the TPU
+// kernel and the plain version quantise
+__device__ __forceinline__ float quant_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, 1e-12f), 1.0f / 127.0f);
+}
+
+__device__ __forceinline__ int8_t quant_i8(float v) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
+}
 
 struct StepEpi {
   void* out;             // RELU: bf16 [M, ldo]; GATE: bf16 or int8 g; RESSKIP: bf16 h (in place);
@@ -153,7 +184,7 @@ __device__ __forceinline__ void next_input(const StepEpi& e, RowMax& rowmax, int
 }
 
 // The fused epilogues over tile rows [i_lo, i_hi) of the 64 x 64 result
-// acc(i, j) (f32, or the bits of an int32 sum when INT8), whose row i is
+// acc(i, j) (f32, or an int32 sum when INT8), whose row i is
 // global row r0 + i; rows at or past nvalid are skipped. Lanes of a warp
 // share a row (the loops step by whole rows per warp), so the skip is
 // warp-uniform.
@@ -162,19 +193,21 @@ __device__ __forceinline__ void epilogue(const StepEpi& e, Acc acc, int r0, int 
                                          int N, int i_lo, int i_hi) {
   RowMax rowmax;
   if constexpr (EPI == EPI_GATE || EPI == EPI_RESSKIP) {
-    for (int idx = i_lo * 32 + threadIdx.x; idx < i_hi * 32; idx += GM_THREADS) {
+    for (int idx = i_lo * 32 + threadIdx.x; idx < i_hi * 32; idx += WG_THREADS) {
       const int i = idx >> 5;
       const int j = idx & 31;
       if (i >= nvalid) continue;
       const int r = r0 + i;
       const int c = bx * 32 + j;
-      float lo = acc(i, j);
-      float hi = acc(i, j + 32);
+      float lo, hi;
       if constexpr (INT8) {
         // s_y * w1s[col] (gate) or wouts[col] * (1/127) (residual), then acc * that
         const float rs = EPI == EPI_GATE ? quant_scale(e.amax_in[r / e.T]) : 1.0f / 127.0f;
-        lo = __fmul_rn(__int2float_rn(__float_as_int(lo)), __fmul_rn(rs, e.col_scale[c]));
-        hi = __fmul_rn(__int2float_rn(__float_as_int(hi)), __fmul_rn(rs, e.col_scale[C + c]));
+        lo = __fmul_rn(__int2float_rn(acc(i, j)), __fmul_rn(rs, e.col_scale[c]));
+        hi = __fmul_rn(__int2float_rn(acc(i, j + 32)), __fmul_rn(rs, e.col_scale[C + c]));
+      } else {
+        lo = acc(i, j);
+        hi = acc(i, j + 32);
       }
       const size_t o = (size_t)r * e.ldo + c;
       if constexpr (EPI == EPI_GATE) {
@@ -198,10 +231,10 @@ __device__ __forceinline__ void epilogue(const StepEpi& e, Acc acc, int r0, int 
       }
     }
   } else {
-    for (int idx = i_lo * 64 + threadIdx.x; idx < i_hi * 64; idx += GM_THREADS) {
+    for (int idx = i_lo * 64 + threadIdx.x; idx < i_hi * 64; idx += WG_THREADS) {
       const int i = idx >> 6;
       const int j = idx & 63;
-      const int col = bx * GM_BN + j;
+      const int col = bx * WG_BN + j;
       if (i >= nvalid || col >= N) continue;  // warp-uniform for the N used here (multiples of 64)
       const int r = r0 + i;
       const size_t o = (size_t)r * e.ldo + col;
@@ -223,19 +256,25 @@ __device__ __forceinline__ void epilogue(const StepEpi& e, Acc acc, int r0, int 
   if (e.amax_out != nullptr) rowmax.flush(e.amax_out);
 }
 
-// --- int8 launches (K6's gate, and "int8" mode's residual): the WMMA s8 tile
-// over global 64-row tiles, gathering and quantising the conv taps from h.
-template <int AK, int EPI>
-__global__ void __launch_bounds__(GM_THREADS) step_gemm_s8_kernel(const TapA a, const ColsB8 bw8,
-                                                                 const StepEpi e) {
-  __shared__ __align__(32) float Cs[GM_BM][GM_LDC];
-  __shared__ __align__(32) int8_t As[G8_BK / 16][GM_BM][16];
-  __shared__ __align__(32) int8_t Bs[GM_BN / 16][G8_BK][16];
-  grid_dependency_wait();
-  const int m0 = blockIdx.x * GM_BM;
-  gemm_tile_s8<AK == A_Q8_TAPS>(a, bw8, m0, blockIdx.y, As, Bs, reinterpret_cast<int (*)[GM_LDC]>(Cs));
-  epilogue<true, EPI>(e, [&](int i, int j) { return Cs[i][j]; }, m0, min(GM_BM, a.M - m0), blockIdx.y,
-                      bw8.half, bw8.N, 0, GM_BM);
+// The split gate's tap sum: each rank of the cluster of 3 sums the three
+// partial tiles through distributed shared memory in one order (rank 0 + 1 +
+// 2; no atomics, so the same bits on every run) for a third of the rows and
+// runs the epilogue on them.
+// The taps of a column tile are cluster ranks base + 0, 1, 2 (ranks run
+// over the cluster's x first).
+template <bool INT8, int EPI, typename Acc>
+__device__ __forceinline__ void cluster_epilogue(const StepEpi& e, const Acc* part, int base, int tap, int r0,
+                                                 int nvalid, int bx, int C, int N) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // the three partial tiles are complete
+  const Acc* p0 = cluster.map_shared_rank(part, base);
+  const Acc* p1 = cluster.map_shared_rank(part, base + 1);
+  const Acc* p2 = cluster.map_shared_rank(part, base + 2);
+  const int rows = cdiv(WG_BM, 3);
+  epilogue<INT8, EPI>(
+      e, [&](int i, int j) { return (p0[i * WG_LDC + j] + p1[i * WG_LDC + j]) + p2[i * WG_LDC + j]; }, r0,
+      nvalid, bx, C, N, tap * rows, min(WG_BM, (tap + 1) * rows));
+  cluster.sync();  // no block leaves while another still reads its tile
 }
 
 // --- bf16 launches: the pipelined wgmma tile over per-clip row tiles.
@@ -269,16 +308,7 @@ __global__ void __launch_bounds__(WG_THREADS) step_gemm_wg_kernel(const WgOp op,
   const int r0 = b * e.T + t0;
   const int C = op.half;
   if constexpr (SPLIT) {
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();  // the three partial tiles are complete
-    const float* p0 = cluster.map_shared_rank(Cs, 0);
-    const float* p1 = cluster.map_shared_rank(Cs, 1);
-    const float* p2 = cluster.map_shared_rank(Cs, 2);
-    const int rows = cdiv(WG_BM, 3);
-    epilogue<false, EPI>(
-        e, [&](int i, int j) { return (p0[i * WG_LDC + j] + p1[i * WG_LDC + j]) + p2[i * WG_LDC + j]; },
-        r0, nvalid, bx, C, op.N, tap * rows, min(WG_BM, (tap + 1) * rows));
-    cluster.sync();  // no block leaves while another still reads its tile
+    cluster_epilogue<false, EPI>(e, Cs, 0, tap, r0, nvalid, bx, C, op.N);
   } else {
     epilogue<false, EPI>(e, [&](int i, int j) { return Cs[i * WG_LDC + j]; }, r0, nvalid, bx, C, op.N, 0,
                          WG_BM);
@@ -299,10 +329,145 @@ __global__ void __launch_bounds__(WG_THREADS) step_gemm_wg_kernel(const WgOp op,
   }
 }
 
-// Launch with programmatic stream serialization (and a cluster of 3 for the
-// split gate).
+// --- int8 launches (K6): the wgmma s8 tile over per-clip row tiles. The
+// gate, split over its taps, quantises its tap's box of y from h; "int8"
+// mode's residual copies the int8 g.
+struct W8Op {
+  const void* a;        // gate: bf16 h [B*T, lda]; residual: int8 g [B*T, lda]
+  int lda;
+  int dil;              // gate: tap m reads rows shifted by (m - 1) * dil
+  const int8_t* w;      // K-major: gate [3, 2*half, K] tap-major; residual [2*half, K]
+  int half, K;          // tile columns: rows bx*32.. and half + bx*32.. of w
+  const bf16* add_row;  // gate: this layer's step row [K], added before quantising
+  const float* amax;    // gate: [B] abs max of y per clip
+};
+
+// two bf16 of h plus two of the step row (one word each), quantised with
+// 1/s_y = inv: two int8 in the low 16 bits (a bf16's f32 value is its bits << 16)
+__device__ __forceinline__ uint32_t quant_pair(uint32_t h, uint32_t r, float inv) {
+  const float y0 = __fadd_rn(__uint_as_float(h << 16), __uint_as_float(r << 16));
+  const float y1 = __fadd_rn(__uint_as_float(h & 0xffff0000u), __uint_as_float(r & 0xffff0000u));
+  return static_cast<uint8_t>(quant_i8(__fmul_rn(y0, inv))) |
+         static_cast<uint32_t>(static_cast<uint8_t>(quant_i8(__fmul_rn(y1, inv)))) << 8;
+}
+
+// 8 bf16 of h plus 8 of the row -> 8 int8
+__device__ __forceinline__ uint2 quant8(uint4 h, uint4 r, float inv) {
+  return make_uint2(quant_pair(h.x, r.x, inv) | quant_pair(h.y, r.y, inv) << 16,
+                    quant_pair(h.z, r.z, inv) | quant_pair(h.w, r.w, inv) << 16);
+}
+
+constexpr int W8_GATE_Q = 2;   // column tiles per gate cluster (cluster of 3 taps x W8_GATE_Q)
+constexpr int W8_QBATCH = 3;   // 32-byte reads of h in flight per thread
+
+// The int8 gate's resident A tiles, quantised once per cluster. The three
+// taps' 64-row boxes of a row tile overlap: together they are clip rows
+// [t0 - d, t0 + 64 + d) of y = h + add_row. Each of the cluster's
+// 3 * W8_GATE_Q blocks quantises an interleaved share of those rows
+// (1/s_y = inv) and stores every quantised 16-byte chunk, through
+// distributed shared memory, into the A tile of each block whose tap box
+// holds it: tap m's tile row i is union row i + m * d. Rows outside [0, T)
+// are 0 (the conv pads the quantised input), as are tile rows at or past
+// nvalid and the columns at or past K. Ends with every tile of the cluster
+// complete.
+__device__ __forceinline__ void quant_taps_cluster(const bf16* clip, int ld, int T, int t0, int d, int nvalid,
+                                                   const bf16* add_row, float inv, int K, uint8_t* As) {
+  constexpr int NB = 3 * W8_GATE_Q;
+  cg::cluster_group cluster = cg::this_cluster();
+  uint8_t* dst[NB];
+#pragma unroll
+  for (int r = 0; r < NB; ++r) dst[r] = cluster.map_shared_rank(As, r);
+  const int nc = w8_row_chunks(K);
+  const int n = (WG_BM + 2 * d) * nc;
+  const int stride = NB * WG_THREADS;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every block has started: DSMEM is live
+  for (int base = cluster.block_rank() * WG_THREADS + threadIdx.x; base < n; base += W8_QBATCH * stride) {
+    uint4 hv[W8_QBATCH][2];
+    uint4 rv[W8_QBATCH][2];
+    bool ok[W8_QBATCH];
+#pragma unroll
+    for (int q = 0; q < W8_QBATCH; ++q) {
+      const int v = base + q * stride;
+      const int u = v / nc;
+      const int c = v - u * nc;
+      const int ts = t0 - d + u;
+      ok[q] = v < n && ts >= 0 && ts < T && 16 * c < K;
+      if (ok[q]) {
+        const uint4* hp = reinterpret_cast<const uint4*>(clip + (size_t)ts * ld + 16 * c);
+        const uint4* rp = reinterpret_cast<const uint4*>(add_row + 16 * c);
+        hv[q][0] = hp[0];
+        hv[q][1] = hp[1];
+        rv[q][0] = rp[0];
+        rv[q][1] = rp[1];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < W8_QBATCH; ++q) {
+      const int v = base + q * stride;
+      if (v < n) {
+        uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+        if (ok[q]) {
+          const uint2 lo = quant8(hv[q][0], rv[q][0], inv);
+          const uint2 hi = quant8(hv[q][1], rv[q][1], inv);
+          packed = make_uint4(lo.x, lo.y, hi.x, hi.y);
+        }
+        const int u = v / nc;
+        const int c = v - u * nc;
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          const int i = u - m * d;
+          if (i >= 0 && i < WG_BM) {
+            const uint4 val = i < nvalid ? packed : make_uint4(0u, 0u, 0u, 0u);
+            const int off = w8_a_offset(i, c);
+#pragma unroll
+            for (int p = 0; p < W8_GATE_Q; ++p) *reinterpret_cast<uint4*>(dst[m + 3 * p] + off) = val;
+          }
+        }
+      }
+    }
+  }
+  // the stores, visible to every block's wgmma (async proxy), then complete
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
+  cluster.sync();
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(WG_THREADS) step_gemm_s8_kernel(const W8Op op, const StepEpi e) {
+  constexpr bool SPLIT = EPI == EPI_GATE;
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* smem = align1024(wg_smem);
+  const int tap = SPLIT ? (int)(blockIdx.x % 3) : 0;  // == the block's rank in its cluster of 3
+  const int tile = SPLIT ? blockIdx.x / 3 : blockIdx.x;
+  const int tpc = cdiv(e.T, WG_BM);
+  const int b = tile / tpc;
+  const int t0 = (tile - b * tpc) * WG_BM;
+  const int nvalid = min(WG_BM, e.T - t0);
+  const int bx = blockIdx.y;
+  const int C = op.half;
+  const W8B bw{op.w + (size_t)tap * 2 * C * op.K, op.K, bx * 32, C + bx * 32};
+  if constexpr (SPLIT) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");  // started
+  const int* Ci = wg_gemm_s8(bw, op.K, smem, [&](uint8_t* As) {
+    if constexpr (SPLIT) {
+      // s_y is complete now: every block of the launch that wrote h has folded its max
+      const float inv = 1.0f / quant_scale(op.amax[b]);
+      quant_taps_cluster(static_cast<const bf16*>(op.a) + (size_t)b * e.T * op.lda, op.lda, e.T, t0, op.dil,
+                         nvalid, op.add_row, inv, op.K, As);
+    } else {
+      w8_copy_a(static_cast<const int8_t*>(op.a) + (size_t)(b * e.T + t0) * op.lda, op.lda, nvalid, op.K, As);
+    }
+  });
+  const int r0 = b * e.T + t0;
+  if constexpr (SPLIT) {
+    cluster_epilogue<true, EPI>(e, Ci, 3 * (bx % W8_GATE_Q), tap, r0, nvalid, bx, C, 2 * C);
+  } else {
+    epilogue<true, EPI>(e, [&](int i, int j) { return Ci[i * WG_LDC + j]; }, r0, nvalid, bx, C, 2 * C, 0, WG_BM);
+  }
+}
+
+// Launch with programmatic stream serialization (and a cluster for the
+// split gates: 3 taps, by W8_GATE_Q column tiles for the int8 gate).
 template <typename... Params, typename... Args>
-void launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, int smem, int cluster_x, cudaStream_t s,
+void launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, int smem, dim3 cluster, cudaStream_t s,
                Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -313,10 +478,10 @@ void launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, int smem, int c
   attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attrs[0].val.programmaticStreamSerializationAllowed = 1;
   int n = 1;
-  if (cluster_x > 1) {
+  if (cluster.x * cluster.y > 1) {
     attrs[n].id = cudaLaunchAttributeClusterDimension;
-    attrs[n].val.clusterDim.x = cluster_x;
-    attrs[n].val.clusterDim.y = 1;
+    attrs[n].val.clusterDim.x = cluster.x;
+    attrs[n].val.clusterDim.y = cluster.y;
     attrs[n].val.clusterDim.z = 1;
     ++n;
   }
@@ -333,15 +498,19 @@ void launch_wg(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
   (void)attr;  // a refusal shows as the launch's error
   const int ny = op.half > 0 ? op.half / 32 : op.N / WG_BN;
   const dim3 grid((SPLIT ? 3 : 1) * B * cdiv(e.T, WG_BM), ny);
-  launch_ex(kernel, grid, dim3(WG_THREADS), WG_SMEM_BYTES, SPLIT ? 3 : 1, s, op, e);
+  launch_ex(kernel, grid, dim3(WG_THREADS), WG_SMEM_BYTES, dim3(SPLIT ? 3 : 1), s, op, e);
 }
 
-template <int AK, int EPI>
-void launch_s8(const TapA& a, const ColsB8& bw8, const StepEpi& e, cudaStream_t s) {
-  launch_ex(step_gemm_s8_kernel<AK, EPI>, gemm_grid(a.M, bw8), dim3(GM_THREADS), 0, 1, s, a, bw8, e);
+template <int EPI>
+void launch_s8(const W8Op& op, const StepEpi& e, int B, cudaStream_t s) {
+  constexpr bool SPLIT = EPI == EPI_GATE;
+  auto kernel = step_gemm_s8_kernel<EPI>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, w8_smem_bytes(W8_MAX_K));
+  (void)attr;  // a refusal shows as the launch's error
+  const dim3 grid((SPLIT ? 3 : 1) * B * cdiv(e.T, WG_BM), op.half / 32);
+  launch_ex(kernel, grid, dim3(WG_THREADS), w8_smem_bytes(op.K), SPLIT ? dim3(3, W8_GATE_Q) : dim3(1), s, op, e);
 }
-
-TapA matrix_a(const void* src, int M, int K) { return TapA{src, K, M, M, K, K, 0, 0, nullptr, 1.0f, nullptr}; }
 
 WgOp plain_op(const void* a, int lda, const bf16* w, int ldw, int half, int N, int K, float scale = 1.0f) {
   return WgOp{a, lda, 0, 0, w, ldw, half, N, K, scale};
@@ -356,9 +525,9 @@ struct Forward {
   bf16* s1;                   // scratch bf16 [B*T, C]
   bf16* y;                    // bf16 stack: scratch [B, T + 2*halo, C], halo rows zero; else null
   const bf16* step_rows_t;    // [L, C] this step's rows
-  const void* w1;             // [L, 3C, 2C] bf16, or int8 when w1s != null
+  const void* w1;             // bf16 [L, 3C, 2C], or int8 K-major [L, 3, 2C, C] when w1s != null
   const bf16* condb;          // [L, B*T, 2C]
-  const void* wout;           // [L, C, 2C] bf16, or int8 when wouts != null
+  const void* wout;           // bf16 [L, C, 2C], or int8 K-major [L, 2C, C] when wouts != null
   const bf16* bout;           // [L, 2C]
   const bf16 *wmel, *bmel, *wskip, *bskip, *wo, *bo;
   const float* w1s;           // [L, 2C] or null
@@ -400,11 +569,10 @@ void run_body(const Forward& f, cudaStream_t st) {
     StepEpi ge{};
     ge.out = f.g; ge.ldo = C; ge.cond = f.condb + (size_t)l * M * 2 * C; ge.T = f.T;
     if (q1) {
-      const TapA taps{f.h, C, M, f.T, 3 * C, C, d, d, f.step_rows_t + (size_t)l * C, 1.0f,
+      const W8Op gate{f.h, C, d, static_cast<const int8_t*>(f.w1) + w1_off, C, C, f.step_rows_t + (size_t)l * C,
                       f.amax + (size_t)l * f.B};
-      ge.col_scale = f.w1s + (size_t)l * 2 * C; ge.amax_in = taps.amax; ge.gate_i8 = q2;
-      launch_s8<A_Q8_TAPS, EPI_GATE>(taps, ColsB8{static_cast<const int8_t*>(f.w1) + w1_off, 2 * C, 2 * C, C},
-                                     ge, st);
+      ge.col_scale = f.w1s + (size_t)l * 2 * C; ge.amax_in = gate.amax; ge.gate_i8 = q2;
+      launch_s8<EPI_GATE>(gate, ge, f.B, st);
     } else {
       const WgOp gate{f.y, C, halo, d, static_cast<const bf16*>(f.w1) + w1_off, 2 * C, C, 2 * C, C, 1.0f};
       launch_wg<false, EPI_GATE, true>(gate, ge, f.B, st);
@@ -415,8 +583,8 @@ void run_body(const Forward& f, cudaStream_t st) {
     if (l + 1 < f.L) feed(re, l + 1);
     if (q2) {
       re.col_scale = f.wouts + (size_t)l * 2 * C;
-      launch_s8<A_I8, EPI_RESSKIP>(matrix_a(f.g, M, C),
-                                   ColsB8{static_cast<const int8_t*>(f.wout) + wout_off, 2 * C, 2 * C, C}, re, st);
+      const W8Op res{f.g, C, 0, static_cast<const int8_t*>(f.wout) + wout_off, C, C, nullptr, nullptr};
+      launch_s8<EPI_RESSKIP>(res, re, f.B, st);
     } else {
       launch_wg<false, EPI_RESSKIP>(
           plain_op(f.g, C, static_cast<const bf16*>(f.wout) + wout_off, 2 * C, C, 2 * C, C), re, f.B, st);
@@ -450,14 +618,17 @@ using svc::bf16;
 // [B*T, C] scratch; g: [B*T, C] bf16-sized scratch; skip: f32 [B*T, C]
 // scratch; y: bf16 [B, T + 2*2^(cycle-1), C] scratch with zero halo rows
 // (bf16 stack; null on an int8 stack); step_rows_t: bf16 [L, C] (this step's
-// rows); w1: [L, 3C, 2C] tap-major, bf16 or int8 (then w1s f32 [L, 2C] and
-// amax f32 [L, B] scratch); condb: bf16 [L, B*T, 2C]; wout: [L, C, 2C] bf16
-// or int8 (then wouts f32 [L, 2C]); bout: bf16 [L, 2C]; wmel [mp, C], bmel
+// rows); w1: bf16 [L, 3C, 2C] tap-major, or the int8 K-major copy
+// [L, 3, 2C, C] (then w1s f32 [L, 2C] and amax f32 [L, B] scratch); condb:
+// bf16 [L, B*T, 2C]; wout: bf16 [L, C, 2C], or the int8 K-major copy
+// [L, 2C, C] (then wouts f32 [L, 2C]); bout: bf16 [L, 2C]; wmel [mp, C], bmel
 // [C], wskip [C, C], bskip [C], wo [C, mp], bo [mp], all bf16. C and mp are
-// multiples of 64. s0..s4: this step's schedule scalars.
+// multiples of 64, and C <= W8_MAX_K on an int8 stack. s0..s4: this step's
+// schedule scalars.
 extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SVC_FORWARD_PARAMS,
                              float s0, float s1c, float s2, float s3, float s4, void* stream) {
   using namespace svc;
+  if (w1s != nullptr && C > W8_MAX_K) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Forward f = SVC_FORWARD(x_in);
   run_body(f, st);
@@ -473,6 +644,7 @@ extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SV
 extern "C" int svc_denoise(const float* x_in, float* eps, SVC_FORWARD_PARAMS, int n_mel,
                            void* stream) {
   using namespace svc;
+  if (w1s != nullptr && C > W8_MAX_K) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Forward f = SVC_FORWARD(x_in);
   run_body(f, st);

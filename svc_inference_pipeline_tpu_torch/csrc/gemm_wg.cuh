@@ -1,6 +1,8 @@
-// The pipelined bf16 GEMM tile of the denoiser (K1, K5, and the bf16
-// launches of K6): one warpgroup (128 threads) computes a 64 x 64 f32 tile
-// with wgmma.mma_async m64n64k16 over K in chunks of 64.
+// The pipelined bf16 GEMM tile of the denoiser (K1, K5, the bf16 launches
+// of K6, and every phase of K8): one warpgroup (128 threads) computes a
+// 64 x 64 f32 tile with wgmma.mma_async m64n64k16 over K in chunks of 64.
+// gemm_wg_s8.cuh builds K6's int8 tile from the same swizzle, descriptors,
+// ring and dependent-launch rule.
 //
 // Operands: A is a 64-row box of a row-major bf16 matrix (or f32, converted
 // on the way in), B a row-major [K, ldw] bf16 weight whose tile columns are
@@ -14,14 +16,16 @@
 // Pipeline: a ring of WG_STAGES (A, B) stages in dynamic shared memory,
 // filled by cp.async.cg (16 bytes a thread) with one commit group per chunk.
 // Chunk k+3 is in flight while chunk k multiplies. A f32 A (the prologue's
-// mel and the skip projection's sum, 2 of the 42 launches) is loaded, scaled
-// and rounded synchronously into its stage instead. Rows of A at or past
-// `nvalid` read nothing and are zero.
+// mel and the skip projection's sum) is loaded, scaled and rounded
+// synchronously into its stage instead. Rows of A at or past `nvalid` read
+// nothing and are zero.
 //
 // Dependent launches: the weights are issued first, for the first
-// WG_STAGES - 1 chunks, because no earlier launch writes them; then
-// grid_dependency_wait(); only then the A operand, which earlier launches
-// write. The caller's epilogue runs after the wait too.
+// WG_STAGES - 1 chunks (wg_prefetch_b), because no earlier launch writes
+// them; then grid_dependency_wait(); only then the A operand, which earlier
+// launches write (wg_gemm_main). The caller's epilogue runs after the wait
+// too. K8, one cooperative launch, calls the two halves itself and issues a
+// phase's first weight chunks before the grid barrier that opens the phase.
 #pragma once
 
 #include "common.cuh"
@@ -137,15 +141,21 @@ __device__ __forceinline__ void wg_load_b(const WgB& bw, int k0, uint8_t* Bs) {
   }
 }
 
-// Cs[64][WG_LDC] (aliased on the ring) <- A @ B over K (a multiple of 64).
-// Calls grid_dependency_wait() once the first weight chunks are in flight.
-template <bool A_F32>
-__device__ __forceinline__ float* wg_gemm(const WgA& a, const WgB& bw, int K, uint8_t* ring) {
+// The first WG_STAGES - 1 weight chunks into their ring stages, uncommitted:
+// wg_gemm_main commits them with the A chunks of the same stages.
+__device__ __forceinline__ void wg_prefetch_b(const WgB& bw, int K, uint8_t* ring) {
   const int nk = K / WG_BK;
 #pragma unroll
   for (int s = 0; s < WG_STAGES - 1; ++s)
     if (s < nk) wg_load_b(bw, s * WG_BK, ring + s * WG_STAGE_BYTES + WG_TILE_BYTES);
-  grid_dependency_wait();
+}
+
+// Cs[64][WG_LDC] (aliased on the ring) <- A @ B over K (a multiple of 64),
+// after wg_prefetch_b(bw, K, ring). A block that runs a second tile must
+// __syncthreads() after its epilogue has read Cs, before the next prefetch.
+template <bool A_F32>
+__device__ __forceinline__ float* wg_gemm_main(const WgA& a, const WgB& bw, int K, uint8_t* ring) {
+  const int nk = K / WG_BK;
 #pragma unroll
   for (int s = 0; s < WG_STAGES - 1; ++s) {
     if (s < nk) wg_load_a<A_F32>(a, s * WG_BK, ring + s * WG_STAGE_BYTES);
@@ -193,6 +203,15 @@ __device__ __forceinline__ float* wg_gemm(const WgA& a, const WgB& bw, int K, ui
   }
   __syncthreads();
   return Cs;
+}
+
+// One tile of a launch with programmatic stream serialization: the weights'
+// first chunks, the wait for the launch before, then the rest.
+template <bool A_F32>
+__device__ __forceinline__ float* wg_gemm(const WgA& a, const WgB& bw, int K, uint8_t* ring) {
+  wg_prefetch_b(bw, K, ring);
+  grid_dependency_wait();
+  return wg_gemm_main<A_F32>(a, bw, K, ring);
 }
 
 }  // namespace svc

@@ -14,7 +14,11 @@ All are ``csrc/denoiser_step.cu`` (2 + 2L GEMM launches per call with fused
 epilogues; the bf16 launches on the pipelined wgmma tile of
 ``csrc/gemm_wg.cuh``, the gate split over its three taps in a cluster of
 three blocks and read from the zero-halo buffer of
-:func:`conv_input_buffer`). One forward: mel preprocess, L gated
+:func:`conv_input_buffer`; the int8 GEMMs on the wgmma s8 tile of
+``csrc/gemm_wg_s8.cuh``, whose K-major weights the int8 stacks carry as
+copies, the gate split over its taps in clusters of 3 taps x 2 column tiles
+that quantise the union of their tap boxes from h once, the three int32
+partials summed exactly). One forward: mel preprocess, L gated
 dilated-conv layers over the precomputed conditioner and step rows, skip
 and output projections;
 K1 then applies x0 = clamp(c0 x - c1 eps, +-1), x' = c2 x0 + c3 x + sigma z.
@@ -56,6 +60,7 @@ from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 LANE = 128  # mel channels padded to this width in the carry
 QUANTIZE_MODES = (None, "int8", "int8-w1")
 INV_127 = np.float32(1.0 / 127.0)
+INT8_MAX_CHANNELS = 1024  # the int8 tile holds a tap's whole K = C (csrc/gemm_wg_s8.cuh W8_MAX_K)
 
 
 class StackedDenoiser(NamedTuple):
@@ -74,6 +79,11 @@ class StackedDenoiser(NamedTuple):
     cycle: int           # dilation 2^(layer mod cycle)
     w1s: Optional[torch.Tensor] = None    # [L, 2C] f32 when w1 is int8
     wouts: Optional[torch.Tensor] = None  # [L, 2C] f32 when wout is int8
+    # K-major copies of the int8 weights, the layout the kernels' int8 tile
+    # reads (the plain version reads w1 and wout): [l, m, n, c] = w1[l, m*C + c, n]
+    # and wout[l] transposed
+    w1_kmajor: Optional[torch.Tensor] = None    # [L, 3, 2C, C] int8 when w1 is int8
+    wout_kmajor: Optional[torch.Tensor] = None  # [L, 2C, C] int8 when wout is int8
 
     @property
     def mode(self) -> str:
@@ -96,7 +106,8 @@ def stack_denoiser_params(den: DiffSVCDenoiser, dtype=torch.bfloat16,
                           quantize: Optional[str] = None) -> StackedDenoiser:
     """Stack the denoiser for the kernels. ``quantize`` "int8" makes w1 and
     wout int8 with column scales, "int8-w1" only w1; the int8 weights are
-    quantised from the stored weights cast to f32."""
+    quantised from the stored weights cast to f32 and also kept K-major
+    (``w1_kmajor``, ``wout_kmajor``) for the kernels."""
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"unknown quantize mode {quantize!r} (use None, 'int8' or 'int8-w1')")
     cfg = den.cfg
@@ -127,10 +138,12 @@ def stack_denoiser_params(den: DiffSVCDenoiser, dtype=torch.bfloat16,
     wmel = F.pad(den.mel_preprocess.weight.t(), (0, 0, 0, m_pad - n_mel))
     wo = F.pad(den.output_projection.weight.t(), (0, m_pad - n_mel))
     bo = F.pad(den.output_projection.bias, (0, m_pad - n_mel))
+    w1_kmajor = None if w1s is None else w1.view(len(blocks), 3, c, 2 * c).transpose(-1, -2).contiguous()
+    wout_kmajor = None if wouts is None else wout.transpose(-1, -2).contiguous()
     return StackedDenoiser(
         w1.contiguous(), wout.contiguous(), cast(bout), cast(wmel), cast(den.mel_preprocess.bias),
         cast(den.skip_projection.weight.t()), cast(den.skip_projection.bias),
-        cast(wo), cast(bo), cfg.dilation_cycle_length, w1s, wouts,
+        cast(wo), cast(bo), cfg.dilation_cycle_length, w1s, wouts, w1_kmajor, wout_kmajor,
     )
 
 
@@ -245,6 +258,8 @@ def _check_cuda_args(name, st, condb, step_rows_t, x) -> None:
     m_pad = st.wmel.shape[0]
     if k3 != 3 * c or c % 64 or m_pad % 64:
         raise ValueError(f"{name}: kernel needs k=3 and C, M_pad multiples of 64 (C={c}, M_pad={m_pad})")
+    if st.w1s is not None and c > INT8_MAX_CHANNELS:
+        raise ValueError(f"{name}: the int8 tile needs C <= {INT8_MAX_CHANNELS} (C={c})")
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     want = {
         "w1": ((n_layers, 3 * c, 2 * c), bf if st.w1s is None else i8),
@@ -255,11 +270,15 @@ def _check_cuda_args(name, st, condb, step_rows_t, x) -> None:
     }
     if st.w1s is not None:
         want["w1s"] = ((n_layers, 2 * c), f32)
+        want["w1_kmajor"] = ((n_layers, 3, 2 * c, c), i8)
     if st.wouts is not None:
         want["wouts"] = ((n_layers, 2 * c), f32)
+        want["wout_kmajor"] = ((n_layers, 2 * c, c), i8)
     tensors = dict(st._asdict(), condb=condb, step_rows_t=step_rows_t)
     for key, (shape, dtype) in want.items():
         v = tensors[key]
+        if v is None:
+            raise ValueError(f"{name}: {key} is missing from the {st.mode} stack")
         if v.dtype != dtype or tuple(v.shape) != shape or not v.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous {dtype} {shape}, got {v.dtype} {tuple(v.shape)}")
         if v.device != x.device:
@@ -278,8 +297,9 @@ def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
 def _forward_operands(st, condb, step_rows_t, x):
     """Scratch buffers and the pointer arguments every entry point shares:
     h, skip, g, s1, the bf16 stack's conv-input buffer y
-    (:func:`conv_input_buffer`), step rows, the weights, the scales and the
-    [L, B] per-layer abs-max buffer of the int8 conv input."""
+    (:func:`conv_input_buffer`), step rows, the weights (the K-major copies
+    of the int8 ones), the scales and the [L, B] per-layer abs-max buffer of
+    the int8 conv input."""
     b, t_len = x.shape[:2]
     n_layers, _, c2 = st.w1.shape
     c = c2 // 2
@@ -290,7 +310,8 @@ def _forward_operands(st, condb, step_rows_t, x):
     amax = None if st.w1s is None else torch.empty((n_layers, b), dtype=torch.float32, device=x.device)
     y = conv_input_buffer(b, t_len, c, st.cycle, x.device) if st.w1s is None else None
     ptrs = (h.data_ptr(), skip.data_ptr(), g.data_ptr(), s1.data_ptr(), _ptr(y), step_rows_t.data_ptr(),
-            st.w1.data_ptr(), condb.data_ptr(), st.wout.data_ptr(), st.bout.data_ptr(),
+            (st.w1 if st.w1s is None else st.w1_kmajor).data_ptr(), condb.data_ptr(),
+            (st.wout if st.wouts is None else st.wout_kmajor).data_ptr(), st.bout.data_ptr(),
             st.wmel.data_ptr(), st.bmel.data_ptr(), st.wskip.data_ptr(), st.bskip.data_ptr(),
             st.wo.data_ptr(), st.bo.data_ptr(), _ptr(st.w1s), _ptr(st.wouts), _ptr(amax))
     dims = (b, t_len, c, n_layers, st.cycle, st.wmel.shape[0])

@@ -12,6 +12,14 @@ the CPU where the kernels cannot run.
   rows (``denoiser_step.conv_input_buffer``), in 64-row tiles per clip whose
   rows past T read nothing. The emulation reads the buffer as the kernel
   does and must give ``_taps(r(h + row), d)`` exactly.
+- K6's int8 gate: a cluster of 3 taps x 2 column tiles quantises the union
+  of its three taps' 64-row boxes of y = h + step_row once and stores each
+  row into the K-major int8 tile of every block whose tap box holds it (K
+  padded to the 128-wide chunk with zeros, rows outside the clip 0); each
+  block multiplies its tile by its tap's slice of the K-major weight copy
+  (``w1_kmajor``), and the three int32 partials are summed in int32. The
+  emulation follows those steps and must give the plain version's
+  concat-tap product bit for bit.
 """
 
 import math
@@ -22,6 +30,8 @@ import pytest
 import torch
 
 from svc_inference_pipeline_tpu.ops.pallas.attention import encoder_attention as jax_encoder_attention
+from svc_inference_pipeline_tpu_torch.config import HParams
+from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
 from svc_inference_pipeline_tpu_torch.ops.pallas import attention, denoiser_step
 
 BF = torch.bfloat16
@@ -141,3 +151,123 @@ def test_zero_halo_conv_input_gives_the_taps(t_len, d):
     want = denoiser_step._taps((h + row).to(BF).float(), d)
     assert torch.equal(got.float(), want)
     assert torch.all(buf[:, :halo] == 0) and torch.all(buf[:, halo + t_len:] == 0)
+
+
+# --- K6: the int8 gate on the wgmma s8 tile ---------------------------------
+
+INT8_CHUNK = 128  # int8 K elements per 128-byte swizzle row: the s8 tile's K chunk
+
+
+def _int8_stack(quantize, c=64, layers=5, seed=0):
+    """A DiffSVC denoiser with weights N(0, 1/n) from numpy, stacked in f32
+    with ``quantize``."""
+    rng = np.random.default_rng(seed)
+    cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
+                  diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
+    den = DiffSVCDenoiser(cfg, torch.float32)
+    with torch.no_grad():
+        for p in den.parameters():
+            scale = p.shape[-1] ** -0.5 if p.dim() > 1 else 0.1
+            p.copy_(torch.from_numpy((scale * rng.standard_normal(p.shape)).astype(np.float32)))
+    return denoiser_step.stack_denoiser_params(den, torch.float32, quantize)
+
+
+@pytest.mark.parametrize("quantize", ["int8-w1", "int8"])
+def test_int8_kmajor_copies_are_the_transposed_weights(quantize):
+    """w1_kmajor[l, m, n, c] = w1[l, m*C + c, n] and wout_kmajor[l] = wout[l]^T
+    (int8 stacks only; "int8-w1" has no int8 wout, bf16 none at all)."""
+    st = _int8_stack(quantize)
+    n_layers, k3, c2 = st.w1.shape
+    c = c2 // 2
+    assert st.w1_kmajor.dtype == torch.int8 and st.w1_kmajor.is_contiguous()
+    assert tuple(st.w1_kmajor.shape) == (n_layers, 3, c2, c)
+    for m in range(3):
+        assert torch.equal(st.w1_kmajor[:, m], st.w1[:, m * c:(m + 1) * c].transpose(1, 2))
+    if quantize == "int8":
+        assert st.wout_kmajor.dtype == torch.int8 and st.wout_kmajor.is_contiguous()
+        assert torch.equal(st.wout_kmajor, st.wout.transpose(1, 2))
+    else:
+        assert st.wout_kmajor is None
+    assert _int8_stack(None).w1_kmajor is None
+
+
+def _kernel_tap_tiles(h, row, t_len, d):
+    """The s8 gate's resident A tiles, as its clusters write them: for each
+    clip b and 64-row tile t0, the union of the three taps' boxes, rows
+    [t0 - d, t0 + 64 + d) of y = h + row (f32 add of the bf16 values), is
+    quantised once with 1/s_y, s_y = max(max|y| of the clip, 1e-12)/127, rows
+    outside [0, T) 0; tap m's tile row i is union row i + m*d, or 0 at or past
+    T's last row in the tile; K is padded with zero columns to the 128-wide
+    chunk. Returns [B, tiles*64, 3, Kpad] float (integer values)."""
+    b, _, c = h.shape
+    y = h + row
+    s_y = torch.clamp(y.abs().amax(dim=(1, 2)), min=1e-12) * denoiser_step.INV_127
+    inv = 1.0 / s_y  # f32, one division per clip, as the kernel's 1.0f / quant_scale(amax)
+    k_pad = -(-c // INT8_CHUNK) * INT8_CHUNK
+    n_tiles = -(-t_len // TILE)
+    out = torch.full((b, n_tiles * TILE, 3, k_pad), math.nan)
+    for t0 in range(0, t_len, TILE):
+        nvalid = min(TILE, t_len - t0)
+        union = torch.zeros((b, TILE + 2 * d, k_pad))
+        for u in range(TILE + 2 * d):
+            ts = t0 - d + u
+            if 0 <= ts < t_len:
+                union[:, u, :c] = torch.clamp(torch.round(y[:, ts] * inv[:, None]), -127.0, 127.0)
+        for m in range(3):
+            for i in range(TILE):
+                out[:, t0 + i, m] = union[:, i + m * d] if i < nvalid else 0.0
+    return out
+
+
+def _gate_inputs(t_len, c, seed):
+    """bf16-valued h [2, T, C] and step row [C] (f32); the second clip's h is
+    8x the first's, so the clips' int8 scales differ."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((2, t_len, c)).astype(np.float32))
+    h = (h * torch.tensor([1.0, 8.0]).view(2, 1, 1)).to(BF).float()
+    row = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(BF).float()
+    return h, row
+
+
+@pytest.mark.parametrize("t_len", [9, 100])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_int8_gate_taps_outside_a_clip_are_zero(t_len, d):
+    """B = 2 clips, C = 64, dilations up to 8 against T = 9 (one partial tile)
+    and 100: the quantised tap boxes are the plain version's
+    ``_taps(yq, d)`` (which pads the quantised input with zeros), rows past
+    T and the K padding are 0, and nothing is left unwritten."""
+    c = 64
+    h, row = _gate_inputs(t_len, c, seed=10 * t_len + d)
+    tiles = _kernel_tap_tiles(h, row, t_len, d)
+    assert not torch.isnan(tiles).any()
+    y = h + row  # forward_plain's quantiser
+    s_y = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-12) * denoiser_step.INV_127
+    yq = torch.clamp(torch.round(y * (1.0 / s_y)), -127.0, 127.0)
+    want = denoiser_step._taps(yq, d).view(2, t_len, 3, c)
+    assert torch.equal(tiles[:, :t_len, :, :c], want)
+    assert torch.all(tiles[:, t_len:] == 0) and torch.all(tiles[..., c:] == 0)
+
+
+@pytest.mark.parametrize("quantize", ["int8-w1", "int8"])
+@pytest.mark.parametrize("c,t_len,layer", [(64, 100, 3), (192, 37, 2)])
+def test_int8_gate_tap_partials_sum_to_the_concat_tap_product(quantize, c, t_len, layer):
+    """The three per-tap int32 partials (quantised box @ w1_kmajor[l, m]^T),
+    summed in int32 and converted once to f32, equal forward_plain's
+    concat-tap product ``_int8_matmul(_taps(yq, d), w1[l])`` bit for bit;
+    C = 192 leaves half of
+    the second 128-wide K chunk as padding. Two clips, scales 8x apart."""
+    st = _int8_stack(quantize, c=c, layers=layer + 1)
+    d = 2 ** (layer % st.cycle)
+    h, row = _gate_inputs(t_len, c, seed=c + layer)
+    tiles = _kernel_tap_tiles(h, row, t_len, d)[:, :t_len]
+    k_pad = tiles.shape[-1]
+    w_k = torch.zeros((3, 2 * c, k_pad), dtype=torch.int64)
+    w_k[..., :c] = st.w1_kmajor[layer].long()
+    partials = [tiles[:, :, m].long() @ w_k[m].T for m in range(3)]
+    assert all(p.abs().max() < 2 ** 31 for p in partials)
+    acc_i32 = (partials[0].int() + partials[1].int()) + partials[2].int()
+    y = h + row  # forward_plain's lines for the gate of layer ``layer``
+    s_y = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-12) * denoiser_step.INV_127
+    yq = torch.clamp(torch.round(y * (1.0 / s_y)), -127.0, 127.0)
+    ref = denoiser_step._int8_matmul(denoiser_step._taps(yq, d), st.w1[layer])
+    assert torch.equal(acc_i32.float(), ref)
