@@ -16,7 +16,10 @@
    two layers frame by frame), K4 one Whisper layer's attention and a
    masked-tail case (with ``scaled_dot_product_attention`` timed beside it
    and the ratio printed),
-   K2 the six vocoder stages, K3 the final activation, K7 every AMPBlock1
+   K2 the six vocoder stages (each with its bound, the host time to issue
+   it and ``F.conv1d`` on its 18 conv shapes timed beside it,
+   ``conv_library_ms``), K3 the final activation (its kernel's device time
+   under torch.profiler: one wrapper call is host-bound), K7 every AMPBlock1
    pair of stages 1-5 (C <= 384) and two clips shorter than a pair's two
    halos, K8 the one-launch eps forward at T=944 (against its plain version
    and K5);
@@ -512,6 +515,62 @@ def check_k7(voc, g, device, n_frames: int) -> dict:
     return row
 
 
+def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
+    """Device milliseconds per call of the kernels whose name holds ``name``,
+    under torch.profiler over ``reps`` calls of fn() (after one warm call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+             for ev in prof.key_averages() if name in ev.key)
+    if not us > 0:
+        raise AssertionError(f"the profiler saw no device time of {name}")
+    return us / 1e3 / reps
+
+
+def host_issue_s(fn, reps: int = 5) -> float:
+    """Median host seconds to issue fn() (perf_counter around the call, the
+    card idle before it and synchronised only after the clock stops)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def conv_library_ms(params, t_len: int, c: int, ks, dils, g, device) -> float:
+    """K2's yardstick: ``F.conv1d`` (cuDNN, bf16, "same" padding, bias) on one
+    stage's conv shapes, conv_d and conv_1 of every pair on [1, C, T]; the
+    activations, residuals and block sum left out. Timed only: the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    x = torch.randn((1, c, t_len), generator=g, device=device).to(torch.bfloat16)
+    convs = []
+    for pairs, k, ds in zip(params, ks, dils):
+        for (w1, b1, w2, b2, *_), d in zip(pairs, ds):
+            convs.append((w1.permute(2, 1, 0).contiguous(), b1.to(torch.bfloat16), d * (k - 1) // 2, d))
+            convs.append((w2.permute(2, 1, 0).contiguous(), b2.to(torch.bfloat16), (k - 1) // 2, 1))
+
+    def run():
+        for w, b, pad, d in convs:
+            F.conv1d(x, w, b, padding=pad, dilation=d)
+
+    return cuda_ms(run, reps=5)
+
+
 def check_kernels(cfg, device) -> tuple:
     """Kernel vs plain at the 4 s main-path shapes; returns the per-kernel
     rows and the random full-width vocoder they used."""
@@ -532,7 +591,7 @@ def check_kernels(cfg, device) -> tuple:
     dils = tuple(tuple(d) for d in vcfg.resblock_dilation_sizes)
     n_convs = 2 * sum(len(d) for d in dils)
     t_len = n_frames
-    k2 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    k2 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "conv_library_ms": 0.0, "stages": []}
     k2_bytes, k2_ops = 0, {"bf16": 0, "f32": 0}
     for i, u in enumerate(vcfg.upsample_rates):
         t_len *= u
@@ -550,10 +609,24 @@ def check_kernels(cfg, device) -> tuple:
         k2["ms"] += row["ms"]
         k2["plain_ms"] += row["plain_ms"]
         # each block of kernel k: 2 convs of k taps per dilation; one activation before each conv
-        k2_bytes += 2 * xs.nbytes + sum(p.nbytes for pairs in params for pair in pairs for p in pair)
-        k2_ops["bf16"] += sum(2 * len(d) * 2 * t_len * c * c * k for k, d in zip(ks, dils))
-        k2_ops["f32"] += n_convs * SNAKE_OPS * t_len * c
+        nbytes = 2 * xs.nbytes + sum(p.nbytes for pairs in params for pair in pairs for p in pair)
+        ops = {"bf16": sum(2 * len(d) * 2 * t_len * c * c * k for k, d in zip(ks, dils)),
+               "f32": n_convs * SNAKE_OPS * t_len * c}
+        k2_bytes += nbytes
+        k2_ops = {kind: k2_ops[kind] + n for kind, n in ops.items()}
+        stage = {"T": t_len, "C": c, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "host_issue_ms": 1e3 * host_issue_s(lambda: amp_stage.fused_amp_stage(xs, params, ks, dils)),
+                 "conv_library_ms": conv_library_ms(params, t_len, c, ks, dils, g, device)}
+        stage["bound_ms"], stage["bound_by"] = bound(nbytes, ops)
+        print(f"  K2 stage {i}: kernel {stage['ms']:.4f} ms, bound {stage['bound_ms']:.4f} ms "
+              f"({stage['bound_by']}, {100 * stage['bound_ms'] / stage['ms']:.1f}%), plain {stage['plain_ms']:.4f} ms, "
+              f"host issue {stage['host_issue_ms']:.4f} ms, [F.conv1d on its {n_convs} convs "
+              f"(conv_library_ms) {stage['conv_library_ms']:.4f} ms]")
+        k2["conv_library_ms"] += stage["conv_library_ms"]
+        k2["stages"].append(stage)
     k2["bound_ms"], k2["bound_by"] = bound(k2_bytes, k2_ops)
+    print(f"  K2 six stages: {k2['ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms; [conv_library_ms "
+          f"{k2['conv_library_ms']:.4f} ms]; K2 / that = {k2['ms'] / k2['conv_library_ms']:.3f}")
     rows["K2"] = k2
 
     c_post = vcfg.upsample_initial_channel // 2 ** len(vcfg.upsample_rates)
@@ -568,6 +641,13 @@ def check_kernels(cfg, device) -> tuple:
         BF16_TOL,
     )
     rows["K3"]["bound_ms"], rows["K3"]["bound_by"] = bound(2 * xa.nbytes, {"f32": SNAKE_OPS * xa.numel()})
+    # ms, as for every kernel, is one wrapper call between CUDA events, which
+    # here the host sets (the snake's exp, the checks, the ctypes call);
+    # kernel_device_ms is the kernel's own device time under the profiler
+    rows["K3"]["kernel_device_ms"] = kernel_device_ms(
+        lambda: snake.fused_activation1d(xa, alpha, beta, vcfg.activation, vcfg.snake_logscale), "activation1d_kernel")
+    print(f"  K3 activation: one wrapper call {rows['K3']['ms']:.4f} ms, kernel device time "
+          f"{rows['K3']['kernel_device_ms']:.4f} ms")
     rows["K7"] = check_k7(voc, g, device, n_frames)
     return rows, voc
 
@@ -890,7 +970,8 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[key],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms") if k in r}})
+                        **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms",
+                                             "conv_library_ms", "stages", "kernel_device_ms") if k in r}})
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")

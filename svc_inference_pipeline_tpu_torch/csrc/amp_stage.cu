@@ -1,94 +1,256 @@
 // K2: one BigVGAN AMP stage (the mean of three AMPBlock1 stacks, each three
-// x <- x + conv_1(act(conv_d(act(x)))) pairs), composed from two kernels:
-// the shared activation (snake.cuh, entry svc_activation1d) and the dilated
-// conv1d below, whose epilogue adds the bias, the residual and the running
-// 3-block sum and applies the mean. The Python wrapper
-// (ops/pallas/amp_stage.py::fused_amp_stage) issues the 36 launches of a
-// stage.
+// x <- x + conv_1(act(conv_d(act(x)))) pairs), issued by ONE host call
+// (svc_amp_stage): 36 launches for the 18 pairs, two kernels with
+// programmatic dependent launch between them:
+//   - the activation (snake.cuh), which writes bf16(act(.)) straight into
+//     the conv's zero-halo input buffer;
+//   - the dilated conv1d below, on the pipelined wgmma tile (gemm_wg.cuh),
+//     whose epilogue adds the bias, the residual and the running 3-block sum
+//     and applies the mean.
 //
 // Replaces: svc_inference_pipeline_tpu/ops/pallas/amp_stage.py
 //   fused_amp_stage (kernel body _make_kernel), a time-tiled mega-kernel with
 //   a 112-row halo whose outer rows _xla_stage patches afterwards.
 //
-// What bounds it here: latency and issue, not FLOPs or bytes. A wide stage
-//   (2 T C^2 sum(6k) = ~228 GFLOP for a 4 s clip at C = 768 or 384) takes
-//   7.5 and 4.9 ms on an H100, ~30-47 TFLOP/s, a few percent of the
-//   tensor cores' dense bf16 peak: each block's K loop loads a chunk,
-//   synchronises, then multiplies, with nothing overlapped (gemm_tile.cuh).
-//   The narrow stages (C = 24..96, ~2 ms each) are set by the 36 launches of
-//   a stage rather than their bytes.
+// What bounds it here: the convs' operations at the wide stages (2 T C^2
+//   sum(6k) = ~228 GFLOP for a 4 s clip at C = 768 or 384, 0.23 ms at the
+//   tensor cores' dense bf16 peak); at the narrow stages (C = 24..96) the
+//   activations' f32 work and the latency of 36 dependent launches.
 //
-// Design: implicit GEMM over the [k, Cin, Cout] weight (gemm_tile.cuh): the
-//   k dilated taps are gathered from the activation with zero "same" padding
-//   while the A tile is staged, so no im2col matrix is written. Every launch
-//   sees the whole sequence, so the global edges are exact and nothing is
-//   patched. Activations between the convs are f32 (the stage carry and the
-//   conv outputs) or bf16 (the conv operands, as on the TPU); the stage output
-//   is rounded once, at the mean. The TPU-only devices (phase packing for
-//   C <= 64, weight streaming at C = 768, the sin^2 polynomial) are not
-//   carried over.
-#include "gemm_tile.cuh"
+// Design:
+//   - The conv input is ready to copy. A stage's activations write into one
+//     buffer [B, T + 2H, C] bf16 whose halo rows (H = the stage's largest
+//     d(k-1)/2, 25 for k = 11, d = 5) are zero, so tap m of a conv with
+//     dilation d is the plain row box that starts at clip row
+//     H - d(k-1)/2 + m d: no gather, no division and no edge test in the A
+//     loader, which copies 16-byte chunks by cp.async into the swizzled ring.
+//     C is a multiple of 8, so a chunk never straddles two taps; a thread's
+//     (tap, channel) advances by one K chunk per call, with no division.
+//   - The [k, Cin, Cout] weight is a row-major [k Cin, Cout] matrix, read
+//     MN-major through the descriptor's transpose bit: no weight copy.
+//   - K = k C is padded to the tile's 64-wide chunks, and N to 64 columns,
+//     with zeros (cp.async of 0 bytes): columns past C (C = 24, 48) read
+//     nothing and are not stored.
+//   - Tiles never straddle two clips (grid x = clip x row tile).
+//   - Dependent launches: the conv issues its first weight chunks, waits for
+//     the launch before, then reads the buffer and writes its output; the
+//     activation reads its parameters, waits, then reads and writes.
+//   Every launch sees the whole sequence, so the global edges are exact and
+//   nothing is patched. Activations between the convs are f32 (the stage
+//   carry and the conv outputs) or bf16 (the conv operands, as on the TPU);
+//   the stage output is rounded once, at the mean.
+#include "gemm_wg.cuh"
+#include "snake.cuh"
 
 namespace svc {
 namespace {
 
+struct ConvOp {
+  const bf16* buf;  // [B, T + 2 halo, C] conv input, halo rows zero
+  const bf16* w;    // [k C, C] row-major (the [k, Cin, Cout] weight)
+  int T, C, halo, k, d;
+};
+
 struct ConvEpi {
-  const float* bias;   // f32 [Cout]
-  const void* res;     // optional residual [M, Cout] (bf16 if res_bf16 else f32)
+  const float* bias;   // f32 [C]
+  const void* res;     // optional residual [B T, C] (bf16 if res_bf16 else f32)
   int res_bf16;
-  const float* acc_in; // optional running sum [M, Cout] f32
+  const float* acc_in; // optional running sum [B T, C] f32
   float scale;         // applied after all adds
-  void* out;           // [M, Cout] (bf16 if out_bf16 else f32); may alias res / acc_in
+  void* out;           // [B T, C] (bf16 if out_bf16 else f32); may alias res / acc_in
   int out_bf16;
 };
 
-__global__ void __launch_bounds__(GM_THREADS) conv1d_kernel(const TapA a, const ColsB bw,
-                                                           const ConvEpi e) {
-  __shared__ __align__(32) bf16 As[GM_BM][GM_LDA];
-  __shared__ __align__(32) bf16 Bs[GM_BK][GM_LDB];
-  __shared__ __align__(32) float Cs[GM_BM][GM_LDC];
-  const int m0 = blockIdx.x * GM_BM;
-  const int bx = blockIdx.y;
-  gemm_tile(a, bw, m0, bx, As, Bs, Cs);
-  for (int idx = threadIdx.x; idx < GM_BM * GM_BN; idx += GM_THREADS) {
-    const int i = idx >> 6;
-    const int j = idx & 63;
-    const int r = m0 + i;
-    const int col = bx * GM_BN + j;
-    if (r >= a.M || col >= bw.N) continue;
-    const size_t o = (size_t)r * bw.N + col;
-    float v = Cs[i][j] + e.bias[col];
-    if (e.res != nullptr) {
-      v += e.res_bf16 ? __bfloat162float(static_cast<const bf16*>(e.res)[o])
-                      : static_cast<const float*>(e.res)[o];
+constexpr int AMP_EPI_BATCH = 4;  // epilogue quads whose loads a thread has in flight at once
+
+__global__ void __launch_bounds__(WG_THREADS) conv1d_kernel(const ConvOp op, const ConvEpi e) {
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* ring = align1024(wg_smem);
+  const int tpc = cdiv(op.T, WG_BM);
+  const int b = blockIdx.x / tpc;
+  const int t0 = (blockIdx.x - b * tpc) * WG_BM;
+  const int nvalid = min(WG_BM, op.T - t0);
+  const int n0 = blockIdx.y * WG_BN;
+  const int K = op.k * op.C;
+  const int nk = cdiv(K, WG_BK);
+  const int c = threadIdx.x & 7;   // the 16-byte chunk of a tile row this thread copies
+  const int r0 = threadIdx.x >> 3;  // and its rows r0 + 16 i
+
+  auto load_b = [&](int kt, uint8_t* Bs) {
+    const int col = n0 + 8 * c;
+#pragma unroll
+    for (int i = 0; i < WG_BK * 8 / WG_THREADS; ++i) {
+      const int r = r0 + 16 * i;
+      const int kk = kt * WG_BK + r;
+      const bool ok = kk < K && col < op.C;
+      cp_async16(Bs + sw128(r, c), ok ? op.w + (size_t)kk * op.C + col : op.w, ok ? 16 : 0);
     }
-    if (e.acc_in != nullptr) v += e.acc_in[o];
-    v *= e.scale;
-    if (e.out_bf16) {
-      static_cast<bf16*>(e.out)[o] = __float2bfloat16(v);
-    } else {
-      static_cast<float*>(e.out)[o] = v;
+  };
+  wg_prefetch(nk, ring, load_b);
+  grid_dependency_wait();
+
+  // tap m and channel ch of this thread's chunk in the current K chunk
+  int m = 0;
+  int ch = 8 * c;
+  while (ch >= op.C) {
+    ch -= op.C;
+    ++m;
+  }
+  const bf16* clip = op.buf + ((size_t)b * (op.T + 2 * op.halo) + op.halo - op.d * (op.k - 1) / 2 + t0) * op.C;
+  auto load_a = [&](int kt, uint8_t* As) {
+    const bool tap = m < op.k;
+    const bf16* src = clip + (size_t)(tap ? m * op.d : 0) * op.C + ch;
+#pragma unroll
+    for (int i = 0; i < WG_BM * 8 / WG_THREADS; ++i) {
+      const int r = r0 + 16 * i;
+      const bool ok = tap && r < nvalid;
+      cp_async16(As + sw128(r, c), ok ? src + (size_t)r * op.C : op.buf, ok ? 16 : 0);
+    }
+    ch += WG_BK;
+    while (ch >= op.C) {
+      ch -= op.C;
+      ++m;
+    }
+  };
+  const float* Cs = wg_gemm_loop(nk, ring, load_a, load_b);
+
+  // epilogue over the tile's valid quads (4 columns; C is a multiple of 8),
+  // AMP_EPI_BATCH per thread at a time: their residual and running-sum loads
+  // are all issued before any store (each element is read, then written, by
+  // one thread, so out may alias res or acc_in)
+  const int nqc = min(WG_BN, op.C - n0) / 4;  // valid quads per row
+  const int nq = nvalid * nqc;
+  const size_t row0 = (size_t)b * op.T + t0;
+  for (int base = threadIdx.x; base < nq; base += AMP_EPI_BATCH * WG_THREADS) {
+    float v[AMP_EPI_BATCH][4];
+    size_t o[AMP_EPI_BATCH];
+#pragma unroll
+    for (int u = 0; u < AMP_EPI_BATCH; ++u) {
+      const int idx = base + u * WG_THREADS;
+      const int i = idx / nqc;
+      const int j = 4 * (idx - i * nqc);
+      o[u] = (row0 + i) * op.C + n0 + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[u][q] = 0.0f;
+      if (idx >= nq) continue;
+      if (e.res != nullptr) {
+        if (e.res_bf16) {
+          const uint2 r = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(e.res) + o[u]);
+          v[u][0] = __uint_as_float(r.x << 16);
+          v[u][1] = __uint_as_float(r.x & 0xffff0000u);
+          v[u][2] = __uint_as_float(r.y << 16);
+          v[u][3] = __uint_as_float(r.y & 0xffff0000u);
+        } else {
+          const float4 r = *reinterpret_cast<const float4*>(static_cast<const float*>(e.res) + o[u]);
+          v[u][0] = r.x; v[u][1] = r.y; v[u][2] = r.z; v[u][3] = r.w;
+        }
+      }
+    }
+    float4 acc_in[AMP_EPI_BATCH];
+#pragma unroll
+    for (int u = 0; u < AMP_EPI_BATCH; ++u) {
+      acc_in[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (base + u * WG_THREADS < nq && e.acc_in != nullptr) acc_in[u] = *reinterpret_cast<const float4*>(e.acc_in + o[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < AMP_EPI_BATCH; ++u) {
+      const int idx = base + u * WG_THREADS;
+      if (idx >= nq) continue;
+      const int i = idx / nqc;
+      const int j = 4 * (idx - i * nqc);
+      const float4 bias = *reinterpret_cast<const float4*>(e.bias + n0 + j);
+      const float* cs = Cs + i * WG_LDC + j;
+      // (conv + bias) + residual, + running sum, * scale: the plain version's order
+      float w[4] = {cs[0] + bias.x, cs[1] + bias.y, cs[2] + bias.z, cs[3] + bias.w};
+      const float a4[4] = {acc_in[u].x, acc_in[u].y, acc_in[u].z, acc_in[u].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (e.res != nullptr) w[q] += v[u][q];
+        if (e.acc_in != nullptr) w[q] += a4[q];
+        w[q] *= e.scale;
+      }
+      if (e.out_bf16) {
+        *reinterpret_cast<uint2*>(static_cast<bf16*>(e.out) + o[u]) =
+            make_uint2(pack_bf16x2(w[0], w[1]), pack_bf16x2(w[2], w[3]));
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(e.out) + o[u]) = make_float4(w[0], w[1], w[2], w[3]);
+      }
     }
   }
+}
+
+void launch_conv(const ConvOp& op, const ConvEpi& e, int B, cudaStream_t s) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(conv1d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM_BYTES);
+  (void)attr;  // a refusal shows as the launch's error
+  launch_ex(conv1d_kernel, dim3(B * cdiv(op.T, WG_BM), cdiv(op.C, WG_BN)), dim3(WG_THREADS), WG_SMEM_BYTES,
+            dim3(1), s, op, e);
+}
+
+template <typename TIn>
+void launch_act(const TIn* x, bf16* buf, const float* alpha, const float* inv_beta, const Fir12& f, int B, int T,
+                int C, int halo, cudaStream_t s) {
+  launch_activation1d<TIn, bf16>(ActArgs{x, buf, alpha, inv_beta, f, B, T, C, halo}, s);
 }
 
 }  // namespace
 }  // namespace svc
 
-// out = (conv_{k,dil}(x) + bias + res + acc_in) * scale with zero "same"
-// padding dil*(k-1)/2. x: bf16 [B, T, cin]; w: bf16 [k, cin, cout] (tap-major,
-// i.e. a row-major [k*cin, cout] matrix); bias f32 [cout]; res / acc_in may be
-// null; out may alias res or acc_in (each element is read then written by the
-// same thread). cin and cout must be multiples of 8.
-extern "C" int svc_conv1d(const svc::bf16* x, const svc::bf16* w, const float* bias,
-                          const void* res, int res_bf16, const float* acc_in, float scale,
-                          void* out, int out_bf16, int B, int T, int cin, int cout, int k,
-                          int dil, void* stream) {
+// One AMP stage of x [B, T, C] bf16 into out [B, T, C] bf16, as the plain
+// version's block and pair loop (ops/pallas/amp_stage.py::amp_stage_plain).
+// Scratch (the caller allocates it): buf bf16 [B, T + 2 halo, C] (the conv
+// input), conv_out, carry f32 [B, T, C], total f32 [B, T, C] (null when
+// n_blocks == 1). Host arrays, planned once (ops/pallas/amp_stage.py::
+// stage_table): params, 8 device pointers per pair (w1 [k, C, C] bf16, b1
+// f32 [C], w2, b2, alpha1, inv_beta1, alpha2, inv_beta2, f32 [C]); kd, (k, d)
+// per pair; pairs_per_block [n_blocks]. taps: the 12 filter taps; halo: the
+// largest d(k-1)/2 of the stage. C must be a multiple of 8.
+extern "C" int svc_amp_stage(const svc::bf16* x, svc::bf16* out, svc::bf16* buf, float* conv_out, float* carry,
+                             float* total, const void* const* params, const int* kd, const int* pairs_per_block,
+                             int n_blocks, const float* taps, int B, int T, int C, int halo, void* stream) {
   using namespace svc;
-  const int M = B * T;
-  const TapA a{x, cin, M, T, k * cin, cin, dil, dil * (k - 1) / 2};
-  const ColsB bw{w, cout, cout};
-  const ConvEpi e{bias, res, res_bf16, acc_in, scale, out, out_bf16};
-  conv1d_kernel<<<gemm_grid(M, bw), GM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, bw, e);
+  if (C % 8 != 0 || (n_blocks > 1 && total == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Fir12 f = fir12_from(taps);
+  int p = 0;
+  for (int bi = 0; bi < n_blocks; ++bi) {
+    for (int j = 0; j < pairs_per_block[bi]; ++j, ++p) {
+      const void* const* q = params + 8 * p;
+      const bf16* w1 = static_cast<const bf16*>(q[0]);
+      const float* b1 = static_cast<const float*>(q[1]);
+      const bf16* w2 = static_cast<const bf16*>(q[2]);
+      const float* b2 = static_cast<const float*>(q[3]);
+      const int k = kd[2 * p];
+      const int d = kd[2 * p + 1];
+      if (d * (k - 1) / 2 > halo) return (int)cudaErrorInvalidValue;
+      // the pair's input: x for a block's first pair, else the block carry
+      const bool first = j == 0;
+      if (first) {
+        launch_act(x, buf, static_cast<const float*>(q[4]), static_cast<const float*>(q[5]), f, B, T, C, halo, s);
+      } else {
+        launch_act<float>(carry, buf, static_cast<const float*>(q[4]), static_cast<const float*>(q[5]), f, B, T, C,
+                          halo, s);
+      }
+      launch_conv(ConvOp{buf, w1, T, C, halo, k, d}, ConvEpi{b1, nullptr, 0, nullptr, 1.0f, conv_out, 0}, B, s);
+      launch_act<float>(conv_out, buf, static_cast<const float*>(q[6]), static_cast<const float*>(q[7]), f, B, T,
+                        C, halo, s);
+      const void* res = first ? static_cast<const void*>(x) : static_cast<const void*>(carry);
+      ConvEpi e{b2, res, first ? 1 : 0, nullptr, 1.0f, carry, 0};
+      if (j == pairs_per_block[bi] - 1) {
+        if (bi == n_blocks - 1) {
+          e.acc_in = total;  // null for a single block
+          e.scale = 1.0f / n_blocks;
+          e.out = out;
+          e.out_bf16 = 1;
+        } else {
+          e.acc_in = bi > 0 ? total : nullptr;
+          e.out = total;
+        }
+      }
+      launch_conv(ConvOp{buf, w2, T, C, halo, k, 1}, e, B, s);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
   return (int)cudaGetLastError();
 }

@@ -78,4 +78,32 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // writes are visible.
 __device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
 
+// Launch with programmatic stream serialization (and a thread-block cluster
+// when cluster has more than one block). Every kernel launched this way
+// calls grid_dependency_wait() before it reads or writes anything an
+// earlier launch writes.
+template <typename... Params, typename... Args>
+void launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, int smem, dim3 cluster, cudaStream_t s,
+               Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  int n = 1;
+  if (cluster.x * cluster.y > 1) {
+    attrs[n].id = cudaLaunchAttributeClusterDimension;
+    attrs[n].val.clusterDim.x = cluster.x;
+    attrs[n].val.clusterDim.y = cluster.y;
+    attrs[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  cfg.attrs = attrs;
+  cfg.numAttrs = n;
+  cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 }  // namespace svc

@@ -464,32 +464,8 @@ __global__ void __launch_bounds__(WG_THREADS) step_gemm_s8_kernel(const W8Op op,
   }
 }
 
-// Launch with programmatic stream serialization (and a cluster for the
-// split gates: 3 taps, by W8_GATE_Q column tiles for the int8 gate).
-template <typename... Params, typename... Args>
-void launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, int smem, dim3 cluster, cudaStream_t s,
-               Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attrs[0].val.programmaticStreamSerializationAllowed = 1;
-  int n = 1;
-  if (cluster.x * cluster.y > 1) {
-    attrs[n].id = cudaLaunchAttributeClusterDimension;
-    attrs[n].val.clusterDim.x = cluster.x;
-    attrs[n].val.clusterDim.y = cluster.y;
-    attrs[n].val.clusterDim.z = 1;
-    ++n;
-  }
-  cfg.attrs = attrs;
-  cfg.numAttrs = n;
-  cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
+// launch_ex (common.cuh) with a cluster for the split gates: 3 taps, by
+// W8_GATE_Q column tiles for the int8 gate.
 template <bool A_F32, int EPI, bool SPLIT = false>
 void launch_wg(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
   auto kernel = step_gemm_wg_kernel<A_F32, EPI, SPLIT>;

@@ -1,6 +1,7 @@
 // The pipelined bf16 GEMM tile of the denoiser (K1, K5, the bf16 launches
-// of K6, and every phase of K8): one warpgroup (128 threads) computes a
-// 64 x 64 f32 tile with wgmma.mma_async m64n64k16 over K in chunks of 64.
+// of K6, and every phase of K8) and of K2's convs: one warpgroup (128
+// threads) computes a 64 x 64 f32 tile with wgmma.mma_async m64n64k16 over
+// K in chunks of 64.
 // gemm_wg_s8.cuh builds K6's int8 tile from the same swizzle, descriptors,
 // ring and dependent-launch rule.
 //
@@ -141,24 +142,32 @@ __device__ __forceinline__ void wg_load_b(const WgB& bw, int k0, uint8_t* Bs) {
   }
 }
 
+// The generic pipeline over nk chunks of K: load_a(kt, As) and load_b(kt,
+// Bs) issue the cp.async copies (or synchronous stores) of chunk kt's A and
+// B tiles into a ring stage, in the 128-byte-swizzle layout; each is called
+// once per chunk, in increasing kt. K2's conv (amp_stage.cu) brings its own
+// loaders; wg_gemm_main below is the plain box and weight.
+//
 // The first WG_STAGES - 1 weight chunks into their ring stages, uncommitted:
-// wg_gemm_main commits them with the A chunks of the same stages.
-__device__ __forceinline__ void wg_prefetch_b(const WgB& bw, int K, uint8_t* ring) {
-  const int nk = K / WG_BK;
+// wg_gemm_loop commits them with the A chunks of the same stages.
+template <class LoadB>
+__device__ __forceinline__ void wg_prefetch(int nk, uint8_t* ring, LoadB load_b) {
 #pragma unroll
   for (int s = 0; s < WG_STAGES - 1; ++s)
-    if (s < nk) wg_load_b(bw, s * WG_BK, ring + s * WG_STAGE_BYTES + WG_TILE_BYTES);
+    if (s < nk) load_b(s, ring + s * WG_STAGE_BYTES + WG_TILE_BYTES);
 }
 
-// Cs[64][WG_LDC] (aliased on the ring) <- A @ B over K (a multiple of 64),
-// after wg_prefetch_b(bw, K, ring). A block that runs a second tile must
+// Cs[64][WG_LDC] (aliased on the ring) <- A @ B over nk chunks, after
+// wg_prefetch(nk, ring, load_b). A block that runs a second tile must
 // __syncthreads() after its epilogue has read Cs, before the next prefetch.
-template <bool A_F32>
-__device__ __forceinline__ float* wg_gemm_main(const WgA& a, const WgB& bw, int K, uint8_t* ring) {
-  const int nk = K / WG_BK;
+// Each chunk's products complete (wgmma.wait_group 0) before the barrier
+// that opens the next chunk, so the stage a refill overwrites, chunk kt-1's,
+// is free for every warp once the block has passed that barrier.
+template <class LoadA, class LoadB>
+__device__ __forceinline__ float* wg_gemm_loop(int nk, uint8_t* ring, LoadA load_a, LoadB load_b) {
 #pragma unroll
   for (int s = 0; s < WG_STAGES - 1; ++s) {
-    if (s < nk) wg_load_a<A_F32>(a, s * WG_BK, ring + s * WG_STAGE_BYTES);
+    if (s < nk) load_a(s, ring + s * WG_STAGE_BYTES);
     cp_async_commit();
   }
   float acc[32];
@@ -171,8 +180,8 @@ __device__ __forceinline__ float* wg_gemm_main(const WgA& a, const WgB& bw, int 
     const int pf = kt + WG_STAGES - 1;
     if (pf < nk) {
       uint8_t* stage = ring + (pf % WG_STAGES) * WG_STAGE_BYTES;
-      wg_load_a<A_F32>(a, pf * WG_BK, stage);
-      wg_load_b(bw, pf * WG_BK, stage + WG_TILE_BYTES);
+      load_a(pf, stage);
+      load_b(pf, stage + WG_TILE_BYTES);
     }
     cp_async_commit();
     const uint8_t* stage = ring + (kt % WG_STAGES) * WG_STAGE_BYTES;
@@ -203,6 +212,18 @@ __device__ __forceinline__ float* wg_gemm_main(const WgA& a, const WgB& bw, int 
   }
   __syncthreads();
   return Cs;
+}
+
+// The plain operands: A a row box (WgA), B a weight (WgB), K a multiple of 64.
+__device__ __forceinline__ void wg_prefetch_b(const WgB& bw, int K, uint8_t* ring) {
+  wg_prefetch(K / WG_BK, ring, [&](int kt, uint8_t* Bs) { wg_load_b(bw, kt * WG_BK, Bs); });
+}
+
+template <bool A_F32>
+__device__ __forceinline__ float* wg_gemm_main(const WgA& a, const WgB& bw, int K, uint8_t* ring) {
+  return wg_gemm_loop(
+      K / WG_BK, ring, [&](int kt, uint8_t* As) { wg_load_a<A_F32>(a, kt * WG_BK, As); },
+      [&](int kt, uint8_t* Bs) { wg_load_b(bw, kt * WG_BK, Bs); });
 }
 
 // One tile of a launch with programmatic stream serialization: the weights'

@@ -1,6 +1,6 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
-    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps]
+    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
@@ -9,8 +9,9 @@ line per (clip, path): the median over runs 2-3 of each phase's wall seconds
 (``SVCPipeline.timings``) and the RTF. ``--profile`` adds, for one warm 4 s
 conversion per path, the device time by kernel from ``torch.profiler`` and
 the device's busy share of the conversion. ``--steps`` times K1 steps alone
-instead (:func:`step_times`). Every line names the card (``nvidia-smi`` name
-and power limit). Needs a CUDA device.
+instead (:func:`step_times`), ``--k2`` the vocoder's AMP stages
+(:func:`k2_times`). Every line names the card (``nvidia-smi`` name and power
+limit). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -142,6 +143,84 @@ def step_times(cfg, gpu: str) -> None:
                               "ms_per_step": ms}), flush=True)
 
 
+def back_to_back_ms(fn, n: int = 10, loops: int = 5) -> float:
+    """Milliseconds per call of n calls of fn() between CUDA events (the
+    card kept busy while the host issues the next), median of ``loops``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(loops):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def k2_times(cfg, gpu: str) -> None:
+    """``--k2``: K2 on each of the six stages of a 4 s clip (384 frames) at
+    the config's vocoder width, random weights from a seed: the stage call
+    back to back, measured twice; the host seconds to issue it; and its device
+    time by kernel under ``torch.profiler``. One JSON line per stage."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.models.bigvgan import BigVGANGenerator
+    from svc_inference_pipeline_tpu_torch.ops.pallas import amp_stage
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    vcfg = cfg.vocoder
+    with torch.device(dev):
+        voc = BigVGANGenerator(vcfg, compute_dtype=bf)
+    random_init_(voc, g)
+    with torch.no_grad():
+        for p in voc.parameters():
+            if p.dim() == 1:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g, device=dev))
+            else:
+                p.data = p.data.to(bf)
+    voc.prepare_kernel_params()
+    ks = tuple(vcfg.resblock_kernel_sizes)
+    dils = tuple(tuple(d) for d in vcfg.resblock_dilation_sizes)
+    t_len = STEP_FRAMES[0]
+    for i, u in enumerate(vcfg.upsample_rates):
+        t_len *= u
+        c = vcfg.upsample_initial_channel // 2 ** (i + 1)
+        x = (0.5 * torch.randn((1, t_len, c), generator=g, device=dev)).to(bf)
+        params = voc.kernel_stages[i]
+
+        def stage():
+            return amp_stage.fused_amp_stage(x, params, ks, dils)
+
+        line = {"card": gpu, "kernel": "K2 fused_amp_stage", "stage": i, "T": t_len, "C": c,
+                "plan": amp_stage.stage_plan(1, t_len, c, ks, dils)._asdict(), "ms": back_to_back_ms(stage),
+                "ms_again": back_to_back_ms(stage)}
+        hosts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stage()
+            hosts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        line["host_issue_ms"] = 1e3 * statistics.median(hosts)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                stage()
+            torch.cuda.synchronize()
+        line["device_ms_by_kernel"] = {
+            ev.key[:60]: round((getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)) / 3e3, 4)
+            for ev in prof.key_averages()
+            if (getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0))}
+        print(json.dumps(line), flush=True)
+
+
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median milliseconds of fn() between CUDA events."""
     import torch
@@ -163,6 +242,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
     p.add_argument("--steps", action="store_true")
+    p.add_argument("--k2", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -177,6 +257,10 @@ def main(argv=None) -> int:
     cfg = load_config(DEFAULT_CONFIG)
     if args.steps:
         step_times(cfg, gpu)
+        return 0
+    if args.k2:
+        with torch.no_grad():
+            k2_times(cfg, gpu)
         return 0
     root = os.path.dirname(os.path.dirname(DEFAULT_CONFIG))
     for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):

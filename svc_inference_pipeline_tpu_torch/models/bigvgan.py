@@ -352,6 +352,8 @@ class BigVGANGenerator(nn.Module):
         their device; nothing to do for resblock "2"."""
         if self.cfg.resblock != "1":
             return
+        from svc_inference_pipeline_tpu_torch.ops.pallas.amp_stage import StageParams
+
         dtype = self.compute_dtype or self.conv_pre.conv.weight.dtype
         n = len(self.cfg.resblock_kernel_sizes)
         stages = []
@@ -359,7 +361,7 @@ class BigVGANGenerator(nn.Module):
             blocks = [getattr(self, f"resblock_{i}_{j}") for j in range(n)]
             for blk in blocks:
                 blk.prepare_kernel_params(dtype)
-            stages.append(tuple(blk.kernel_pairs for blk in blocks))
+            stages.append(StageParams(blk.kernel_pairs for blk in blocks))
         self.kernel_stages = tuple(stages)
 
     def stage_blocks(self, i: int, x: torch.Tensor) -> torch.Tensor:

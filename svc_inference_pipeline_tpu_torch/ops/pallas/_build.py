@@ -39,8 +39,8 @@ _SIGNATURES = {
     "svc_ddpm_step": [_P] * 22 + [_I] * 6 + [_F] * 5 + [_P],
     "svc_denoise": [_P] * 21 + [_I] * 7 + [_P],
     "svc_encoder_attention": [_P] * 4 + [_I] * 3 + [_F, _P],
-    "svc_activation1d": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P],
-    "svc_conv1d": [_P, _P, _P, _P, _I, _P, _F, _P, _I] + [_I] * 6 + [_P],
+    "svc_activation1d": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 4 + [_P],
+    "svc_amp_stage": [_P] * 9 + [_I, _P] + [_I] * 4 + [_P],
     "svc_amp_pair": [_P] * 11 + [_I] * 14 + [_P],
     "svc_denoise_v2": [_P] * 18 + [_I] * 6 + [_P, _P],
 }

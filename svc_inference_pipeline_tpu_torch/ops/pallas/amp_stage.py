@@ -3,12 +3,14 @@ generator upsampling layer.
 
 Counterpart of ``svc_inference_pipeline_tpu/ops/pallas/amp_stage.py``. Each
 block is a chain of pairs ``a <- a + conv_1(act(conv_d(act(a))))``; the stage
-output is the mean over the blocks. On CUDA the stage is a composition of
-two hand-written kernels, 4 launches per pair: the K3 activation
-(``csrc/snake.cuh``) and an implicit-GEMM dilated conv1d (``csrc/amp_stage.cu``)
-whose epilogue adds the bias, the residual and the running block sum, and
-applies the mean. Every launch sees the whole sequence, so the global edges
-are exact.
+output is the mean over the blocks. On CUDA the stage is ONE host call,
+``svc_amp_stage`` (``csrc/amp_stage.cu``), which issues 2 launches of each of
+two kernels per pair with programmatic dependent launch: the K3 activation
+(``csrc/snake.cuh``), writing the conv operand into a zero-halo buffer, and
+a dilated conv1d on the pipelined wgmma tile whose taps are row boxes of
+that buffer and whose epilogue adds the bias, the residual and the running
+block sum, and applies the mean. Every launch sees the whole sequence, so the
+global edges are exact.
 
 Precision (bf16 pipelines, as the TPU kernel): the block carry ``a`` and the
 conv outputs stay f32, the conv operands (activation outputs) are rounded to
@@ -19,21 +21,23 @@ Both versions take the stage's parameters in kernel form, made once by
 tuple over pairs of ``(w1 [k,C,C], b1 [C], w2 [k,C,C], b2 [C], alpha1,
 inv_beta1, alpha2, inv_beta2)``, conv weights contiguous in the [k, Cin,
 Cout] layout of the JAX package, everything else f32 with the snake's exp
-and ``1/(beta + 1e-9)`` applied.
+and ``1/(beta + 1e-9)`` applied. A :class:`StageParams` (what
+:func:`kernel_params` returns) keeps the stage's launch table, checked and
+made on its first CUDA call; a plain tuple is checked on every call.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from svc_inference_pipeline_tpu_torch.ops.pallas.snake import (
-    activation1d_plain,
-    effective_params,
-    launch_activation1d,
-)
+from svc_inference_pipeline_tpu_torch.ops.pallas import snake
+from svc_inference_pipeline_tpu_torch.ops.pallas.snake import activation1d_plain, effective_params
+
+TILE = 64  # rows and columns of the conv's output tile (csrc/gemm_wg.cuh)
 
 
 def conv1d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int) -> torch.Tensor:
@@ -61,7 +65,13 @@ def kernel_params(block_params, kind: str = "snakebeta", logscale: bool = True,
                 *(p.contiguous() for p in effective_params(al1, be1, kind, logscale)),
                 *(p.contiguous() for p in effective_params(al2, be2, kind, logscale)))
 
-    return tuple(tuple(pair(*p) for p in pairs) for pairs in block_params)
+    return StageParams(tuple(pair(*p) for p in pairs) for pairs in block_params)
+
+
+class StageParams(tuple):
+    """A stage's parameters in kernel form (a tuple over blocks of tuples over
+    pairs) that keeps its launch table for :func:`fused_amp_stage`, made on
+    the first CUDA call."""
 
 
 def pair_plain(a: torch.Tensor, pair, d: int, cd: torch.dtype) -> torch.Tensor:
@@ -87,76 +97,111 @@ def amp_stage_plain(x: torch.Tensor, block_params, ks: Sequence[int],
     return (acc * (1.0 / len(block_params))).to(cd)
 
 
-def _conv(lib, x, w, bias, dil, out, res=None, acc_in=None, scale=1.0):
-    b, t, cin = x.shape
-    k, _, cout = w.shape
-    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
-
-    status = lib.svc_conv1d(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        None if res is None else res.data_ptr(), int(res is not None and res.dtype == torch.bfloat16),
-        None if acc_in is None else acc_in.data_ptr(), float(scale),
-        out.data_ptr(), int(out.dtype == torch.bfloat16),
-        b, t, cin, cout, k, dil, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(status, "svc_conv1d")
+def halo_rows(ks: Sequence[int], dils_per_block: Sequence[Sequence[int]]) -> int:
+    """Zero rows on each side of a clip in the conv-input buffer: the stage's
+    largest "same" padding d(k-1)/2."""
+    return max(d * (k - 1) // 2 for k, dils in zip(ks, dils_per_block) for d in dils)
 
 
-def _check_cuda_args(x, block_params, ks, dils_per_block) -> None:
-    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"amp stage: x must be contiguous bf16 [B, T, C], got {x.dtype} {tuple(x.shape)}")
-    c = x.shape[2]
+class StagePlan(NamedTuple):
+    """One stage call's layout, as ``svc_amp_stage`` launches it (the
+    activation's thread layout is the kernel's own, ``csrc/snake.cuh``)."""
+
+    halo: int        # H: zero rows above and below each clip in the conv-input buffer
+    cp: int          # buffer channels: C rounded up to a 16-byte vector of bf16 (C itself: C % 8 == 0)
+    conv_grid: tuple  # (clips x 64-row tiles, 64-column tiles) of every conv launch
+
+
+def stage_plan(b: int, t_len: int, c: int, ks: Sequence[int],
+               dils_per_block: Sequence[Sequence[int]]) -> StagePlan:
+    """The layout of one stage call on x [b, t_len, c] (pure Python)."""
     if c % 8:
         raise ValueError(f"amp stage: channels {c} must be a multiple of 8")
+    return StagePlan(halo_rows(ks, dils_per_block), c, (b * -(-t_len // TILE), -(-c // TILE)))
+
+
+def _check_params(c, device, block_params, ks, dils_per_block) -> None:
     if len(block_params) != len(ks) or len(ks) != len(dils_per_block):
         raise ValueError("amp stage: block_params, ks and dils_per_block differ in length")
     for pairs, k, dils in zip(block_params, ks, dils_per_block):
-        if len(pairs) != len(dils):
+        if len(pairs) != len(dils) or not dils:
             raise ValueError("amp stage: one parameter tuple per dilation expected")
         for w1, b1, w2, b2, *acts in pairs:
             for w in (w1, w2):
                 if w.shape != (k, c, c) or w.dtype != torch.bfloat16 or not w.is_contiguous() \
-                        or w.device != x.device:
+                        or w.device != device or w.data_ptr() % 16:
                     raise ValueError(f"amp stage: conv weight {w.dtype} {tuple(w.shape)} is not contiguous "
-                                     f"bf16 [{k}, {c}, {c}] on {x.device} (see kernel_params)")
+                                     f"bf16 [{k}, {c}, {c}] on {device} (see kernel_params)")
             for v in (b1, b2, *acts):
                 if v.shape != (c,) or v.dtype != torch.float32 or not v.is_contiguous() \
-                        or v.device != x.device:
+                        or v.device != device or v.data_ptr() % 16:
                     raise ValueError(f"amp stage: per-channel parameter {v.dtype} {tuple(v.shape)} is not "
-                                     f"contiguous f32 [{c}] (see kernel_params)")
+                                     f"contiguous f32 [{c}] on {device} (see kernel_params)")
+
+
+def stage_table(block_params, ks, dils_per_block, c: int, device) -> tuple:
+    """The host arrays ``svc_amp_stage`` reads, after checking every
+    parameter once: 8 device pointers per pair, (k, d) per pair, pairs per
+    block. Kept on a :class:`StageParams`."""
+    key = (tuple(ks), tuple(map(tuple, dils_per_block)), c, device)
+    tables = getattr(block_params, "_tables", None)
+    if tables is not None and key in tables:
+        return tables[key]
+    _check_params(c, device, block_params, ks, dils_per_block)
+    pairs = [pair for block in block_params for pair in block]
+    kd = [v for k, dils in zip(ks, dils_per_block) for d in dils for v in (k, d)]
+    table = ((ctypes.c_void_p * (8 * len(pairs)))(*(v.data_ptr() for pair in pairs for v in pair)),
+             (ctypes.c_int * len(kd))(*kd),
+             (ctypes.c_int * len(block_params))(*(len(block) for block in block_params)))
+    if isinstance(block_params, StageParams):
+        if tables is None:
+            tables = block_params._tables = {}
+        tables[key] = table
+    return table
+
+
+def _check_x(x) -> None:
+    if x.dim() != 3 or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"amp stage: x must be contiguous bf16 [B, T, C], got {x.dtype} {tuple(x.shape)}")
+    if x.shape[2] % 8:
+        raise ValueError(f"amp stage: channels {x.shape[2]} must be a multiple of 8")
+
+
+def _scratch(b, t_len, c, halo, n_blocks, device):
+    """buf, conv_out, carry and total (None for one block) as 256-byte
+    aligned views of one allocation."""
+    sizes = [2 * b * (t_len + 2 * halo) * c] + [4 * b * t_len * c] * (3 if n_blocks > 1 else 2)
+    offsets, n = [], 0
+    for size in sizes:
+        offsets.append(n)
+        n += -(-size // 256) * 256
+    slab = torch.empty(n, dtype=torch.uint8, device=device)
+    ptrs = [slab.data_ptr() + o for o in offsets]
+    return slab, ptrs + [None] * (4 - len(ptrs))
 
 
 def fused_amp_stage(x: torch.Tensor, block_params, ks: Tuple[int, ...],
                     dils_per_block: Tuple[Tuple[int, ...], ...]) -> torch.Tensor:
     """One AMP stage of x [B, T, C], parameters in kernel form
     (:func:`kernel_params`). CPU tensors take the plain version; CUDA tensors
-    (bf16) run the hand-written kernels, one count per stage in
-    ``fused_amp_stage.launches``."""
+    (bf16, C % 8 == 0) run the hand-written kernels in one host call, one
+    count per stage in ``fused_amp_stage.launches``."""
     if x.device.type == "cpu":
         return amp_stage_plain(x, block_params, ks, dils_per_block)
-    _check_cuda_args(x, block_params, ks, dils_per_block)
+    _check_x(x)
+    b, t_len, c = x.shape
+    params, kd, pairs_per_block = stage_table(block_params, ks, dils_per_block, c, x.device)
+    plan = stage_plan(b, t_len, c, ks, dils_per_block)
     from svc_inference_pipeline_tpu_torch.ops.pallas import _build
 
-    lib = _build.lib()
-    n_blocks = len(block_params)
-    t_buf = torch.empty_like(x)                        # conv operand (bf16)
-    c_buf = torch.empty(x.shape, dtype=torch.float32, device=x.device)  # conv_d output
-    a = torch.empty_like(c_buf)                        # block carry
-    total = torch.empty_like(c_buf) if n_blocks > 1 else None  # running block sum
     out = torch.empty_like(x)
-    for bi, (pairs, dils) in enumerate(zip(block_params, dils_per_block)):
-        src = x
-        for j, ((w1, b1, w2, b2, al1, ib1, al2, ib2), d) in enumerate(zip(pairs, dils)):
-            launch_activation1d(src, t_buf, al1, ib1)
-            _conv(lib, t_buf, w1, b1, d, c_buf)
-            launch_activation1d(c_buf, t_buf, al2, ib2)
-            if j < len(pairs) - 1:
-                _conv(lib, t_buf, w2, b2, 1, a, res=src)
-            elif bi == n_blocks - 1:
-                _conv(lib, t_buf, w2, b2, 1, out, res=src, acc_in=total, scale=1.0 / n_blocks)
-            else:
-                _conv(lib, t_buf, w2, b2, 1, total, res=src, acc_in=total if bi > 0 else None)
-            src = a
+    slab, (buf, conv_out, carry, total) = _scratch(b, t_len, c, plan.halo, len(block_params), x.device)
+    status = _build.lib().svc_amp_stage(
+        x.data_ptr(), out.data_ptr(), buf, conv_out, carry, total, params, kd, pairs_per_block,
+        len(block_params), snake._taps_c(), b, t_len, c, plan.halo,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "svc_amp_stage")
     fused_amp_stage.launches += 1
     return out
 

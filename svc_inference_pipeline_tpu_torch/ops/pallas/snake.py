@@ -2,7 +2,8 @@
 
 Counterpart of ``svc_inference_pipeline_tpu/ops/pallas/snake.py``; the
 kernel is ``csrc/snake.cu`` (device code in ``csrc/snake.cuh``, shared with
-K2). On a CPU tensor the wrapper runs :func:`activation1d_plain`, the same
+K2, whose C entry point has it write the conv-input buffer).
+On a CPU tensor the wrapper runs :func:`activation1d_plain`, the same
 polyphase arithmetic in plain PyTorch; on a CUDA tensor it launches the
 kernel or raises.
 
@@ -63,16 +64,25 @@ def activation1d_plain(x: torch.Tensor, alpha_eff: torch.Tensor,
     return out.to(x.dtype)
 
 
-def launch_activation1d(x, out, alpha_eff, inv_beta) -> None:
-    """Kernel launch on CUDA tensors (no count; K2 shares this entry)."""
+ACT_VEC = 2  # channels per kernel thread (csrc/snake.cuh)
+
+
+@lru_cache(maxsize=None)
+def _taps_c():
+    """The 12 taps as the C array the entry points take, made once."""
+    return (ctypes.c_float * 12)(*fir12())
+
+
+def launch_activation1d(x, out, alpha_eff, inv_beta, halo: int = 0) -> None:
+    """Kernel launch on CUDA tensors (no count): act(x) into rows
+    [halo, halo + T) of out [B, T + 2 halo, C], zeros in its halo rows."""
     from svc_inference_pipeline_tpu_torch.ops.pallas import _build
 
     b, t, c = x.shape
-    taps = (ctypes.c_float * 12)(*fir12())
     status = _build.lib().svc_activation1d(
         x.data_ptr(), int(x.dtype == torch.bfloat16),
         out.data_ptr(), int(out.dtype == torch.bfloat16),
-        alpha_eff.data_ptr(), inv_beta.data_ptr(), taps, b, t, c,
+        alpha_eff.data_ptr(), inv_beta.data_ptr(), _taps_c(), b, t, c, halo,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "svc_activation1d")
@@ -83,6 +93,11 @@ def _check_cuda_args(x, alpha_eff, inv_beta) -> None:
         raise ValueError(f"activation1d: x must be a contiguous [B, T, C] tensor, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"activation1d: unsupported dtype {x.dtype}")
+    if x.shape[2] % ACT_VEC:
+        raise ValueError(f"activation1d: channels {x.shape[2]} must be a multiple of {ACT_VEC}")
+    for name, p in (("x", x), ("alpha", alpha_eff), ("inv_beta", inv_beta)):
+        if p.data_ptr() % 16:
+            raise ValueError(f"activation1d: {name} is not 16-byte aligned")
     for name, p in (("alpha", alpha_eff), ("inv_beta", inv_beta)):
         if p.dtype != torch.float32 or p.shape != (x.shape[2],) or not p.is_contiguous():
             raise ValueError(f"activation1d: {name} must be contiguous f32 [{x.shape[2]}]")

@@ -54,7 +54,7 @@ def test_library_builds_and_binds(dev):
     path, _, _ = _build.build()
     assert path.exists()
     lib = _build.lib()
-    for name in ("svc_ddpm_step", "svc_denoise", "svc_encoder_attention", "svc_activation1d", "svc_conv1d",
+    for name in ("svc_ddpm_step", "svc_denoise", "svc_encoder_attention", "svc_activation1d", "svc_amp_stage",
                  "svc_amp_pair", "svc_denoise_v2"):
         assert getattr(lib, name).restype is not None
 
@@ -327,12 +327,21 @@ def _stage_params(c, g, dev):
     return amp_stage.kernel_params(tuple(tuple(pair(k) for _ in d) for k, d in zip(KS, DILS)))
 
 
-@pytest.mark.parametrize("t_len,c", [(1536, 768), (3000, 96), (6001, 24), (50, 8)])
-def test_k2_amp_stage(dev, t_len, c):
+@pytest.mark.parametrize("b,t_len,c", [(1, 1536, 768), (1, 3000, 96), (1, 6001, 24), (1, 50, 8),
+                                       (2, 333, 48), (2, 1001, 96), (2, 19, 48)])
+def test_k2_amp_stage(dev, b, t_len, c):
+    """One host call per stage against the plain version: odd T, two clips
+    (tiles and activation runs never straddle them), and T = 19 < H = 25 (every
+    tap box reaches into the zero halo rows)."""
     g = torch.Generator(device=dev).manual_seed(1)
     params = _stage_params(c, g, dev)
-    x = (0.5 * torch.randn((1, t_len, c), generator=g, device=dev)).to(BF)
-    _close(amp_stage.fused_amp_stage(x, params, KS, DILS), amp_stage.amp_stage_plain(x, params, KS, DILS))
+    x = (0.5 * torch.randn((b, t_len, c), generator=g, device=dev)).to(BF)
+    before = amp_stage.fused_amp_stage.launches
+    got = amp_stage.fused_amp_stage(x, params, KS, DILS)
+    assert amp_stage.fused_amp_stage.launches == before + 1
+    _close(got, amp_stage.amp_stage_plain(x, params, KS, DILS))
+    # the launch table made on the first call is reused, and gives the same bits
+    assert torch.equal(amp_stage.fused_amp_stage(x, params, KS, DILS), got)
 
 
 def _pair(c, k, g, dev):
@@ -356,16 +365,37 @@ def test_k7_amp_pair(dev, k, d, b, t_len, c):
     _close(got, amp_pair.amp_pair_plain(x, pair, k, d))
 
 
-@pytest.mark.parametrize("shape", [(1, 98304, 24), (2, 77, 40), (1, 5, 8)])
+@pytest.mark.parametrize("shape", [(1, 98304, 24), (2, 77, 40), (1, 5, 8), (2, 333, 24), (2, 1001, 384)])
 def test_k3_activation(dev, shape):
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(shape, generator=g, device=dev).to(BF)
     alpha, beta = (0.3 * torch.randn(shape[-1], generator=g, device=dev) for _ in range(2))
+    before = snake.fused_activation1d.launches
     got = snake.fused_activation1d(x, alpha, beta)
+    assert snake.fused_activation1d.launches == before + 1
     _close(got, snake.activation1d_plain(x, *snake.effective_params(alpha, beta)))
     f32 = snake.fused_activation1d(x.float(), alpha, beta)
     _close(f32, snake.activation1d_plain(x.float(), *snake.effective_params(alpha, beta)),
            tol=lambda m: 1e-5 * m)
+
+
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("b,t_len,c,halo", [(2, 333, 24, 25), (1, 7, 384, 25), (2, 100, 48, 3)])
+def test_k3_activation_into_the_conv_buffer(dev, dtype, b, t_len, c, halo):
+    """K2's form (what ``svc_amp_stage`` launches, here through the module's
+    launch): bf16(act(x)) in rows [halo, halo + T) of a buffer filled with
+    NaN beforehand, and zeros in its halo rows, against the plain version
+    placed the same way."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((b, t_len, c), generator=g, device=dev).to(dtype)
+    alpha, beta = (0.3 * torch.randn(c, generator=g, device=dev) for _ in range(2))
+    a_eff, inv_b = snake.effective_params(alpha, beta)
+    buf = torch.full((b, t_len + 2 * halo, c), math.nan, dtype=BF, device=dev)
+    snake.launch_activation1d(x, buf, a_eff, inv_b, halo)
+    ref = torch.zeros_like(buf)
+    ref[:, halo:halo + t_len] = snake.activation1d_plain(x, a_eff, inv_b).to(BF)
+    assert torch.all(buf[:, :halo] == 0) and torch.all(buf[:, halo + t_len:] == 0)
+    _close(buf, ref)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -32,7 +32,7 @@ import torch
 from svc_inference_pipeline_tpu.ops.pallas.attention import encoder_attention as jax_encoder_attention
 from svc_inference_pipeline_tpu_torch.config import HParams
 from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
-from svc_inference_pipeline_tpu_torch.ops.pallas import attention, denoiser_step
+from svc_inference_pipeline_tpu_torch.ops.pallas import amp_stage, attention, denoiser_step, snake
 
 BF = torch.bfloat16
 TILE = 64  # K4's keys per tile and K1's rows per tile
@@ -271,3 +271,330 @@ def test_int8_gate_tap_partials_sum_to_the_concat_tap_product(quantize, c, t_len
     yq = torch.clamp(torch.round(y * (1.0 / s_y)), -127.0, 127.0)
     ref = denoiser_step._int8_matmul(denoiser_step._taps(yq, d), st.w1[layer])
     assert torch.equal(acc_i32.float(), ref)
+
+
+# --- K3's register pass and K2's stage on the zero-halo buffer ---------------
+
+KS = (3, 7, 11)  # config/config.json's resblock "1" kernels and dilations
+DILS = ((1, 3, 5),) * 3
+K_CHUNK = 64  # the wgmma tile's K chunk (csrc/gemm_wg.cuh)
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) in float32: the exact product (float64 holds the
+    product of two float32) plus c, rounded to float64 and then to float32,
+    which differs from one rounding only in rare ties."""
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double() + c.double()).float()
+
+
+def _register_pass(x, alpha_eff, inv_beta, rows, kernel_arith=False):
+    """The activation kernel's order of operations (csrc/snake.cuh): each
+    thread's run of ``rows`` output rows forms the upsampled pairs
+    t0-3 .. t1+2 (virtual pairs past the clip's ends are its edge samples
+    s[0] and s[2T-1]) and keeps the 7 outputs a pair feeds as running sums,
+    each summed from h[0] to h[11]. Vectorised over runs, clips and
+    channels; f32.
+
+    By default every product is rounded before it is added and the sine is
+    torch.sin, as in the plain version. ``kernel_arith``: the kernel's own
+    arithmetic instead, as far as the CPU can model it: every product-sum a
+    fused multiply-add (nvcc contracts them), the sine of the clip's inner
+    pairs ``sin_sq`` (:func:`_sin_sq_f32`), of its virtual edge pairs
+    torch.sin for the card's sinf. Arguments past sin_sq's range
+    (|alpha u| > 105615) are not modelled."""
+    h = snake.fir12()
+    b, t_len, c = x.shape
+    xf = x.float()
+    j = torch.arange(t_len)
+
+    def tap(m):
+        return xf[:, (j + m - 5).clamp(0, t_len - 1)]
+
+    if kernel_arith:
+        def fsum(terms):
+            acc = torch.zeros_like(xf)
+            for hv, t in terms:
+                acc = _fma(hv, t, acc)
+            return acc
+
+        def snake_of(u, inner):
+            a = u * alpha_eff
+            sq = torch.from_numpy(_sin_sq_f32(a.numpy())[1]) if inner else torch.sin(a) * torch.sin(a)
+            return _fma(inv_beta, sq, u)
+
+        def add(acc, hv, v):
+            return _fma(hv, v, acc)
+
+        u_even = 2.0 * fsum((h[15 - 2 * m], tap(m)) for m in range(2, 8))
+        u_odd = 2.0 * fsum((h[16 - 2 * m], tap(m)) for m in range(3, 9))
+        se_all, so_all = snake_of(u_even, True), snake_of(u_odd, True)
+        edge_lo, edge_hi = snake_of(u_even[:, 0], False), snake_of(u_odd[:, -1], False)
+    else:
+        def add(acc, hv, v):
+            return acc + hv * v
+
+        u_even = 2.0 * sum(h[15 - 2 * m] * tap(m) for m in range(2, 8))
+        u_odd = 2.0 * sum(h[16 - 2 * m] * tap(m) for m in range(3, 9))
+        se_all = u_even + inv_beta * torch.sin(alpha_eff * u_even) ** 2
+        so_all = u_odd + inv_beta * torch.sin(alpha_eff * u_odd) ** 2
+        edge_lo, edge_hi = se_all[:, 0], so_all[:, -1]
+    t0 = torch.arange(0, t_len, rows)
+    t1 = (t0 + rows).clamp(max=t_len)
+    out = torch.full((b, t_len, c), math.nan)
+    acc = [torch.zeros((len(t0), b, c)) for _ in range(7)]
+    for step in range(rows + 6):
+        jj = t0 - 3 + step  # this step's pair of every run
+        inside = jj.clamp(0, t_len - 1)
+        se = torch.where((jj < 0).view(-1, 1, 1), edge_lo.unsqueeze(0),
+                         torch.where((jj >= t_len).view(-1, 1, 1), edge_hi.unsqueeze(0),
+                                     se_all[:, inside].transpose(0, 1)))
+        so = torch.where((jj < 0).view(-1, 1, 1), edge_lo.unsqueeze(0),
+                         torch.where((jj >= t_len).view(-1, 1, 1), edge_hi.unsqueeze(0),
+                                     so_all[:, inside].transpose(0, 1)))
+        for q in range(7):
+            if q < 6:
+                acc[q] = add(acc[q], h[11 - 2 * q], se)
+            if q > 0:
+                acc[q] = add(acc[q], h[12 - 2 * q], so)
+        t = jj - 3
+        for r in range(len(t0)):
+            if t0[r] <= t[r] < t1[r]:
+                out[:, t[r]] = acc[0][r]
+        acc = acc[1:] + [torch.zeros_like(acc[0])]
+    return out
+
+
+def _activation_inputs(t_len):
+    rng = np.random.default_rng(t_len)
+    x = torch.from_numpy(rng.standard_normal((2, t_len, 24)).astype(np.float32))
+    alpha, beta = (torch.from_numpy(0.3 * rng.standard_normal(24).astype(np.float32)) for _ in range(2))
+    return (x, *snake.effective_params(alpha, beta))
+
+
+REGISTER_PASS_CASES = [(1, 8), (2, 8), (5, 8), (17, 8), (40, 16), (101, 32)]
+
+
+@pytest.mark.parametrize("t_len,rows", REGISTER_PASS_CASES)
+def test_k3_register_pass_is_the_plain_activation(t_len, rows):
+    """The kernel's sliding-window decimation with virtual edge pairs, for
+    clips shorter than one run, runs that end mid-clip and runs that touch
+    both edges, B = 2, C = 24: given the plain version's sine and a rounding
+    after every product, bit for bit the plain version (the same sums in the
+    same order). The kernel's own sine and fused multiply-adds are the next
+    test's."""
+    x, a_eff, inv_b = _activation_inputs(t_len)
+    got = _register_pass(x, a_eff, inv_b, rows)
+    assert torch.equal(got, snake.activation1d_plain(x, a_eff, inv_b))
+
+
+@pytest.mark.parametrize("t_len,rows", REGISTER_PASS_CASES)
+def test_k3_register_pass_in_the_kernels_arithmetic(t_len, rows):
+    """The same passes with the kernel's arithmetic as the CPU models it
+    (``sin_sq``, fused multiply-adds): within 1e-5 x max|plain| of the plain
+    version, the f32 limit the card tests hold the kernel to. The model is
+    not the kernel bit for bit (nvcc's contraction is its choice); the card
+    tests are the real check."""
+    x, a_eff, inv_b = _activation_inputs(t_len)
+    got = _register_pass(x, a_eff, inv_b, rows, kernel_arith=True)
+    ref = snake.activation1d_plain(x, a_eff, inv_b)
+    assert not torch.isnan(got).any()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _loader_columns(k, c):
+    """(tap, channel) of every column of the conv's K = k*C axis, padded to
+    whole 64-wide chunks, as the kernel's A loader walks it: thread chunk
+    j (8 columns) starts at tap 0, channel 8j, normalised, and advances by 64
+    channels per chunk, wrapping into the next tap with no division; None
+    past the last tap."""
+    n_chunks = -(-k * c // K_CHUNK)
+    cols = [None] * (n_chunks * K_CHUNK)
+    for j in range(K_CHUNK // 8):
+        m, ch = 0, 8 * j
+        while ch >= c:
+            ch, m = ch - c, m + 1
+        for kt in range(n_chunks):
+            for e in range(8):
+                cols[kt * K_CHUNK + 8 * j + e] = (m, ch + e) if m < k else None
+            ch += K_CHUNK
+            while ch >= c:
+                ch, m = ch - c, m + 1
+    return cols
+
+
+def _tap_matrix(buf, t_len, halo, k, d, c):
+    """[B, T, Kpad] A operand as the conv's 64-row tiles copy it from the
+    zero-halo buffer: column (m, ch) of row t is buffer row
+    halo - d(k-1)/2 + m*d + t, channel ch; padded columns 0."""
+    cols = _loader_columns(k, c)
+    pad = d * (k - 1) // 2
+    a = torch.zeros((buf.shape[0], t_len, len(cols)), dtype=buf.dtype)
+    for kk, mc in enumerate(cols):
+        if mc is not None:
+            m, ch = mc
+            r0 = halo - pad + m * d
+            assert 0 <= r0 and r0 + t_len <= buf.shape[1]  # inside the clip's own rows
+            a[:, :, kk] = buf[:, r0:r0 + t_len, ch]
+    return a
+
+
+def _weight_matrix(w):
+    """[k, C, C] -> the row-major [k*C, C] matrix the tile reads, padded with
+    zero rows to the 64-wide K chunks."""
+    k, c, _ = w.shape
+    out = torch.zeros((-(-k * c // K_CHUNK) * K_CHUNK, c), dtype=w.dtype)
+    out[:k * c] = w.reshape(k * c, c)
+    return out
+
+
+def _conv_buffer(x, alpha_eff, inv_beta, halo, cd):
+    """The activation's output in the conv-input buffer, as the kernel writes
+    it into an uninitialised one (NaN here): rows [halo, halo + T) and zero
+    halo rows."""
+    b, t_len, c = x.shape
+    buf = torch.full((b, t_len + 2 * halo, c), math.nan, dtype=cd)
+    buf[:, :halo] = 0
+    buf[:, halo + t_len:] = 0
+    buf[:, halo:halo + t_len] = snake.activation1d_plain(x, alpha_eff, inv_beta).to(cd)
+    return buf
+
+
+def _stage_params(c, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+
+    def pair(k):
+        return (t((k, c, c), (k * c) ** -0.5), t(c, 0.05), t((k, c, c), (k * c) ** -0.5), t(c, 0.05),
+                *(t(c, 0.2) for _ in range(4)))
+
+    return amp_stage.kernel_params(tuple(tuple(pair(k) for _ in d) for k, d in zip(KS, DILS)),
+                                   dtype=dtype)
+
+
+@pytest.mark.parametrize("c", [24, 48, 96])
+@pytest.mark.parametrize("t_len", [7, 65, 129])
+def test_k2_tap_boxes_of_the_zero_halo_buffer(t_len, c):
+    """B = 2, odd T (T = 7 < H = 25): for every (k, d) of the config the
+    loader's tap matrix equals the zero-padded gather of the bf16 operand
+    bit for bit, and its product with the padded weight matrix equals
+    ``conv1d_plain`` of that operand (f32 sums in another order, 1e-5 of
+    max|plain|)."""
+    rng = np.random.default_rng(t_len + c)
+    x = torch.from_numpy(rng.standard_normal((2, t_len, c)).astype(np.float32))
+    params = _stage_params(c, seed=c)
+    halo = amp_stage.halo_rows(KS, DILS)
+    assert halo == 25
+    w1, b1, _, _, al1, ib1, _, _ = params[0][0]
+    buf = _conv_buffer(x, al1, ib1, halo, BF)
+    assert not torch.isnan(buf.float()).any()
+    operand = buf[:, halo:halo + t_len]
+    for blk, (k, dils) in enumerate(zip(KS, DILS)):
+        w = params[blk][0][0].to(BF)
+        for d in dils:
+            a = _tap_matrix(buf, t_len, halo, k, d, c)
+            pad = d * (k - 1) // 2
+            padded = torch.nn.functional.pad(operand.float(), (0, 0, pad, pad))
+            gather = torch.cat([padded[:, m * d:m * d + t_len] for m in range(k)], dim=-1)
+            assert torch.equal(a[..., :k * c].float(), gather)
+            assert torch.all(a[..., k * c:] == 0)
+            got = a.float() @ _weight_matrix(w).float()
+            ref = amp_stage.conv1d_plain(operand, w, torch.zeros(c), d)
+            assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _emulated_stage(x, block_params, halo):
+    """K2's stage as svc_amp_stage runs it: per pair, the activation into
+    the zero-halo buffer (conv operands in x's dtype), the conv as the tap
+    matrix times the padded weight matrix (f32), and the epilogue's order:
+    + bias, + residual, + running block sum, * scale."""
+    cd = x.dtype
+    c = x.shape[2]
+    n_blocks = len(block_params)
+    carry = total = out = None
+    for bi, (pairs, k, dils) in enumerate(zip(block_params, KS, DILS)):
+        src = x
+        for j, ((w1, b1, w2, b2, al1, ib1, al2, ib2), d) in enumerate(zip(pairs, dils)):
+            buf = _conv_buffer(src, al1, ib1, halo, cd)
+            conv_out = _tap_matrix(buf, x.shape[1], halo, k, d, c).float() @ _weight_matrix(w1.to(cd)).float() + b1
+            buf = _conv_buffer(conv_out, al2, ib2, halo, cd)
+            v = _tap_matrix(buf, x.shape[1], halo, k, 1, c).float() @ _weight_matrix(w2.to(cd)).float() + b2
+            v = v + src.float()
+            if j < len(pairs) - 1:
+                carry = v
+            elif bi == n_blocks - 1:
+                out = ((v + total) * (1.0 / n_blocks)).to(cd)
+            else:
+                total = v if bi == 0 else v + total
+            src = carry
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("t_len,c", [(7, 24), (65, 48)])
+def test_k2_emulated_stage_matches_the_plain_stage(dtype, t_len, c):
+    """The emulated stage against ``amp_stage_plain``, B = 2: in f32 within
+    1e-6 x max|plain| (the convs' f32 sums in another order), in bf16 within
+    2 bf16 ulps of max|plain|, the card's limit for K2."""
+    rng = np.random.default_rng(3 * t_len + c)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2, t_len, c))).astype(np.float32)).to(dtype)
+    params = _stage_params(c, seed=t_len, dtype=dtype)
+    got = _emulated_stage(x, params, amp_stage.halo_rows(KS, DILS)).float()
+    ref = amp_stage.amp_stage_plain(x, params, KS, DILS).float()
+    m = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= (1e-6 * m if dtype == torch.float32 else _two_ulps(m))
+
+
+def test_k2_stage_plan_of_the_full_width_config():
+    """The plan of the six stages of BigVGAN-1536 for a 4 s clip (384
+    frames), against values worked out by hand: H = 25 (k = 11, d = 5),
+    buffer channels = C, conv grid (T/64 row tiles, C/64 column tiles
+    rounded up)."""
+    want = [(1536, 768, (24, 12)), (6144, 384, (96, 6)), (12288, 192, (192, 3)),
+            (24576, 96, (384, 2)), (49152, 48, (768, 1)), (98304, 24, (1536, 1))]
+    for t_len, c, conv_grid in want:
+        plan = amp_stage.stage_plan(1, t_len, c, KS, DILS)
+        assert plan == (25, c, conv_grid), (t_len, c, plan)
+    # two clips of 4099 rows at C = 24: 65 row tiles each, the last one partial
+    assert amp_stage.stage_plan(2, 4099, 24, KS, DILS) == (25, 24, (2 * 65, 1))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        amp_stage.stage_plan(1, 64, 12, KS, DILS)
+
+
+def _sin_sq_f32(a):
+    """csrc/snake.cuh::sin_sq in float32 numpy, each fmaf as the exact
+    product plus the addend, rounded once (float64 holds the product of two
+    float32 exactly)."""
+    f = np.float32
+
+    def fma(x, y, z):
+        return (x.astype(np.float64) * y + z).astype(f)
+
+    a = a.astype(f)
+    j = np.rint(a * f(0.636619772)).astype(f)
+    r = fma(j, f(-1.57079601e+00), a)
+    r = fma(j, f(-3.13916473e-07), r)
+    r = fma(j, f(-5.39030253e-15), r)
+    s = r * r
+    ps = fma(fma(np.full_like(s, -1.95152959e-4), s, f(8.33216087e-3)), s, f(-1.66666546e-1))
+    ps = fma(ps * s, r, r)
+    pc = fma(fma(fma(np.full_like(s, 2.44331571e-5), s, f(-1.38873163e-3)), s, f(4.16666457e-2)), s, f(-0.5))
+    pc = fma(pc, s, f(1.0))
+    v = np.where(j.astype(np.int64) & 1, pc, ps)
+    return v, v * v
+
+
+def test_k3_branchless_sine_is_within_two_ulps_of_sin():
+    """The activation's sine without sinf's slow-path branch (sin_sq, for
+    |alpha u| <= 105615): |v| within 2 f32 ulps of |sin| in float64 over the
+    kernel's range, and v^2 within 1e-6 of sin^2, so the snake's output
+    matches the plain version's torch.sin to f32 rounding."""
+    rng = np.random.default_rng(0)
+    a = np.concatenate([rng.uniform(-10, 10, 20000), rng.uniform(-105615, 105615, 20000),
+                        1e-3 * rng.standard_normal(2000)]).astype(np.float32)
+    v, sq = _sin_sq_f32(a)
+    ref = np.sin(a.astype(np.float64))
+    ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+    assert np.max(np.abs(np.abs(v.astype(np.float64)) - np.abs(ref)) / ulp) <= 2.0
+    assert np.max(np.abs(sq.astype(np.float64) - ref ** 2)) <= 1e-6
