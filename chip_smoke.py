@@ -20,7 +20,9 @@
    it and ``F.conv1d`` on its 18 conv shapes timed beside it,
    ``conv_library_ms``), K3 the final activation (its kernel's device time
    under torch.profiler: one wrapper call is host-bound), K7 every AMPBlock1
-   pair of stages 1-5 (C <= 384) and two clips shorter than a pair's two
+   pair of stages 1-5 (C <= 384; with the 45 pairs' device time under
+   torch.profiler and the host time to issue them, and ``F.conv1d`` on their
+   90 convs, ``conv_library_ms``) and two clips shorter than a pair's two
    halos, K8 the one-launch eps forward at T=944 (against its plain version
    and K5);
 4. drives the main paths, each with the launch counters set to 0 just before
@@ -468,17 +470,24 @@ def random_vocoder(vcfg, g, device):
 def check_k7(voc, g, device, n_frames: int) -> dict:
     """K7 on every AMPBlock1 pair of the stages with C <= 384 (stages 1-5) at
     the 4 s shapes, one random input per stage; then two clips shorter than
-    a pair's two halos (tiles that touch both edges). Times are summed over
-    the pairs: the per-block route's K7 time for one 4 s clip."""
+    a pair's two halos (tap boxes in both halos). Times are summed over the
+    pairs: the per-block route's K7 time for one 4 s clip, between CUDA
+    events per call (``ms``), as device time of its kernels under the
+    profiler (``kernel_device_ms``) and as host time to issue the 45 calls
+    (``host_issue_ms``); ``F.conv1d`` on the same 90 convs is the
+    yardstick (``conv_library_ms``)."""
     import torch
 
     from svc_inference_pipeline_tpu_torch.ops.pallas import amp_pair
 
     vcfg = voc.cfg
-    row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    ks = tuple(vcfg.resblock_kernel_sizes)
+    dils = tuple(tuple(d) for d in vcfg.resblock_dilation_sizes)
+    row = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "conv_library_ms": 0.0}
     nbytes, ops = 0, {"bf16": 0, "f32": 0}
     t_len = n_frames
     blocks = {}
+    calls = []  # (x, pair, k, d) of every pair
     for i, u in enumerate(vcfg.upsample_rates):
         t_len *= u
         c = vcfg.upsample_initial_channel // 2 ** (i + 1)
@@ -498,10 +507,23 @@ def check_k7(voc, g, device, n_frames: int) -> dict:
                 row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
                 row["ms"] += r["ms"]
                 row["plain_ms"] += r["plain_ms"]
+                calls.append((xs, pair, k, d))
                 nbytes += 2 * xs.nbytes + sum(v.nbytes for v in pair)
                 ops["bf16"] += 2 * 2 * t_len * c * c * k
                 ops["f32"] += 2 * SNAKE_OPS * t_len * c
+        row["conv_library_ms"] += conv_library_ms(voc.kernel_stages[i], t_len, c, ks, dils, g, device)
     row["bound_ms"], row["bound_by"] = bound(nbytes, ops)
+
+    def all_pairs():
+        for xs, pair, k, d in calls:
+            amp_pair.fused_amp_pair(xs, pair, k, d)
+
+    row["kernel_device_ms"] = kernel_device_ms(all_pairs, ("activation1d_kernel", "conv1d_kernel"), reps=5)
+    row["host_issue_ms"] = 1e3 * host_issue_s(all_pairs)
+    print(f"  K7 {len(calls)} pairs: {row['ms']:.4f} ms (calls between CUDA events, summed), kernels' device time "
+          f"{row['kernel_device_ms']:.4f} ms, host issue {row['host_issue_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+          f"ms ({row['bound_by']}); [F.conv1d on their {2 * len(calls)} convs (conv_library_ms) "
+          f"{row['conv_library_ms']:.4f} ms]; K7 / that = {row['ms'] / row['conv_library_ms']:.3f}")
     # the widest K7 stage's block with the most taps, the narrowest stage's with the fewest
     widest, narrowest = max(blocks), min(blocks)
     for blk, t_short in ((max(blocks[widest], key=lambda b: b.kernel_size), 50),
@@ -515,9 +537,10 @@ def check_k7(voc, g, device, n_frames: int) -> dict:
     return row
 
 
-def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
-    """Device milliseconds per call of the kernels whose name holds ``name``,
-    under torch.profiler over ``reps`` calls of fn() (after one warm call)."""
+def kernel_device_ms(fn, names: tuple, reps: int = 20) -> float:
+    """Device milliseconds per call of fn() in the kernels whose name holds
+    one of ``names``, under torch.profiler over ``reps`` calls (after one
+    warm call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -528,9 +551,9 @@ def kernel_device_ms(fn, name: str, reps: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-             for ev in prof.key_averages() if name in ev.key)
+             for ev in prof.key_averages() if any(name in ev.key for name in names))
     if not us > 0:
-        raise AssertionError(f"the profiler saw no device time of {name}")
+        raise AssertionError(f"the profiler saw no device time of {names}")
     return us / 1e3 / reps
 
 
@@ -645,7 +668,8 @@ def check_kernels(cfg, device) -> tuple:
     # here the host sets (the snake's exp, the checks, the ctypes call);
     # kernel_device_ms is the kernel's own device time under the profiler
     rows["K3"]["kernel_device_ms"] = kernel_device_ms(
-        lambda: snake.fused_activation1d(xa, alpha, beta, vcfg.activation, vcfg.snake_logscale), "activation1d_kernel")
+        lambda: snake.fused_activation1d(xa, alpha, beta, vcfg.activation, vcfg.snake_logscale),
+        ("activation1d_kernel",))
     print(f"  K3 activation: one wrapper call {rows['K3']['ms']:.4f} ms, kernel device time "
           f"{rows['K3']['kernel_device_ms']:.4f} ms")
     rows["K7"] = check_k7(voc, g, device, n_frames)
@@ -960,7 +984,7 @@ def main() -> int:
         "K3": ("fused_activation1d", "snake.cu", f"{TPU_KERNELS}/snake.py:131"),
         "K5": ("denoise", "denoiser_step.cu", f"{TPU_KERNELS}/denoiser_step.py:284"),
         "K6": ("ddpm_step/denoise on an int8 stack", "denoiser_step.cu", f"{TPU_KERNELS}/denoiser_step.py:204"),
-        "K7": ("fused_amp_pair", "amp_pair.cu", f"{TPU_KERNELS}/amp_pair.py:156"),
+        "K7": ("fused_amp_pair", "amp_stage.cu", f"{TPU_KERNELS}/amp_pair.py:156"),  # entry point svc_amp_pair
         "K8": ("denoise_v2", "denoiser_v2.cu", "perf_kernel3.py:170"),
     }
     kernels = []
@@ -971,7 +995,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms",
-                                             "conv_library_ms", "stages", "kernel_device_ms") if k in r}})
+                                             "conv_library_ms", "stages", "kernel_device_ms", "host_issue_ms")
+                           if k in r}})
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")

@@ -7,23 +7,34 @@
 //   - the dilated conv1d below, on the pipelined wgmma tile (gemm_wg.cuh),
 //     whose epilogue adds the bias, the residual and the running 3-block sum
 //     and applies the mean.
+// K7: one AMPBlock1 pair, out = x + conv_1(act2(conv_d(act1(x)))), issued by
+// ONE host call (svc_amp_pair): the same four launches of the same two
+// kernels as one pair of a K2 stage (issue_pair), with the pair's own halo
+// and an epilogue that adds b2 and x and rounds once to bf16.
 //
 // Replaces: svc_inference_pipeline_tpu/ops/pallas/amp_stage.py
 //   fused_amp_stage (kernel body _make_kernel), a time-tiled mega-kernel with
-//   a 112-row halo whose outer rows _xla_stage patches afterwards.
+//   a 112-row halo whose outer rows _xla_stage patches afterwards; and
+//   svc_inference_pipeline_tpu/ops/pallas/amp_pair.py fused_amp_pair (kernel
+//   body _make_kernel), one time tile per grid step with both activations
+//   inline and both convs as k shifted MXU matmuls, whose outer halo rows
+//   _xla_pair patches afterwards.
 //
 // What bounds it here: the convs' operations at the wide stages (2 T C^2
 //   sum(6k) = ~228 GFLOP for a 4 s clip at C = 768 or 384, 0.23 ms at the
 //   tensor cores' dense bf16 peak); at the narrow stages (C = 24..96) the
-//   activations' f32 work and the latency of 36 dependent launches.
+//   activations' f32 work and the latency of the dependent launches. A K7
+//   pair is 1/18 of a stage's work: at C <= 96 its four launches are
+//   latency-bound, and the host's call is of the same order.
 //
 // Design:
-//   - The conv input is ready to copy. A stage's activations write into one
+//   - The conv input is ready to copy. The activations write into one
 //     buffer [B, T + 2H, C] bf16 whose halo rows (H = the stage's largest
-//     d(k-1)/2, 25 for k = 11, d = 5) are zero, so tap m of a conv with
-//     dilation d is the plain row box that starts at clip row
-//     H - d(k-1)/2 + m d: no gather, no division and no edge test in the A
-//     loader, which copies 16-byte chunks by cp.async into the swizzled ring.
+//     d(k-1)/2, 25 for k = 11, d = 5; a K7 pair's own d(k-1)/2) are zero,
+//     so tap m of a conv with dilation d is the plain row box that starts
+//     at clip row H - d(k-1)/2 + m d: no gather, no division and no edge
+//     test in the A loader, which copies 16-byte chunks by cp.async into
+//     the swizzled ring.
 //     C is a multiple of 8, so a chunk never straddles two taps; a thread's
 //     (tap, channel) advances by one K chunk per call, with no division.
 //   - The [k, Cin, Cout] weight is a row-major [k Cin, Cout] matrix, read
@@ -38,7 +49,8 @@
 //   Every launch sees the whole sequence, so the global edges are exact and
 //   nothing is patched. Activations between the convs are f32 (the stage
 //   carry and the conv outputs) or bf16 (the conv operands, as on the TPU);
-//   the stage output is rounded once, at the mean.
+//   the stage output is rounded once, at the mean, and a K7 pair's once, at
+//   its residual.
 #include "gemm_wg.cuh"
 #include "snake.cuh"
 
@@ -193,6 +205,23 @@ void launch_act(const TIn* x, bf16* buf, const float* alpha, const float* inv_be
   launch_activation1d<TIn, bf16>(ActArgs{x, buf, alpha, inv_beta, f, B, T, C, halo}, s);
 }
 
+// One AMPBlock1 pair on in [B, T, C] (bf16 or f32) as four dependent launches:
+// act1(in) into buf, conv_d into conv_out (f32, + b1), act2(conv_out) into
+// buf, conv_1 with the caller's epilogue e (whose bias is b2). q: the pair's
+// 8 parameters (w1, b1, w2, b2, alpha1, inv_beta1, alpha2, inv_beta2); buf:
+// [B, T + 2 halo, C], halo >= d(k-1)/2.
+template <typename TIn>
+void issue_pair(const TIn* in, bf16* buf, float* conv_out, const void* const* q, int k, int d, int halo,
+                const ConvEpi& e, const Fir12& f, int B, int T, int C, cudaStream_t s) {
+  const auto weight = [&](int i) { return static_cast<const bf16*>(q[i]); };
+  const auto vec = [&](int i) { return static_cast<const float*>(q[i]); };
+  launch_act(in, buf, vec(4), vec(5), f, B, T, C, halo, s);
+  launch_conv(ConvOp{buf, weight(0), T, C, halo, k, d}, ConvEpi{vec(1), nullptr, 0, nullptr, 1.0f, conv_out, 0},
+              B, s);
+  launch_act<float>(conv_out, buf, vec(6), vec(7), f, B, T, C, halo, s);
+  launch_conv(ConvOp{buf, weight(2), T, C, halo, k, 1}, e, B, s);
+}
+
 }  // namespace
 }  // namespace svc
 
@@ -216,26 +245,13 @@ extern "C" int svc_amp_stage(const svc::bf16* x, svc::bf16* out, svc::bf16* buf,
   for (int bi = 0; bi < n_blocks; ++bi) {
     for (int j = 0; j < pairs_per_block[bi]; ++j, ++p) {
       const void* const* q = params + 8 * p;
-      const bf16* w1 = static_cast<const bf16*>(q[0]);
-      const float* b1 = static_cast<const float*>(q[1]);
-      const bf16* w2 = static_cast<const bf16*>(q[2]);
-      const float* b2 = static_cast<const float*>(q[3]);
       const int k = kd[2 * p];
       const int d = kd[2 * p + 1];
       if (d * (k - 1) / 2 > halo) return (int)cudaErrorInvalidValue;
       // the pair's input: x for a block's first pair, else the block carry
       const bool first = j == 0;
-      if (first) {
-        launch_act(x, buf, static_cast<const float*>(q[4]), static_cast<const float*>(q[5]), f, B, T, C, halo, s);
-      } else {
-        launch_act<float>(carry, buf, static_cast<const float*>(q[4]), static_cast<const float*>(q[5]), f, B, T, C,
-                          halo, s);
-      }
-      launch_conv(ConvOp{buf, w1, T, C, halo, k, d}, ConvEpi{b1, nullptr, 0, nullptr, 1.0f, conv_out, 0}, B, s);
-      launch_act<float>(conv_out, buf, static_cast<const float*>(q[6]), static_cast<const float*>(q[7]), f, B, T,
-                        C, halo, s);
       const void* res = first ? static_cast<const void*>(x) : static_cast<const void*>(carry);
-      ConvEpi e{b2, res, first ? 1 : 0, nullptr, 1.0f, carry, 0};
+      ConvEpi e{static_cast<const float*>(q[3]), res, first ? 1 : 0, nullptr, 1.0f, carry, 0};
       if (j == pairs_per_block[bi] - 1) {
         if (bi == n_blocks - 1) {
           e.acc_in = total;  // null for a single block
@@ -247,10 +263,37 @@ extern "C" int svc_amp_stage(const svc::bf16* x, svc::bf16* out, svc::bf16* buf,
           e.out = total;
         }
       }
-      launch_conv(ConvOp{buf, w2, T, C, halo, k, 1}, e, B, s);
+      if (first) {
+        issue_pair(x, buf, conv_out, q, k, d, halo, e, f, B, T, C, s);
+      } else {
+        issue_pair<float>(carry, buf, conv_out, q, k, d, halo, e, f, B, T, C, s);
+      }
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
   }
+  return (int)cudaGetLastError();
+}
+
+// One AMPBlock1 pair (K7) of x [B, T, C] bf16 into out [B, T, C] bf16, as the
+// plain version (ops/pallas/amp_pair.py::amp_pair_plain): act1 on f32(x),
+// conv_d on bf16 operands with f32 sums + b1, act2 on that f32 output,
+// conv_1, then + b2 + f32(x) rounded once to bf16. Scratch (the caller
+// allocates it): buf bf16 [B, T + 2H, C], H = d(k-1)/2 (the conv input),
+// conv_out f32 [B, T, C]. Parameters in kernel form (ops/pallas/amp_stage.py::
+// kernel_params): w1, w2 bf16 [k, C, C]; b1, b2, alpha1, inv_beta1, alpha2,
+// inv_beta2 f32 [C]. taps: the 12 filter taps. C must be a multiple of 8, k
+// odd, d >= 1.
+extern "C" int svc_amp_pair(const svc::bf16* x, svc::bf16* out, svc::bf16* buf, float* conv_out,
+                            const svc::bf16* w1, const float* b1, const svc::bf16* w2, const float* b2,
+                            const float* alpha1, const float* inv_beta1, const float* alpha2,
+                            const float* inv_beta2, const float* taps, int B, int T, int C, int k, int d,
+                            void* stream) {
+  using namespace svc;
+  if (C % 8 != 0 || k % 2 == 0 || d < 1) return (int)cudaErrorInvalidValue;
+  const void* const q[8] = {w1, b1, w2, b2, alpha1, inv_beta1, alpha2, inv_beta2};
+  const ConvEpi e{b2, x, /*res_bf16*/ 1, nullptr, 1.0f, out, /*out_bf16*/ 1};
+  issue_pair(x, buf, conv_out, q, k, d, d * (k - 1) / 2, e, fir12_from(taps), B, T, C,
+             static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

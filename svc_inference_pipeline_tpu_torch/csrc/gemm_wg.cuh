@@ -145,8 +145,8 @@ __device__ __forceinline__ void wg_load_b(const WgB& bw, int k0, uint8_t* Bs) {
 // The generic pipeline over nk chunks of K: load_a(kt, As) and load_b(kt,
 // Bs) issue the cp.async copies (or synchronous stores) of chunk kt's A and
 // B tiles into a ring stage, in the 128-byte-swizzle layout; each is called
-// once per chunk, in increasing kt. K2's conv (amp_stage.cu) brings its own
-// loaders; wg_gemm_main below is the plain box and weight.
+// once per chunk, in increasing kt. The conv of K2 and K7 (amp_stage.cu)
+// brings its own loaders; wg_gemm_main below is the plain box and weight.
 //
 // The first WG_STAGES - 1 weight chunks into their ring stages, uncommitted:
 // wg_gemm_loop commits them with the A chunks of the same stages.

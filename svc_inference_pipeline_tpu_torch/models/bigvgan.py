@@ -8,8 +8,9 @@ bridge in ``checkpoints/from_jax.py`` converts the JAX trees.
 The generator's AMP stages run through K2 (``ops/pallas/amp_stage.py``) and
 its final activation through K3 (``ops/pallas/snake.py``). Its per-block
 route (resblock "2", and resblock "1" through ``forward_per_block``) applies
-the blocks one by one: an AMPBlock1 pair is one K7 launch
-(``ops/pallas/amp_pair.py``) up to 384 channels, K3 and a conv otherwise.
+the blocks one by one: an AMPBlock1 pair is one K7 call
+(``ops/pallas/amp_pair.py``: K2's activation and conv, four dependent
+launches) up to 384 channels, K3 and a conv otherwise.
 Every kernel wrapper takes its plain PyTorch version on CPU tensors.
 ``upsample1d``/``downsample1d`` with
 ``snake``/``snake_beta`` are the composed anti-aliased activation, the
@@ -227,9 +228,11 @@ class AMPBlock1(nn.Module):
     x <- x + conv2_j(act2_j(conv1_j(act1_j(x)))).
 
     ``forward`` is the per-block route (JAX ``AMPBlock1(use_pallas=True)``):
-    up to 384 channels each pair is one K7 launch on the card
-    (``ops/pallas/amp_pair.py``), wider blocks compose the activations (K3)
-    and the convs, each pair's output in x's dtype. The generator's default
+    up to 384 channels each pair is one K7 call on the card
+    (``ops/pallas/amp_pair.py``, one host call that issues K2's activation
+    and conv for the pair: act1, conv_d, act2, conv_1 with the residual, as
+    four dependent launches), wider blocks compose the activations (K3) and
+    the convs, each pair's output in x's dtype. The generator's default
     route runs whole stages of these blocks through K2 instead
     (:meth:`pair_params`, :meth:`prepare_kernel_params`)."""
 

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "svc_encoder_attention": [_P] * 4 + [_I] * 3 + [_F, _P],
     "svc_activation1d": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 4 + [_P],
     "svc_amp_stage": [_P] * 9 + [_I, _P] + [_I] * 4 + [_P],
-    "svc_amp_pair": [_P] * 11 + [_I] * 14 + [_P],
+    "svc_amp_pair": [_P] * 13 + [_I] * 5 + [_P],
     "svc_denoise_v2": [_P] * 18 + [_I] * 6 + [_P, _P],
 }
 

@@ -97,10 +97,16 @@ def amp_stage_plain(x: torch.Tensor, block_params, ks: Sequence[int],
     return (acc * (1.0 / len(block_params))).to(cd)
 
 
+def pad_rows(k: int, d: int) -> int:
+    """The "same" padding d(k-1)/2 of a k-tap conv with dilation d: the zero
+    rows on each side of a clip that its taps read in the conv-input buffer."""
+    return d * (k - 1) // 2
+
+
 def halo_rows(ks: Sequence[int], dils_per_block: Sequence[Sequence[int]]) -> int:
-    """Zero rows on each side of a clip in the conv-input buffer: the stage's
-    largest "same" padding d(k-1)/2."""
-    return max(d * (k - 1) // 2 for k, dils in zip(ks, dils_per_block) for d in dils)
+    """Zero rows on each side of a clip in the stage's conv-input buffer: its
+    largest :func:`pad_rows`."""
+    return max(pad_rows(k, d) for k, dils in zip(ks, dils_per_block) for d in dils)
 
 
 class StagePlan(NamedTuple):
@@ -120,23 +126,31 @@ def stage_plan(b: int, t_len: int, c: int, ks: Sequence[int],
     return StagePlan(halo_rows(ks, dils_per_block), c, (b * -(-t_len // TILE), -(-c // TILE)))
 
 
+def check_pair(pair, k: int, c: int, device, who: str) -> None:
+    """Raise ValueError unless ``pair`` is one pair in kernel form on
+    ``device``: contiguous bf16 [k, c, c] weights and f32 [c] vectors, each
+    16-byte aligned (the kernels' vector loads)."""
+    w1, b1, w2, b2, *acts = pair
+    for w in (w1, w2):
+        if w.shape != (k, c, c) or w.dtype != torch.bfloat16 or not w.is_contiguous() \
+                or w.device != device or w.data_ptr() % 16:
+            raise ValueError(f"{who}: conv weight {w.dtype} {tuple(w.shape)} is not contiguous "
+                             f"bf16 [{k}, {c}, {c}] on {device} (see amp_stage.kernel_params)")
+    for v in (b1, b2, *acts):
+        if v.shape != (c,) or v.dtype != torch.float32 or not v.is_contiguous() \
+                or v.device != device or v.data_ptr() % 16:
+            raise ValueError(f"{who}: per-channel parameter {v.dtype} {tuple(v.shape)} is not "
+                             f"contiguous f32 [{c}] on {device} (see amp_stage.kernel_params)")
+
+
 def _check_params(c, device, block_params, ks, dils_per_block) -> None:
     if len(block_params) != len(ks) or len(ks) != len(dils_per_block):
         raise ValueError("amp stage: block_params, ks and dils_per_block differ in length")
     for pairs, k, dils in zip(block_params, ks, dils_per_block):
         if len(pairs) != len(dils) or not dils:
             raise ValueError("amp stage: one parameter tuple per dilation expected")
-        for w1, b1, w2, b2, *acts in pairs:
-            for w in (w1, w2):
-                if w.shape != (k, c, c) or w.dtype != torch.bfloat16 or not w.is_contiguous() \
-                        or w.device != device or w.data_ptr() % 16:
-                    raise ValueError(f"amp stage: conv weight {w.dtype} {tuple(w.shape)} is not contiguous "
-                                     f"bf16 [{k}, {c}, {c}] on {device} (see kernel_params)")
-            for v in (b1, b2, *acts):
-                if v.shape != (c,) or v.dtype != torch.float32 or not v.is_contiguous() \
-                        or v.device != device or v.data_ptr() % 16:
-                    raise ValueError(f"amp stage: per-channel parameter {v.dtype} {tuple(v.shape)} is not "
-                                     f"contiguous f32 [{c}] on {device} (see kernel_params)")
+        for pair in pairs:
+            check_pair(pair, k, c, device, "amp stage")
 
 
 def stage_table(block_params, ks, dils_per_block, c: int, device) -> tuple:
@@ -167,17 +181,23 @@ def _check_x(x) -> None:
         raise ValueError(f"amp stage: channels {x.shape[2]} must be a multiple of 8")
 
 
-def _scratch(b, t_len, c, halo, n_blocks, device):
-    """buf, conv_out, carry and total (None for one block) as 256-byte
-    aligned views of one allocation."""
-    sizes = [2 * b * (t_len + 2 * halo) * c] + [4 * b * t_len * c] * (3 if n_blocks > 1 else 2)
+def slab_offsets(sizes: Sequence[int]) -> tuple:
+    """(offsets, total bytes) of buffers of ``sizes`` bytes laid out one
+    after another in one allocation, each at a 256-byte boundary."""
     offsets, n = [], 0
     for size in sizes:
         offsets.append(n)
         n += -(-size // 256) * 256
+    return offsets, n
+
+
+def scratch(sizes: Sequence[int], device) -> tuple:
+    """One allocation holding buffers of ``sizes`` bytes (:func:`slab_offsets`):
+    returns it, to be kept alive until the launches are enqueued, and the
+    buffers' addresses."""
+    offsets, n = slab_offsets(sizes)
     slab = torch.empty(n, dtype=torch.uint8, device=device)
-    ptrs = [slab.data_ptr() + o for o in offsets]
-    return slab, ptrs + [None] * (4 - len(ptrs))
+    return slab, [slab.data_ptr() + o for o in offsets]
 
 
 def fused_amp_stage(x: torch.Tensor, block_params, ks: Tuple[int, ...],
@@ -195,7 +215,10 @@ def fused_amp_stage(x: torch.Tensor, block_params, ks: Tuple[int, ...],
     from svc_inference_pipeline_tpu_torch.ops.pallas import _build
 
     out = torch.empty_like(x)
-    slab, (buf, conv_out, carry, total) = _scratch(b, t_len, c, plan.halo, len(block_params), x.device)
+    f32_bytes = 4 * b * t_len * c  # conv_out, carry and (past one block) total
+    slab, ptrs = scratch([2 * b * (t_len + 2 * plan.halo) * c] + [f32_bytes] * (3 if len(block_params) > 1 else 2),
+                         x.device)
+    buf, conv_out, carry, total = ptrs + [None] * (4 - len(ptrs))
     status = _build.lib().svc_amp_stage(
         x.data_ptr(), out.data_ptr(), buf, conv_out, carry, total, params, kd, pairs_per_block,
         len(block_params), snake._taps_c(), b, t_len, c, plan.halo,

@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the plain K7 (one AMPBlock1 pair,
 ``amp_pair_plain``) against ``fused_amp_pair`` in interpret mode, the
-port's AMPBlock1 against ``AMPBlock1(use_pallas=True)``, and K7's tile plan
-(CPU, same weights).
+port's AMPBlock1 against ``AMPBlock1(use_pallas=True)`` (CPU, same
+weights), and the layout and argument check of K7's host call.
 
 Tolerances: f32 5e-4 abs, the JAX test's own limit
 (tests/test_pallas_amp_pair.py); bf16 0.05 abs, its bf16 limit (the JAX
@@ -104,21 +104,50 @@ def test_amp_block1_matches_jax_pallas_block(cfg):
     assert w1.data_ptr() == port.conv1_2.conv.weight.data_ptr() and w1.is_contiguous()
 
 
+def _vocoder_kd(cfg):
+    """Every (k, d) of the config's AMPBlock1 pairs."""
+    return [(k, d) for k, dils in zip(cfg.vocoder.resblock_kernel_sizes, cfg.vocoder.resblock_dilation_sizes)
+            for d in dils]
+
+
 @pytest.mark.parametrize("c", [384, 192, 96, 48, 24])
-def test_k7_plan_fits_every_vocoder_pair(c):
-    """Every (k, d) of the config at every K7 width gets the 32-row tile
-    within a block's shared memory; the padding channels are whole 16-wide
-    fragments and every buffer offset is 128-byte aligned."""
-    for k in (3, 7, 11):
-        for d in (1, 3, 5):
-            p = amp_pair.plan(c, k, d)
-            assert p.tt == 32 and p.smem <= amp_pair.SMEM_LIMIT
-            assert p.cp % 16 == 0 and p.cp - c < 16 and p.lda % 16 == 0 and p.ldf % 4 == 0
-            assert p.mp1 >= p.tt + k - 1 + 2 * amp_pair.ACT_HALO and p.mp1 % 16 == 0 and p.mp1 <= 64
-            assert p.off_ss2 % 128 == 0 and p.off2 % 128 == 0 and p.offb % 128 == 0
+def test_k7_scratch_covers_every_vocoder_pair(c, cfg):
+    """For every (k, d) of the config's vocoder at every K7 width (two clips,
+    T = 37 < 2H at k = 11, d = 5, and a 4 s stage's T): the halo is the
+    pair's d(k-1)/2; buf holds bf16 [B, T + 2H, C] and conv_out f32
+    [B, T, C], 256-byte aligned and apart in one allocation; and every tap
+    box of conv_d and conv_1 (rows H - d'(k-1)/2 + m d' + [0, T) of a clip,
+    d' = d or 1) lies inside the clip's rows of buf."""
+    kd = _vocoder_kd(cfg)
+    assert {k for k, _ in kd} == {3, 7, 11} and {d for _, d in kd} == {1, 3, 5}
+    for b, t_len in ((2, 37), (1, 98304 * 24 // c)):
+        for k, d in kd:
+            lay = amp_pair.scratch_layout(b, t_len, c, k, d)
+            assert lay.halo == d * (k - 1) // 2
+            assert lay.sizes == (2 * b * (t_len + 2 * lay.halo) * c, 4 * b * t_len * c)
+            offsets, nbytes = amp_stage.slab_offsets(lay.sizes)
+            assert all(o % 256 == 0 for o in offsets)
+            assert offsets[0] + lay.sizes[0] <= offsets[1] and offsets[1] + lay.sizes[1] <= nbytes
+            for dil in (d, 1):
+                first = lay.halo - dil * (k - 1) // 2
+                assert first >= 0 and first + (k - 1) * dil + t_len <= t_len + 2 * lay.halo
 
 
-@pytest.mark.parametrize("c,k,d", [(12, 3, 1), (392, 3, 1), (96, 4, 1), (96, 3, 0), (384, 41, 1), (384, 11, 60)])
-def test_k7_plan_refuses_what_the_kernel_does_not_take(c, k, d):
+@pytest.mark.parametrize("case", ["c12", "c392", "even k", "d0", "weight shape", "bf16 bias"])
+def test_k7_refuses_what_the_kernel_does_not_take(case):
+    """The wrapper's argument check (pure Python, run before any launch)
+    refuses C not a multiple of 8, C > 384, an even k, d = 0, a conv weight
+    of the wrong shape and a bias that is not f32."""
+    def pair_of(c, k):
+        return amp_stage.kernel_params(((tuple(torch.from_numpy(v) for v in _params(c, k).values()),),))[0][0]
+
+    amp_pair.check_args(torch.zeros((1, 16, 96), dtype=torch.bfloat16), pair_of(96, 3), 3, 1)  # what it takes
+    c, k, d = {"c12": (12, 3, 1), "c392": (392, 3, 1), "even k": (96, 4, 1), "d0": (96, 3, 0)}.get(case, (96, 3, 1))
+    pair = list(pair_of(c, k))
+    if case == "weight shape":
+        pair[2] = torch.zeros((k, c, c + 8), dtype=torch.bfloat16)
+    elif case == "bf16 bias":
+        pair[1] = pair[1].to(torch.bfloat16)
+    x = torch.zeros((1, 16, c), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="amp pair"):
-        amp_pair.plan(c, k, d)
+        amp_pair.check_args(x, tuple(pair), k, d)

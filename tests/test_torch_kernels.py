@@ -353,9 +353,9 @@ def _pair(c, k, g, dev):
 @pytest.mark.parametrize("k,d", [(3, 1), (7, 3), (11, 5)])
 @pytest.mark.parametrize("b,t_len,c", [(1, 1001, 384), (2, 333, 96), (1, 4099, 24), (2, 37, 48)])
 def test_k7_amp_pair(dev, k, d, b, t_len, c):
-    """One launch per pair against the plain version: odd T, two clips,
-    C = 24 and 48 padded to 32 and 48 channels, and T = 37 < 2H at k = 11,
-    d = 5 (tiles that touch both edges)."""
+    """One host call per pair (four dependent launches) against the plain
+    version: odd T, two clips, C = 24 and 48 (64-column tiles partly empty),
+    and T = 37 < 2H at k = 11, d = 5 (tap boxes in both halos)."""
     g = torch.Generator(device=dev).manual_seed(4)
     pair = _pair(c, k, g, dev)
     x = (0.5 * torch.randn((b, t_len, c), generator=g, device=dev)).to(BF)
@@ -363,6 +363,8 @@ def test_k7_amp_pair(dev, k, d, b, t_len, c):
     got = amp_pair.fused_amp_pair(x, pair, k, d)
     assert amp_pair.fused_amp_pair.launches == before + 1
     _close(got, amp_pair.amp_pair_plain(x, pair, k, d))
+    # no atomics and fresh scratch each call: a second call gives the same bits
+    assert torch.equal(amp_pair.fused_amp_pair(x, pair, k, d), got)
 
 
 @pytest.mark.parametrize("shape", [(1, 98304, 24), (2, 77, 40), (1, 5, 8), (2, 333, 24), (2, 1001, 384)])

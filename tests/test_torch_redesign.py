@@ -20,6 +20,11 @@ the CPU where the kernels cannot run.
   (``w1_kmajor``), and the three int32 partials are summed in int32. The
   emulation follows those steps and must give the plain version's
   concat-tap product bit for bit.
+- K2's stage and K7's pair run each AMPBlock1 pair as four launches: act1
+  into a zero-halo buffer, conv_d, act2 into the buffer, conv_1 with its
+  epilogue. The emulation reads the buffer's tap boxes as the conv's loader
+  does and must stay within the card's limit (2 bf16 ulps of max|plain|)
+  of the plain stage and the plain pair.
 """
 
 import math
@@ -32,7 +37,7 @@ import torch
 from svc_inference_pipeline_tpu.ops.pallas.attention import encoder_attention as jax_encoder_attention
 from svc_inference_pipeline_tpu_torch.config import HParams
 from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
-from svc_inference_pipeline_tpu_torch.ops.pallas import amp_stage, attention, denoiser_step, snake
+from svc_inference_pipeline_tpu_torch.ops.pallas import amp_pair, amp_stage, attention, denoiser_step, snake
 
 BF = torch.bfloat16
 TILE = 64  # K4's keys per tile and K1's rows per tile
@@ -273,7 +278,7 @@ def test_int8_gate_tap_partials_sum_to_the_concat_tap_product(quantize, c, t_len
     assert torch.equal(acc_i32.float(), ref)
 
 
-# --- K3's register pass and K2's stage on the zero-halo buffer ---------------
+# --- K3's register pass, K2's stage and K7's pair on the zero-halo buffer ----
 
 KS = (3, 7, 11)  # config/config.json's resblock "1" kernels and dilations
 DILS = ((1, 3, 5),) * 3
@@ -504,23 +509,33 @@ def test_k2_tap_boxes_of_the_zero_halo_buffer(t_len, c):
             assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+def _emulated_pair(src, pair, k, d, halo, cd):
+    """One pair's four launches (csrc/amp_stage.cu::issue_pair) on src (in
+    x's dtype or the f32 carry): act1 into the zero-halo buffer (conv
+    operands in ``cd``), conv_d as the tap matrix times the padded weight
+    matrix (f32) + b1, act2 into the buffer, conv_1 + b2, + f32(src): the
+    f32 value before the final conv's epilogue adds a running sum or
+    rounds."""
+    w1, b1, w2, b2, al1, ib1, al2, ib2 = pair
+    t_len, c = src.shape[1], src.shape[2]
+    buf = _conv_buffer(src, al1, ib1, halo, cd)
+    conv_out = _tap_matrix(buf, t_len, halo, k, d, c).float() @ _weight_matrix(w1.to(cd)).float() + b1
+    buf = _conv_buffer(conv_out, al2, ib2, halo, cd)
+    v = _tap_matrix(buf, t_len, halo, k, 1, c).float() @ _weight_matrix(w2.to(cd)).float() + b2
+    return v + src.float()
+
+
 def _emulated_stage(x, block_params, halo):
-    """K2's stage as svc_amp_stage runs it: per pair, the activation into
-    the zero-halo buffer (conv operands in x's dtype), the conv as the tap
-    matrix times the padded weight matrix (f32), and the epilogue's order:
-    + bias, + residual, + running block sum, * scale."""
+    """K2's stage as svc_amp_stage runs it: per pair :func:`_emulated_pair`
+    (conv operands in x's dtype), then the epilogue's order: + running block
+    sum, * scale."""
     cd = x.dtype
-    c = x.shape[2]
     n_blocks = len(block_params)
     carry = total = out = None
     for bi, (pairs, k, dils) in enumerate(zip(block_params, KS, DILS)):
         src = x
-        for j, ((w1, b1, w2, b2, al1, ib1, al2, ib2), d) in enumerate(zip(pairs, dils)):
-            buf = _conv_buffer(src, al1, ib1, halo, cd)
-            conv_out = _tap_matrix(buf, x.shape[1], halo, k, d, c).float() @ _weight_matrix(w1.to(cd)).float() + b1
-            buf = _conv_buffer(conv_out, al2, ib2, halo, cd)
-            v = _tap_matrix(buf, x.shape[1], halo, k, 1, c).float() @ _weight_matrix(w2.to(cd)).float() + b2
-            v = v + src.float()
+        for j, (pair, d) in enumerate(zip(pairs, dils)):
+            v = _emulated_pair(src, pair, k, d, halo, cd)
             if j < len(pairs) - 1:
                 carry = v
             elif bi == n_blocks - 1:
@@ -542,6 +557,25 @@ def test_k2_emulated_stage_matches_the_plain_stage(dtype, t_len, c):
     params = _stage_params(c, seed=t_len, dtype=dtype)
     got = _emulated_stage(x, params, amp_stage.halo_rows(KS, DILS)).float()
     ref = amp_stage.amp_stage_plain(x, params, KS, DILS).float()
+    m = ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= (1e-6 * m if dtype == torch.float32 else _two_ulps(m))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("k,d", [(3, 1), (7, 3), (11, 5)])
+def test_k7_emulated_pair_matches_the_plain_pair(k, d, dtype):
+    """K7 as ``svc_amp_pair`` runs it: the four launches of one pair with
+    the pair's own halo H = d(k-1)/2 (conv_d's first tap box starts at the
+    buffer's first row), + b2 + f32(x) rounded once, against
+    ``amp_pair_plain``; B = 2, T = 37 < 2H at k = 11, d = 5. In f32 within
+    1e-6 x max|plain|, in bf16 within 2 bf16 ulps of max|plain|, the card's
+    limit for K7."""
+    rng = np.random.default_rng(10 * k + d)
+    x = torch.from_numpy((0.5 * rng.standard_normal((2, 37, 48))).astype(np.float32)).to(dtype)
+    pair = _stage_params(48, seed=k, dtype=dtype)[KS.index(k)][0]
+    halo = amp_pair.scratch_layout(2, 37, 48, k, d).halo
+    got = _emulated_pair(x, pair, k, d, halo, dtype).to(dtype).float()
+    ref = amp_pair.amp_pair_plain(x, pair, k, d).float()
     m = ref.abs().max().item()
     assert (got - ref).abs().max().item() <= (1e-6 * m if dtype == torch.float32 else _two_ulps(m))
 
