@@ -19,7 +19,8 @@
    K2 the six vocoder stages (each with its bound, the host time to issue
    it and ``F.conv1d`` on its 18 conv shapes timed beside it,
    ``conv_library_ms``), K3 the final activation (its kernel's device time
-   under torch.profiler: one wrapper call is host-bound), K7 every AMPBlock1
+   under torch.profiler: one wrapper call is host-bound), K2 (stages 0 and
+   5), K3 and K4 also on a batch of two clips (``batch2_ms``), K7 every AMPBlock1
    pair of stages 1-5 (C <= 384; with the 45 pairs' device time under
    torch.profiler and the host time to issue them, and ``F.conv1d`` on their
    90 convs, ``conv_library_ms``) and two clips shorter than a pair's two
@@ -43,6 +44,20 @@
       correlate >= 0.97;
    h. the TPU harness's loop x <- 1e-3 eps + 0.999 x over 100 steps at
       T=944, once through K8 (x 100) and once through K5 (x 100);
+   i. the CLI with two inputs (4 s and 3 s, two singers) in one batch,
+      DDPM-1000 bf16 (K1 x 1000, K4 x 24, K2 x 6, K3 x 1);
+   j. batch independence, PLMS@10 int8-w1: two 4 s clips 8x apart in
+      loudness through ``_convert_core`` as a batch and each alone on the
+      same x_T rows (K4 x 24, K5 int8-w1 x 303, K2 x 18, K3 x 3); each clip's
+      waveforms must correlate >= 0.9999;
+   k. the HTTP server in process on 127.0.0.1: a burst of four PLMS@10 bf16
+      requests, two 4 s and two 2 s clips, coalesced into two batches by
+      length class (K5 x 202, K4 x 48, K2 x 12, K3 x 2), ``/metrics``,
+      ``/healthz`` and ``/singers``;
+   l. a streamed request, PLMS@10 int8-w1, 2 s chunks of the 4 s clip (K5
+      int8-w1 x 202, K4 x 48, K2 x 12, K3 x 2);
+   m. ``convert_multi_singer`` to three singers, PLMS@10 bf16 (K4 x 24, K5 x
+      101 at B = 3, K2 x 6, K3 x 1);
 5. prints the card again, the kernels' JSON line (``launches`` summed over
    the paths; K6 counts K1's and K5's int8 launches), then the result line.
 
@@ -166,6 +181,7 @@ INT8_TOL = {
     "int8": (lambda m: 2.5e-2 * m, "2.5e-2 x max|plain|"),
 }
 FRAMES_OFF = (1e-5, 0.25)  # (error per frame over max|plain|, largest share of frames)
+PER_CLIP = (lambda y: y[0], lambda y: y[1])  # a batch of two clips, each held to its own range
 # int8-w1's quality gate: the final mel of DDPM-1000 against the bf16 chain's
 INT8_W1_MIN_CORR = 0.9999
 
@@ -243,7 +259,12 @@ def check_k4(g, device) -> dict:
     row["library_ratio"] = row["ms"] / row["library_ms"]
     print(f"  K4 scaled_dot_product_attention: {row['library_ms']:.4f} ms; "
           f"K4 / SDPA = {row['library_ratio']:.3f}")
-    row["max_abs_err"] = max(row["max_abs_err"], tail["max_abs_err"])
+    print("K4 encoder_attention [2, 1500, 1024], 16 heads, bf16: the batched front-end's two windows")
+    q2, k2, v2 = (torch.randn((2,) + shape[1:], generator=g, device=device).to(bf) for _ in range(3))
+    b2 = compare("K4 B=2", lambda: attention.encoder_attention(q2, k2, v2, 16),
+                 lambda: attention.encoder_attention_plain(q2, k2, v2, 16), BF16_TOL, views=PER_CLIP)
+    row["batch2_ms"] = b2["ms"]
+    row["max_abs_err"] = max(row["max_abs_err"], tail["max_abs_err"], b2["max_abs_err"])
     row["bound_ms"], row["bound_by"] = bound(4 * q.nbytes, {"bf16": 4 * 1500 * 1500 * 1024})
     return row
 
@@ -650,6 +671,19 @@ def check_kernels(cfg, device) -> tuple:
     k2["bound_ms"], k2["bound_by"] = bound(k2_bytes, k2_ops)
     print(f"  K2 six stages: {k2['ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms; [conv_library_ms "
           f"{k2['conv_library_ms']:.4f} ms]; K2 / that = {k2['ms'] / k2['conv_library_ms']:.3f}")
+    # the batched vocoder: the first and last stage on two clips, each held to its own range
+    k2["batch2_ms"] = {}
+    for i in (0, len(vcfg.upsample_rates) - 1):
+        t_i = n_frames * math.prod(vcfg.upsample_rates[: i + 1])
+        c = vcfg.upsample_initial_channel // 2 ** (i + 1)
+        xs = (0.5 * torch.randn((2, t_i, c), generator=g, device=device)).to(bf)
+        params = voc.kernel_stages[i]
+        print(f"K2 fused_amp_stage stage {i} [2, {t_i}, {c}] bf16")
+        row = compare(f"K2 stage {i} B=2", lambda xs=xs, params=params: amp_stage.fused_amp_stage(xs, params, ks, dils),
+                      lambda xs=xs, params=params: amp_stage.amp_stage_plain(xs, params, ks, dils),
+                      BF16_TOL, views=PER_CLIP, reps=3)
+        k2["max_abs_err"] = max(k2["max_abs_err"], row["max_abs_err"])
+        k2["batch2_ms"][f"stage {i}"] = row["ms"]
     rows["K2"] = k2
 
     c_post = vcfg.upsample_initial_channel // 2 ** len(vcfg.upsample_rates)
@@ -664,6 +698,12 @@ def check_kernels(cfg, device) -> tuple:
         BF16_TOL,
     )
     rows["K3"]["bound_ms"], rows["K3"]["bound_by"] = bound(2 * xa.nbytes, {"f32": SNAKE_OPS * xa.numel()})
+    print(f"K3 fused_activation1d [2, {t_len}, {c_post}] bf16")
+    xb = (0.5 * torch.randn((2, t_len, c_post), generator=g, device=device)).to(bf)
+    b2 = compare("K3 B=2", lambda: snake.fused_activation1d(xb, alpha, beta, vcfg.activation, vcfg.snake_logscale),
+                 lambda: snake.activation1d_plain(xb, a_eff, inv_b), BF16_TOL, views=PER_CLIP)
+    rows["K3"]["max_abs_err"] = max(rows["K3"]["max_abs_err"], b2["max_abs_err"])
+    rows["K3"]["batch2_ms"] = b2["ms"]
     # ms, as for every kernel, is one wrapper call between CUDA events, which
     # here the host sets (the snake's exp, the checks, the ctypes call);
     # kernel_device_ms is the kernel's own device time under the profiler
@@ -842,6 +882,206 @@ def harness_paths(cfg, counters, paths, device) -> dict:
     return out
 
 
+def http_request(port: int, method: str, path: str, body: bytes = None) -> tuple:
+    """(status, headers, body) of one request to the server on 127.0.0.1."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.headers, r.read()
+    finally:
+        conn.close()
+
+
+def wav_bytes(path: str, audio, fs: int) -> bytes:
+    from svc_inference_pipeline_tpu_torch.utils.audio_io import write_wav
+
+    write_wav(path, audio, fs)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def batch_paths(cfg, counters, paths, device) -> dict:
+    """Paths i-m (module docstring, step 4): the batched CLI, batch
+    independence, the HTTP server's coalesced burst and a stream, and
+    ``convert_multi_singer``; returns their checks' numbers."""
+    import threading
+    import types
+
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch import cli, serving
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
+    from svc_inference_pipeline_tpu_torch.pipeline.streaming import convert_streaming
+    from svc_inference_pipeline_tpu_torch.sampling.ddpm import INIT_NOISE_STD
+    from svc_inference_pipeline_tpu_torch.utils.audio_io import read_wav
+
+    steps = int(cfg.mapper.noise_schedule_factors[2])
+    evals = steps // 10 + 1  # PLMS@10: the warm-up step evaluates twice
+    fs, hop, silence = cfg.fs, cfg.hop_length, cfg.fs // 20
+    singers = [SINGER, "svcc_CDM1", "svcc_IDF1", "svcc_IDM1"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clips = {s: clip(fs, s) for s in (4.0, 3.0, 2.0)}
+        inputs = {s: os.path.join(tmp, f"in_{s:g}s.wav") for s in clips}
+        for s, path in inputs.items():
+            wav_bytes(path, clips[s], fs)
+        built = {}
+
+        # i. two inputs, one batch
+        def run_cli_batch():
+            outs = [os.path.join(tmp, f"batch_{k}.wav") for k in range(2)]
+            timings_path = os.path.join(tmp, "batch.json")
+            rc = cli.main(["--input", inputs[4.0], "--input", inputs[3.0], "--singer", singers[0], "--singer",
+                           singers[1], "--output", outs[0], "--output", outs[1], "--random-weights",
+                           "--whisper-size", WHISPER_SIZE, "--seed", "0", "--device", device.type,
+                           "--timings-json", timings_path], built=built)
+            if rc != 0:
+                raise AssertionError(f"cli.main returned {rc}")
+            for path, s in zip(outs, (4.0, 3.0)):
+                samples, _ = read_wav(path)
+                check_audio(f"cli batch {s:g} s", samples[silence: len(samples) - silence, 0] / 32768.0,
+                            mel_frame_count(cfg, len(clips[s])) * hop)
+            with open(timings_path) as f:
+                return json.load(f)
+
+        drive("cli batch of 2 ddpm bf16", counters, run_cli_batch, {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1},
+              paths)
+        pipe = built["pipeline"]
+
+        # j. batch independence: each clip's waveform in the batch against the clip alone
+        def run_independence():
+            pipe.set_quantize("int8-w1")
+            t0 = time.perf_counter()
+            batch, n_true = pipe.extract_features_batch([clips[4.0], 0.125 * clips[4.0]], singers[:2])
+            padded = batch["melody"].shape[1]
+            g = torch.Generator(device=device).manual_seed(0)
+            x_t = INIT_NOISE_STD * torch.randn((2, padded, cfg.mapper.n_mel), generator=g, device=device)
+            n_true = torch.tensor(n_true, device=device)
+            core = dict(sampler="plms", speedup=10)
+            both = pipe._convert_core(batch, n_true, padded, noise=x_t, **core).double().cpu().numpy()
+            out["batch_independence"] = []
+            for i in range(2):
+                alone = pipe._convert_core({k: v[i:i + 1] for k, v in batch.items()}, n_true[i:i + 1], padded,
+                                           noise=x_t[i:i + 1], **core)[0].double().cpu().numpy()
+                n = int(n_true[i]) * hop
+                corr = float(np.corrcoef(both[i, :n], alone[:n])[0, 1])
+                diff = float(np.abs(both[i] - alone).max())
+                out["batch_independence"].append({"corr": corr, "max_abs_diff": diff})
+                print(f"  clip {i} in the batch vs alone: correlation {corr:.8f} (gate {INT8_W1_MIN_CORR}), "
+                      f"max_abs_diff {diff:.3e}")
+                check_audio(f"batch independence clip {i}", both[i, :n], n)
+                if not corr >= INT8_W1_MIN_CORR:
+                    raise AssertionError(f"clip {i}: batch vs alone correlation {corr} < {INT8_W1_MIN_CORR}")
+            return {"seconds": time.perf_counter() - t0}
+
+        drive("batch independence plms@10 int8-w1", counters, run_independence,
+              {"K4": 24, "K5 int8-w1": 3 * evals, "K2": 18, "K3": 3}, paths)
+
+        # k, l. the server in this process
+        httpd = serving.serve(pipe.cfg, pipe, "127.0.0.1", 0, coalesce_ms=3000.0)
+        port = httpd.server_address[1]
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            burst = [(4.0, singers[0]), (4.0, singers[1]), (2.0, singers[2]), (2.0, singers[3])]
+            bodies = [wav_bytes(os.path.join(tmp, f"req{k}.wav"), clips[s] * (0.5 + 0.25 * k), fs)
+                      for k, (s, _) in enumerate(burst)]
+
+            def run_burst():
+                pipe.set_quantize(None)
+                t0 = time.perf_counter()
+                replies = [None] * len(burst)
+
+                def post(k):
+                    replies[k] = http_request(port, "POST", f"/convert?singer={burst[k][1]}&sampler=plms&speedup=10",
+                                              bodies[k])
+
+                posts = [threading.Thread(target=post, args=(k,)) for k in range(len(burst))]
+                for t in posts:
+                    t.start()
+                for t in posts:
+                    t.join(timeout=600)
+                seconds = time.perf_counter() - t0
+                for (s, singer), (status, _, data) in zip(burst, replies):
+                    if status != 200:
+                        raise AssertionError(f"POST /convert {s:g} s: HTTP {status} {data[:300]!r}")
+                    path = os.path.join(tmp, "reply.wav")
+                    with open(path, "wb") as f:
+                        f.write(data)
+                    samples, _ = read_wav(path)
+                    check_audio(f"server {s:g} s {singer}", samples[silence: len(samples) - silence, 0] / 32768.0,
+                                mel_frame_count(cfg, len(clips[s])) * hop)
+                status, _, data = http_request(port, "GET", "/metrics")
+                served = json.loads(data)["serving"]
+                print(f"  /metrics serving: {served}")
+                if status != 200 or (served["batches"], served["conversions"]) != (2, 4):
+                    raise AssertionError(f"the burst did not coalesce into 2 batches of 4 conversions: {served}")
+                for route in ("/healthz", "/singers"):
+                    status, _, data = http_request(port, "GET", route)
+                    if status != 200:
+                        raise AssertionError(f"GET {route}: HTTP {status}")
+                out["server"] = served
+                return {"burst_s": seconds}
+
+            drive("server burst plms@10 bf16", counters, run_burst,
+                  {"K5 bf16": 2 * evals, "K4": 48, "K2": 12, "K3": 2}, paths)
+
+            def run_stream():
+                pipe.set_quantize("int8-w1")
+                t0 = time.perf_counter()
+                status, headers, data = http_request(
+                    port, "POST", f"/convert?singer={SINGER}&sampler=plms&speedup=10&stream=1&chunk_seconds=2",
+                    wav_bytes(os.path.join(tmp, "stream.wav"), clips[4.0], fs))
+                seconds = time.perf_counter() - t0
+                if status != 200 or headers["Content-Type"] != "audio/L16":
+                    raise AssertionError(f"streamed POST /convert: HTTP {status} {data[:300]!r}")
+                # the length convert_streaming gives: a stand-in whose conversion of a
+                # segment has the real one's length, n_frames * hop
+                lengths = types.SimpleNamespace(
+                    cfg=cfg, device=torch.device("cpu"), mel_frame_count=lambda n: mel_frame_count(cfg, n),
+                    convert=lambda seg, *a, **kw: np.zeros(mel_frame_count(cfg, len(seg)) * hop, np.float32))
+                n_expected = len(convert_streaming(lengths, clips[4.0], SINGER, chunk_seconds=2.0))
+                check_audio("stream", np.frombuffer(data, "<i2") / 32768.0, n_expected)
+                return {"stream_s": seconds}
+
+            drive("server stream plms@10 int8-w1", counters, run_stream,
+                  {"K5 int8-w1": 2 * evals, "K4": 48, "K2": 12, "K3": 2}, paths)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd.svc.close(drain_s=0.0)
+            thread.join(timeout=60)
+            httpd.svc.worker.join(timeout=60)
+
+        # m. one clip to three singers in one batch
+        def run_multi():
+            pipe.set_quantize(None)
+            pipe.set_sampler("plms", 10)
+            try:
+                waves = pipe.convert_multi_singer(inputs[4.0], singers[:3],
+                                                  generator=torch.Generator(device=device).manual_seed(0))
+            finally:
+                pipe.set_sampler("ddpm")
+            n = mel_frame_count(cfg, len(clips[4.0])) * hop
+            for singer, w in zip(singers, waves):
+                check_audio(f"multi-singer {singer}", w, n)
+            diffs = [float(np.abs(waves[a] - waves[b]).max()) for a, b in ((0, 1), (0, 2), (1, 2))]
+            print(f"  multi-singer waveforms' pairwise max_abs_diff {diffs}")
+            if not min(diffs) > 0:
+                raise AssertionError(f"two singers' waveforms are equal: {diffs}")
+            out["multi_singer_diffs"] = diffs
+            return dict(pipe.timings)
+
+        drive("multi-singer x3 plms@10 bf16", counters, run_multi, {"K4": 24, "K5 bf16": evals, "K2": 6, "K3": 1},
+              paths)
+    return out
+
+
 def main_paths(cfg, device, voc) -> tuple:
     """The main paths (module docstring, step 4); returns their records and
     the checks' numbers (int8-w1 mel correlation, per-block vocoder, harness)."""
@@ -931,6 +1171,7 @@ def main_paths(cfg, device, voc) -> tuple:
     checks = {"int8_w1_mel_corr": corr,
               "vocoder_per_block": vocoder_paths(cfg, voc, counters, paths, device, clip(cfg.fs, CLIP_SECONDS)),
               "harness": harness_paths(cfg, counters, paths, device)}
+    checks.update(batch_paths(cfg, counters, paths, device))
     return paths, checks
 
 
@@ -995,7 +1236,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms",
-                                             "conv_library_ms", "stages", "kernel_device_ms", "host_issue_ms")
+                                             "conv_library_ms", "stages", "kernel_device_ms", "host_issue_ms",
+                                             "batch2_ms")
                            if k in r}})
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "

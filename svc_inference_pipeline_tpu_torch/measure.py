@@ -1,6 +1,6 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
-    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2]
+    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
@@ -10,8 +10,9 @@ line per (clip, path): the median over runs 2-3 of each phase's wall seconds
 conversion per path, the device time by kernel from ``torch.profiler`` and
 the device's busy share of the conversion. ``--steps`` times K1 steps alone
 instead (:func:`step_times`), ``--k2`` the vocoder's AMP stages
-(:func:`k2_times`). Every line names the card (``nvidia-smi`` name and power
-limit). Needs a CUDA device.
+(:func:`k2_times`), ``--batch`` warm ``convert_batch`` calls on B copies of
+the 4 s clip (:func:`batch_times`). Every line names the card (``nvidia-smi``
+name and power limit). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -99,6 +100,37 @@ def profile_conversion(pipe, wav, sampler, speedup) -> dict:
             "device_busy_ms": round(covered_ms, 3),
             "device_span_overlap_ms": round(sum(e - s for s, e in spans) / 1e3 - covered_ms, 3),
             "profiled_total_ms": round(wall_ms, 3), "device_busy_share": round(covered_ms / wall_ms, 4)}
+
+
+BATCH_SIZES = (1, 2, 4, 8)
+# (sampler, speedup, int8 mode) of every path --batch measures
+BATCH_PATHS = (("ddpm", 1, None), ("ddpm", 1, "int8-w1"), ("plms", 10, None))
+
+
+def batch_times(pipe, gpu: str) -> None:
+    """``--batch``: ``convert_batch`` on B copies of the 4 s clip (one singer),
+    B in BATCH_SIZES, on each of BATCH_PATHS, three times: one JSON line per
+    (path, B) with the median over runs 2-3 of each phase's wall seconds,
+    seconds per clip and the peak device memory of the three runs."""
+    import torch
+
+    wav = synth_clip(pipe.cfg.fs, CLIP_SECONDS[0])
+    for sampler, speedup, quantize in BATCH_PATHS:
+        pipe.set_quantize(quantize)
+        for b in BATCH_SIZES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(RUNS):
+                t0 = time.perf_counter()
+                pipe.convert_batch([wav] * b, ["svcc_CDF1"] * b, sampler=sampler, speedup=speedup,
+                                   generator=torch.Generator(device=pipe.device).manual_seed(0))
+                runs.append(dict(pipe.timings, wall_s=time.perf_counter() - t0))
+            med = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
+            print(json.dumps({"card": gpu, "clip_s": CLIP_SECONDS[0], "path": path_name(sampler, speedup, quantize, 0),
+                              "batch": b, **med, "s_per_clip": med["total_s"] / b,
+                              "rtf_per_clip": med["total_s"] / (b * CLIP_SECONDS[0]),
+                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
 
 
 def step_times(cfg, gpu: str) -> None:
@@ -243,6 +275,7 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true")
     p.add_argument("--steps", action="store_true")
     p.add_argument("--k2", action="store_true")
+    p.add_argument("--batch", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -266,6 +299,9 @@ def main(argv=None) -> int:
     for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):
         cfg[key] = os.path.join(root, cfg[key].lstrip("./"))
     pipe = SVCPipeline.from_config(cfg, random_weights=True, whisper_size="medium", seed=0)
+    if args.batch:
+        batch_times(pipe, gpu)
+        return 0
     for seconds in CLIP_SECONDS:
         wav = synth_clip(cfg.fs, seconds)
         for sampler, speedup, quantize, tail in PATHS:

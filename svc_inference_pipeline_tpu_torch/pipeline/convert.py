@@ -1,18 +1,23 @@
 """End-to-end singing voice conversion: wav in -> converted wav out.
 
-Counterpart of ``svc_inference_pipeline_tpu/pipeline/convert.py`` for single
-clips:
+Counterpart of ``svc_inference_pipeline_tpu/pipeline/convert.py``:
 
     pipe = SVCPipeline.from_config(cfg, random_weights=True)   # on the GPU
     wav  = pipe.convert("clip.wav", "svcc_CDF1")
     wav  = pipe.convert("clip.wav", "svcc_CDF1", sampler="plms", speedup=10)
+    wavs = pipe.convert_batch(["a.wav", "b.wav"], ["svcc_CDF1", "svcc_CDM1"])
+    wavs = pipe.convert_multi_singer("clip.wav", ["svcc_CDF1", "svcc_CDM1"])
+    for chunk in pipe.convert_streaming("long.wav", "svcc_CDF1"): ...
 
 Stages: load -> [host thread: Praat F0 + median shift to the target singer]
 overlapping [device: mel energy, 24->16 kHz resample, Whisper log-mel and
 encoder (30 s windows), 480->256 hop remap] -> condition encoder -> the
 sampler -> mel denormalisation -> BigVGAN (K2 per stage, K3 for the last
 activation) -> fade-out and trim at the true length. Frame counts are padded
-to a bucket multiple, as in the JAX pipeline.
+to a multiple of ``bucket`` frames, as in the JAX pipeline. A batch pads every
+clip to the longest one's bucket, stacks their Whisper windows into one
+encode and masks each clip's features past its true length; every kernel
+runs once per call for the whole batch.
 
 Samplers (``cfg.mapper.sampler``, ``plms_speedup``, or per call): "ddpm"
 runs one K1 launch per reverse step; "plms", "ddim" and "dpmpp" evaluate the
@@ -20,16 +25,16 @@ denoiser through K5. ``cfg.denoiser_quantize`` "int8" or "int8-w1" runs
 the denoiser's int8 form (K6) on either; ``denoiser_quantize_tail`` runs
 the last K DDPM steps on the unquantised stack.
 
-``self.timings`` holds the wall seconds of the last conversion's phases,
-each closed by a device synchronisation; ``ddpm_s`` is the diffusion
-sampling phase, whichever sampler ran it.
+``self.timings`` holds the wall seconds of the last conversion's phases
+(front-end, sampling ``ddpm_s`` whichever sampler ran it, vocoder, total),
+each closed by a device synchronisation.
 """
 
 from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,7 +58,7 @@ from svc_inference_pipeline_tpu_torch.sampling.dpmpp import dpmpp_sample
 from svc_inference_pipeline_tpu_torch.sampling.plms import plms_sample
 from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 from svc_inference_pipeline_tpu_torch.utils.artifacts import load_mel_min_max, pitch_shift
-from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio
+from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio, save_audio
 from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
 from svc_inference_pipeline_tpu_torch.utils.registry import get_singer_id
 
@@ -85,8 +90,11 @@ class SVCPipeline:
 
     def __init__(self, cfg: HParams, cond_encoder: ConditionEncoder, denoiser: DiffSVCDenoiser,
                  vocoder: BigVGANGenerator, whisper: WhisperPPGExtractor,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device], bucket: int = DEFAULT_BUCKET):
+        if int(bucket) < 1:
+            raise ValueError(f"bucket must be >= 1 frame, got {bucket}")
         self.cfg = cfg
+        self.bucket = int(bucket)
         self.device = torch.device(device)
         self.compute_dtype = cd = compute_dtype(cfg)
         # cast policy of the JAX pipeline: the denoiser is stored entirely at
@@ -129,7 +137,8 @@ class SVCPipeline:
 
     @classmethod
     def from_config(cls, cfg: HParams, random_weights: bool = False, whisper_size: str = "tiny",
-                    seed: int = 0, device: Optional[str] = None) -> "SVCPipeline":
+                    seed: int = 0, device: Optional[str] = None,
+                    bucket: int = DEFAULT_BUCKET) -> "SVCPipeline":
         """Build with random weights drawn from one ``torch.Generator``
         seeded with ``seed`` (checkpoint loading is not ported yet)."""
         if not random_weights:
@@ -145,11 +154,12 @@ class SVCPipeline:
             models = cls._models(cfg, cd)
         for m in models:
             random_init_(m, g)
-        return cls(cfg, *models, whisper, dev)
+        return cls(cfg, *models, whisper, dev, bucket)
 
     @classmethod
     def from_jax_params(cls, cfg: HParams, cond_params, den_params, voc_params,
-                        whisper_dims: WhisperDims, whisper_params, device=None) -> "SVCPipeline":
+                        whisper_dims: WhisperDims, whisper_params, device=None,
+                        bucket: int = DEFAULT_BUCKET) -> "SVCPipeline":
         """Build from JAX parameter trees (numpy), through the weights bridge,
         on ``device`` (None: the GPU, see ``resolve_device``)."""
         device = resolve_device(device)
@@ -159,17 +169,34 @@ class SVCPipeline:
         cond, den, voc = cls._models(cfg, cd)
         for m, p in ((cond, cond_params), (den, den_params), (voc, voc_params)):
             load_jax_params(m, p)
-        return cls(cfg, cond, den, voc, whisper, device)
+        return cls(cfg, cond, den, voc, whisper, device, bucket)
 
     # ------------------------------------------------------------------
     # Front-end
     # ------------------------------------------------------------------
 
+    def mel_frame_count(self, n_samples: int) -> int:
+        """Frame count of the mel front-end for ``n_samples`` samples."""
+        return mel_frame_count(self.cfg, n_samples)
+
+    def _frame_counts(self, n_samples: int) -> Tuple[int, int]:
+        """(true frame count, Whisper 30 s windows) of a clip: the content is
+        encoded window by window, and frames past the windows' span are cut."""
+        len16 = _out_len(n_samples, 2, 3)  # 24 kHz -> 16 kHz length
+        n_windows = max(1, -(-len16 // N_SAMPLES))
+        return min(self.mel_frame_count(n_samples), n_windows * 1500 * 15 // 8), n_windows
+
+    def _load(self, wav: Union[str, np.ndarray]) -> np.ndarray:
+        return load_audio(wav, self.cfg.fs)[0] if isinstance(wav, str) else np.asarray(wav, np.float32)
+
     @torch.no_grad()
     def _frontend_device(self, audio24: torch.Tensor, n_windows: int, n_frames: int,
                          padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mel energy + resample + Whisper log-mel + encoder (30 s windows)
-        + hop remap + bucket padding, on the device."""
+        + hop remap + bucket padding, on the device. An int16 waveform (the
+        PCM16 upload) is scaled by 1/32768 there."""
+        if audio24.dtype == torch.int16:
+            audio24 = audio24.float() * (1.0 / 32768.0)
         _, energy = extract_mel_features(audio24, self.cfg)
         audio16 = _resample_conv(audio24, self.cfg.fs, 16000, "kaiser_best")
         audio16 = F.pad(audio16, (0, n_windows * N_SAMPLES - audio16.shape[-1]))
@@ -181,26 +208,52 @@ class SVCPipeline:
         content = F.pad(content, (0, 0, 0, padded - n_frames))
         return energy[None], content[None]
 
-    def extract_features(self, wav: Union[str, np.ndarray], singer_name: str):
+    @torch.no_grad()
+    def _frontend_device_batch(self, audios24: torch.Tensor, n_true: torch.Tensor, n_windows: int,
+                               padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched device front-end of B zero-padded clips [B, L]: their
+        Whisper windows stack into one [B * W, 80, 3000] encode; features past
+        each clip's true length (``n_true`` [B]) are 0. Loudness of a shorter
+        clip's last frames sees the batch's zero padding instead of its
+        reflect padding, as in the JAX batch."""
+        b = audios24.shape[0]
+        _, energy = extract_mel_features(audios24, self.cfg)  # [B, T]
+        audio16 = _resample_conv(audios24, self.cfg.fs, 16000, "kaiser_best")
+        audio16 = F.pad(audio16, (0, n_windows * N_SAMPLES - audio16.shape[-1]))
+        wmel = log_mel_spectrogram(audio16.reshape(b * n_windows, N_SAMPLES))
+        feats = self.whisper.embed_audio(wmel)
+        content = remap_features_device(feats.reshape(b, -1, feats.shape[-1]).float(), padded)
+        mask = torch.arange(padded, device=audios24.device)[None, :] < n_true[:, None]
+        energy = F.pad(energy[:, :padded], (0, max(0, padded - energy.shape[-1])))
+        return torch.where(mask, energy, 0.0), torch.where(mask[..., None], content, 0.0)
+
+    def extract_features(self, wav: Union[str, np.ndarray], singer_name: str,
+                         upload_pcm16: bool = False, pitch_factor: Optional[float] = None):
         """(batch dict padded to the bucket, true frame count). F0 runs on a
-        host thread while the device computes the Whisper chain."""
+        host thread while the device computes the Whisper chain.
+        ``upload_pcm16`` sends the waveform to the device as int16 (the host
+        F0 still sees the float signal); ``pitch_factor`` replaces the median
+        pitch shift with a fixed multiplier (streaming pins it per stream)."""
         cfg = self.cfg
-        audio = load_audio(wav, cfg.fs)[0] if isinstance(wav, str) else np.asarray(wav, np.float32)
-        len16 = _out_len(len(audio), 2, 3)  # 24 kHz -> 16 kHz length
-        n_windows = max(1, -(-len16 // N_SAMPLES))
-        n_frames = min(mel_frame_count(cfg, len(audio)), n_windows * 1500 * 15 // 8)
-        padded = pad_to_bucket(n_frames)
+        audio = self._load(wav)
+        singer = get_singer_id(cfg, singer_name)
+        n_frames, n_windows = self._frame_counts(len(audio))
+        padded = pad_to_bucket(n_frames, self.bucket)
 
         def f0_job():
             f0, _ = get_f0_features(audio, n_frames, cfg)
-            return np.pad(pitch_shift(f0, cfg)[:n_frames], (0, padded - n_frames)).astype(np.float32)
+            f0 = f0 * pitch_factor if pitch_factor is not None else pitch_shift(f0, cfg)
+            return np.pad(f0[:n_frames], (0, padded - n_frames)).astype(np.float32)
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             f0_future = pool.submit(f0_job)
-            audio_dev = torch.as_tensor(audio, device=self.device)
-            energy, content = self._frontend_device(audio_dev, n_windows, n_frames, padded)
+            if upload_pcm16 and audio.dtype == np.float32:
+                dev_audio = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+            else:
+                dev_audio = audio
+            energy, content = self._frontend_device(torch.as_tensor(dev_audio, device=self.device),
+                                                    n_windows, n_frames, padded)
             f0 = f0_future.result()
-        singer = get_singer_id(cfg, singer_name)
         batch = {
             "content_whisper": content,
             "melody": torch.as_tensor(f0, device=self.device)[None],
@@ -208,6 +261,47 @@ class SVCPipeline:
             "singer": torch.as_tensor(singer[None].astype(np.int64), device=self.device),
         }
         return batch, n_frames
+
+    def extract_features_batch(self, wavs: Sequence[Union[str, np.ndarray]],
+                               singer_names: Sequence[str]) -> Tuple[Dict[str, torch.Tensor], List[int]]:
+        """Batched front-end: (batch dict [B, padded, ...], true frame
+        counts). One device pass for the whole batch, overlapped with the
+        per-clip host F0 on a worker thread."""
+        cfg = self.cfg
+        if len(wavs) != len(singer_names) or not wavs:
+            raise ValueError(f"need one singer per clip and at least one clip: {len(wavs)} clips, "
+                             f"{len(singer_names)} singers")
+        singer_ids = np.concatenate([get_singer_id(cfg, s) for s in singer_names]).astype(np.int64)[:, None]
+        audios = [self._load(w) for w in wavs]
+        frame_counts, window_counts = zip(*(self._frame_counts(len(a)) for a in audios))
+        frame_counts = list(frame_counts)
+        padded = pad_to_bucket(max(frame_counts), self.bucket)
+        # enough windows that the remap's source span covers `padded`
+        n_windows = max(max(window_counts), -(-(padded * 8 // 15 + 1) // 1500))
+        block = np.zeros((len(audios), max(len(a) for a in audios)), np.float32)
+        for i, a in enumerate(audios):
+            block[i, : len(a)] = a
+
+        def f0_job():
+            f0s = np.zeros((len(audios), padded), np.float32)
+            for i, (a, n) in enumerate(zip(audios, frame_counts)):
+                f0, _ = get_f0_features(a, n, cfg)
+                f0s[i, :n] = pitch_shift(f0, cfg)[:n]
+            return f0s
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            f0_future = pool.submit(f0_job)
+            energy, content = self._frontend_device_batch(
+                torch.as_tensor(block, device=self.device),
+                torch.tensor(frame_counts, device=self.device), n_windows, padded)
+            f0s = f0_future.result()
+        batch = {
+            "content_whisper": content,
+            "melody": torch.as_tensor(f0s, device=self.device),
+            "loudness": energy,
+            "singer": torch.as_tensor(singer_ids, device=self.device),
+        }
+        return batch, frame_counts
 
     # ------------------------------------------------------------------
     # Core: cond encode -> sampler -> denorm -> vocode -> finalize
@@ -266,8 +360,10 @@ class SVCPipeline:
     @torch.no_grad()
     def _convert_core(self, batch: Dict[str, torch.Tensor], n_true: torch.Tensor, n_frames: int,
                       generator: Optional[torch.Generator] = None, noise=None,
-                      sampler: Optional[str] = None, speedup: Optional[int] = None) -> torch.Tensor:
-        """Waveform [B, n_frames * hop] (f32) of a padded feature batch.
+                      sampler: Optional[str] = None, speedup: Optional[int] = None,
+                      pcm16: bool = False) -> torch.Tensor:
+        """Waveform [B, n_frames * hop] of a padded feature batch: f32, or
+        with ``pcm16`` peak-normalised int16 finalised on the device.
         ``noise`` injects the sampler's draws: (x_T, z [steps, B, T, M]) for
         DDPM and DDIM, x_T for PLMS and DPM++ (x_T scaled by INIT_NOISE_STD)."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
@@ -283,24 +379,79 @@ class SVCPipeline:
         mel = (mel_norm + 1.0) / 2.0 * (hi - lo + 1e-12) + lo
         wave = self.vocoder(mel)
         hop = self.cfg.hop_length
-        wave = vocoder_output_finalize(wave[..., : n_frames * hop], n_true, hop)
+        wave = vocoder_output_finalize(wave[..., : n_frames * hop], n_true, hop, pcm16=pcm16)
         _sync(self.device)
         self.timings.update(ddpm_s=t1 - t0, vocoder_s=time.perf_counter() - t1)
         return wave
 
     def convert(self, wav: Union[str, np.ndarray], singer_name: str,
                 generator: Optional[torch.Generator] = None, sampler: Optional[str] = None,
-                speedup: Optional[int] = None) -> np.ndarray:
+                speedup: Optional[int] = None, output_path: Optional[str] = None, pcm16: bool = False,
+                upload_pcm16: bool = False, pitch_factor: Optional[float] = None) -> np.ndarray:
         """Convert one utterance to the target singer -> waveform at cfg.fs.
-        ``sampler``/``speedup`` override the pipeline defaults for this call."""
+        ``sampler``/``speedup`` override the pipeline defaults for this call.
+        ``pcm16`` finalises on the device (peak 0.9, int16) and returns int16;
+        ``upload_pcm16`` and ``pitch_factor`` as in :meth:`extract_features`;
+        ``output_path`` also writes the WAV."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
         t0 = time.perf_counter()
-        batch, n_frames = self.extract_features(wav, singer_name)
+        batch, n_frames = self.extract_features(wav, singer_name, upload_pcm16, pitch_factor)
         _sync(self.device)
         self.timings = {"frontend_s": time.perf_counter() - t0}
         padded = batch["melody"].shape[1]
         n_true = torch.tensor([n_frames], device=self.device)
-        wave = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup)
+        wave = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup, pcm16=pcm16)
         audio = wave[0, : n_frames * self.cfg.hop_length].cpu().numpy().copy()
         self.timings["total_s"] = time.perf_counter() - t0
+        if output_path is not None:
+            save_audio(output_path, audio, self.cfg.fs, turn_up=not pcm16)
         return audio
+
+    def convert_batch(self, wavs: Sequence[Union[str, np.ndarray]], singer_names: Sequence[str],
+                      generator: Optional[torch.Generator] = None, sampler: Optional[str] = None,
+                      speedup: Optional[int] = None) -> List[np.ndarray]:
+        """Convert several utterances (each to its own singer) in one device
+        batch padded to the longest one's bucket -> one waveform per clip,
+        each of its own true length. ``sampler``/``speedup`` as in
+        :meth:`convert`."""
+        sampler, speedup = self._resolve_sampler(sampler, speedup)
+        t0 = time.perf_counter()
+        batch, frame_counts = self.extract_features_batch(wavs, singer_names)
+        _sync(self.device)
+        self.timings = {"frontend_s": time.perf_counter() - t0}
+        n_true = torch.tensor(frame_counts, device=self.device)
+        waves = self._convert_core(batch, n_true, batch["melody"].shape[1], generator, sampler=sampler,
+                                   speedup=speedup).cpu().numpy()
+        self.timings["total_s"] = time.perf_counter() - t0
+        return [waves[i, : n * self.cfg.hop_length].copy() for i, n in enumerate(frame_counts)]
+
+    def convert_multi_singer(self, wav: Union[str, np.ndarray], singer_names: Sequence[str],
+                             generator: Optional[torch.Generator] = None) -> List[np.ndarray]:
+        """One utterance -> one waveform per target singer: the features are
+        extracted once and tiled over the singers into one batch (the
+        pipeline's default sampler)."""
+        t0 = time.perf_counter()
+        ids = np.concatenate([get_singer_id(self.cfg, s) for s in singer_names]).astype(np.int64)[:, None]
+        batch, n_frames = self.extract_features(wav, singer_names[0])
+        _sync(self.device)
+        self.timings = {"frontend_s": time.perf_counter() - t0}
+        b = len(singer_names)
+        tiled = {k: v.expand(b, *v.shape[1:]).contiguous() for k, v in batch.items()}
+        tiled["singer"] = torch.as_tensor(ids, device=self.device)
+        n_true = torch.full((b,), n_frames, device=self.device)
+        waves = self._convert_core(tiled, n_true, batch["melody"].shape[1], generator).cpu().numpy()
+        self.timings["total_s"] = time.perf_counter() - t0
+        return [waves[i, : n_frames * self.cfg.hop_length].copy() for i in range(b)]
+
+    def convert_streaming(self, wav: Union[str, np.ndarray], singer_name: str, chunk_seconds: float = 10.0,
+                          context_seconds: float = 1.0, generator: Optional[torch.Generator] = None,
+                          upload_pcm16: bool = False, sampler: Optional[str] = None,
+                          speedup: Optional[int] = None):
+        """Generator of converted chunks (``pipeline/streaming.py``): bounded
+        time to first audio and O(chunk) memory for any input length, equal-
+        power crossfades at the seams, every chunk padded to one bucket."""
+        from svc_inference_pipeline_tpu_torch.pipeline.streaming import stream_convert
+
+        return stream_convert(self, wav, singer_name, chunk_seconds=chunk_seconds,
+                              context_seconds=context_seconds, generator=generator,
+                              upload_pcm16=upload_pcm16, sampler=sampler, speedup=speedup)

@@ -9,16 +9,21 @@ has only PyTorch:
 """
 
 import math
+import os
 
+import numpy as np
 import pytest
 import torch
 
-from svc_inference_pipeline_tpu_torch.config import HParams
+from svc_inference_pipeline_tpu_torch.config import HParams, load_config
+from svc_inference_pipeline_tpu_torch.measure import synth_clip
 from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
 from svc_inference_pipeline_tpu_torch.ops.pallas import (
     _build, amp_pair, amp_stage, attention, denoiser_step, denoiser_v2, snake)
+from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline, mel_frame_count
 
 pytestmark = pytest.mark.cuda
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BF = torch.bfloat16
 KS = (3, 7, 11)
@@ -87,14 +92,16 @@ def test_k1_ddpm_step(dev, b, t_len, c, layers):
             assert torch.all(got[..., 100:] == 0)
 
 
-def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=False):
+def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=False, n_true=None):
     """A random denoiser stacked for the kernels (bf16, or int8 with
     ``quantize``), its conditioner and step rows, and x [b, t_len, 100] f32
     whose element i is scaled by 8^i, so that a second element's int8 scale
     is ~8x the first's. Weights are N(0, 1/n) with n the last axis; with
     ``conv_fan_in`` the dilated convs' n is their fan-in 3C, as the random
     init draws them (with n = 3 a deep stack is chaotic: bf16 rounding
-    differences double from layer to layer)."""
+    differences double from layer to layer). With ``n_true`` the condition
+    of element i is 0 past its n_true[i] frames, as a batch's masked
+    features leave it."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
                   diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
@@ -105,7 +112,10 @@ def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=F
             n = p.shape[1] * p.shape[2] if conv_fan_in and p.dim() == 3 else p.shape[-1]
             p.copy_(torch.randn(p.shape, generator=g, device=dev) / (n ** 0.5 if p.dim() > 1 else 10))
         den = den.to(BF)
-        cp, rows = den.precompute(torch.randn((b, t_len, c), generator=g, device=dev), 10, BF)
+        cond = torch.randn((b, t_len, c), generator=g, device=dev)
+        for i, n in enumerate(n_true or ()):
+            cond[i, n:] = 0.0
+        cp, rows = den.precompute(cond, 10, BF)
         st = denoiser_step.stack_denoiser_params(den, BF, quantize)
         condb = denoiser_step.fold_conditioner(den, cp, BF)
     scale = (8.0 ** torch.arange(b, device=dev)).view(b, 1, 1)
@@ -242,6 +252,33 @@ def test_k1_k5_tiles_and_halos_at_clip_boundaries(dev, t_len, c):
         assert torch.equal(got[i:i + 1], denoiser_step.ddpm_step(st, *one, xp[i:i + 1].contiguous(),
                                                                   z[i:i + 1].contiguous(), srow))
     assert torch.all(got[..., 100:] == 0)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8-w1", "int8"])
+def test_k1_k5_k6_batch_of_masked_clips(dev, quantize):
+    """B = 4 clips padded to T = 384 whose true lengths are 384, 200, 97 and
+    1 frames (their conditions 0 past them, as ``convert_batch`` masks the
+    features), C = 384: eps (K5, or K6 on an int8 stack, whose per-clip
+    scales then see the masked frames) and, for bf16, K1 per clip against
+    the plain version, and each clip's result equal to that clip alone."""
+    st, condb, rows, x, g = _denoiser_operands(dev, 4, 384, 384, 5, quantize, conv_fan_in=True,
+                                               n_true=(384, 200, 97, 1))
+    tol = (lambda m: 1e-2 * m) if quantize is None else (lambda m, q=quantize: INT8_TOL[q] * m)
+    eps = denoiser_step.denoise(st, condb, rows[3], x)
+    ref = denoiser_step.denoise_plain(st, condb, rows[3], x)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
+    srow = (0.0, -1 / 16, 16.0, 0.5, 0.5)
+    step = denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow) if quantize is None else None
+    for i in range(4):
+        _close(eps, ref, tol=tol, view=lambda y, i=i: y[i])
+        one = (condb[:, i:i + 1].contiguous(), rows[3])
+        assert torch.equal(eps[i:i + 1], denoiser_step.denoise(st, *one, x[i:i + 1].contiguous()))
+        if step is not None:
+            _close(step, denoiser_step.ddpm_step_plain(st, condb, rows[3], xp, z, srow), tol=tol,
+                   view=lambda y, i=i: (y - 0.5 * xp - 0.5 * z)[i])
+            assert torch.equal(step[i:i + 1], denoiser_step.ddpm_step(st, *one, xp[i:i + 1].contiguous(),
+                                                                       z[i:i + 1].contiguous(), srow))
 
 
 # chip_smoke.py's limits for the int8 forms, per mode (a tie of a quantiser
@@ -398,6 +435,69 @@ def test_k3_activation_into_the_conv_buffer(dev, dtype, b, t_len, c, halo):
     ref[:, halo:halo + t_len] = snake.activation1d_plain(x, a_eff, inv_b).to(BF)
     assert torch.all(buf[:, :halo] == 0) and torch.all(buf[:, halo + t_len:] == 0)
     _close(buf, ref)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
+@pytest.mark.parametrize("b", [2, 3])
+def test_batches_against_plain_and_each_clip_alone(dev, kernel, b):
+    """K2 (one stage, C = 96), K3 and K4 (a Whisper-medium layer's 16 heads)
+    on B = 2 and 3 clips of an odd T, clip i scaled by 4^i: against the
+    plain version, and each clip's rows equal to the kernel's on that clip
+    alone (tiles never straddle clips)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    scale = (4.0 ** torch.arange(b, device=dev)).view(b, 1, 1)
+    if kernel == "K4":
+        operands = tuple((scale.sqrt() * torch.randn((b, 301, 1024), generator=g, device=dev)).to(BF)
+                         for _ in range(3))
+
+        def run(q, k, v):
+            return attention.encoder_attention(q, k, v, 16)
+
+        plain = attention.encoder_attention_plain(*operands, 16)
+    elif kernel == "K2":
+        params = _stage_params(96, g, dev)
+        operands = ((0.5 * scale * torch.randn((b, 1001, 96), generator=g, device=dev)).to(BF),)
+
+        def run(x):
+            return amp_stage.fused_amp_stage(x, params, KS, DILS)
+
+        plain = amp_stage.amp_stage_plain(*operands, params, KS, DILS)
+    else:
+        alpha, beta = (0.3 * torch.randn(24, generator=g, device=dev) for _ in range(2))
+        operands = ((scale * torch.randn((b, 3001, 24), generator=g, device=dev)).to(BF),)
+
+        def run(x):
+            return snake.fused_activation1d(x, alpha, beta)
+
+        plain = snake.activation1d_plain(*operands, *snake.effective_params(alpha, beta))
+    got = run(*operands)
+    for i in range(b):
+        _close(got, plain, view=lambda y, i=i: y[i])
+        assert torch.equal(got[i:i + 1], run(*(t[i:i + 1].contiguous() for t in operands)))
+
+
+def test_convert_batch_at_a_bucket_of_100_frames(dev):
+    """A bucket that is not a multiple of 64 (``--bucket 100``): every kernel
+    takes T = 100 (K1-K6 tile each clip's rows and mask its last tile, K2 and
+    K3 take any T, K4 always sees Whisper's 1500 frames), so convert_batch
+    runs. A narrow config: Whisper-tiny, DiffSVC 2 x 128, BigVGAN 512 (24
+    channels after the six stages, a multiple of K2's 8)."""
+    d = load_config(os.path.join(REPO, "config", "config.json")).to_dict()
+    for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):
+        d[key] = os.path.join(REPO, d[key].lstrip("./"))
+    d["mapper"].update(residual_layer_num=2, residual_channels=128)
+    d["vocoder"]["upsample_initial_channel"] = 512
+    pipe = SVCPipeline.from_config(HParams(**d), random_weights=True, device="cuda", bucket=100)
+    clips = [synth_clip(24000, 1.0), 0.5 * synth_clip(24000, 0.6)]
+    wrappers = (denoiser_step.denoise, attention.encoder_attention, amp_stage.fused_amp_stage,
+                snake.fused_activation1d)
+    before = [w.launches for w in wrappers]
+    waves = pipe.convert_batch(clips, ["svcc_CDF1", "svcc_CDM1"], sampler="plms", speedup=100)
+    # PLMS over 1000 steps at stride 100: 11 evaluations; Whisper-tiny's 4 layers; 6 stages; 1 activation
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [11, 4, 6, 1]
+    for w, c in zip(waves, clips):
+        assert w.shape == (mel_frame_count(pipe.cfg, len(c)) * 256,) and np.isfinite(w).all()
+        assert np.abs(w).max() > 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
