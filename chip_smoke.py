@@ -58,6 +58,25 @@
       int8-w1 x 202, K4 x 48, K2 x 12, K3 x 2);
    m. ``convert_multi_singer`` to three singers, PLMS@10 bf16 (K4 x 24, K5 x
       101 at B = 3, K2 x 6, K3 x 1);
+   n. the CLI from checkpoint files and a FLAC clip, DDPM-1000 bf16 (K1 x 1000,
+      K4 x 24, K2 x 6, K3 x 1): a seeded random pipeline at full width is
+      written in the reference's file layouts (mapper ``state_dict`` behind
+      DDP prefixes; BigVGAN ``generator_state_dict`` with every conv a
+      weight-norm pair in both key styles; Whisper-medium fp16
+      ``{"dims", "model_state_dict"}``, its text decoder cut to 2 layers) by
+      this script's exporter, and the 4 s clip as 16-bit FLAC; the loaded
+      parameters must equal the files' (the folds within one f32 ulp of
+      g v / |v| in float64 on the card; ``torch._weight_norm``'s distance in
+      float64 is printed beside it), the content features and final mel
+      must equal, bit for bit, those of a pipeline holding the same weights
+      directly, and the waveforms correlate >= 0.9999; the native codec's
+      library must be loaded from ``build/native/``; prints the load seconds
+      and the first and second conversion's wall time;
+   o. ``eval --golden`` from the same files on the FLAC clip, scored against
+      path n's WAV (K1 x 1000, K4 x 24, K2 x 6, K3 x 1): finite mel MAE, MCD,
+      SNR and RTF, and an F0 RMSE that is finite or, where no frame is voiced
+      in both waveforms (random weights give unvoiced noise), NaN as the
+      metric defines it;
 5. prints the card again, the kernels' JSON line (``launches`` summed over
    the paths; K6 counts K1's and K5's int8 launches), then the result line.
 
@@ -85,6 +104,10 @@ TPU_KERNELS = "svc_inference_pipeline_tpu/ops/pallas"
 HARNESS_FRAMES = 944  # the TPU harness's clip (perf_kernel3.main)
 HARNESS_STEPS = 100
 VOCODER_MIN_CORR = 0.97  # per-block vs K2 waveform (the repo's bf16 tolerance, tests/test_bf16_drift.py)
+# path n: the waveform from the files against the same weights held directly
+# (the vocoder's g v / |v| in float64 on the card); only the folded vocoder
+# weights may differ, by an f32 ulp before their bf16 cast
+FILES_MIN_CORR = 0.9999
 
 # Published peaks of one H100 SXM (dense): tensor-core bf16 and int8, f32
 # outside the tensor cores, HBM bandwidth. bound_ms is the largest of bytes /
@@ -1082,6 +1105,448 @@ def batch_paths(cfg, counters, paths, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Reference-layout checkpoint files (test code: the inverse of
+# checkpoints/torch_convert.py, used by paths n and o and by the CPU tests)
+# ---------------------------------------------------------------------------
+
+WN_NEW_STYLE = ("parametrizations.weight.original0", "parametrizations.weight.original1")
+WN_OLD_STYLE = ("weight_g", "weight_v")
+
+
+def module_tree(module) -> dict:
+    """A port module's parameters as a JAX-layout numpy tree (f32): the
+    inverse of the weights bridge, ``checkpoints/from_jax.py``."""
+    from torch import nn
+
+    tree = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        sub = module.get_submodule(".".join(path))
+        v = p.detach().float().cpu().numpy()
+        if leaf == "weight":
+            if isinstance(sub, nn.Linear):
+                leaf, v = "kernel", v.T
+            elif isinstance(sub, (nn.Conv1d, nn.ConvTranspose1d)):
+                leaf, v = "kernel", v.transpose(2, 1, 0)
+            elif isinstance(sub, nn.Embedding):
+                leaf = "embedding"
+            elif isinstance(sub, nn.LayerNorm):
+                leaf = "scale"
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def _tensors(sd: dict, prefix: str = "", dtype=None) -> dict:
+    import numpy as np
+    import torch
+
+    out = {}
+    for k, v in sd.items():
+        t = torch.from_numpy(np.array(v))
+        out[prefix + k] = t.to(dtype) if dtype is not None else t
+    return out
+
+
+def _put_linear(sd: dict, prefix: str, p: dict, conv1x1: bool = False) -> None:
+    w = p["kernel"].T
+    sd[f"{prefix}.weight"] = w[:, :, None] if conv1x1 else w
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = p["bias"]
+
+
+def mapper_checkpoint(enc: dict, den: dict) -> dict:
+    """{"state_dict"} of the reference's ModuleList[EncoderFramework, DiffSVC],
+    every key behind a DataParallel ``module.`` prefix."""
+    sd = {}
+    for name, p in enc.items():
+        key = f"0.registered_modules_dict.{name}.nn"
+        if "kernel" in p:
+            _put_linear(sd, key, p)
+        else:
+            sd[f"{key}.weight"] = p["embedding"]
+    _put_linear(sd, "1.mel_preprocess.projection", den["mel_preprocess"], conv1x1=True)
+    for k in ("projection1", "projection2"):
+        _put_linear(sd, f"1.diffusion_embedding.{k}", den["diffusion_embedding"][k])
+    _put_linear(sd, "1.skip_projection", den["skip_projection"], conv1x1=True)
+    _put_linear(sd, "1.output_projection", den["output_projection"], conv1x1=True)
+    for name, p in den.items():
+        if name.startswith("residual_"):
+            base = f"1.residual_layers.{name.split('_')[1]}"
+            _put_linear(sd, f"{base}.diffusion_projection", p["diffusion_projection"])
+            sd[f"{base}.dilated_conv.weight"] = p["dilated_conv"]["kernel"].transpose(2, 1, 0)
+            sd[f"{base}.dilated_conv.bias"] = p["dilated_conv"]["bias"]
+            _put_linear(sd, f"{base}.conditioner_projection", p["conditioner_projection"], conv1x1=True)
+            _put_linear(sd, f"{base}.output_projection", p["output_projection"], conv1x1=True)
+    return {"state_dict": _tensors(sd, "module.")}
+
+
+def vocoder_checkpoint(tree: dict, vcfg, rng) -> dict:
+    """{"generator_state_dict"} of the reference's BigVGAN Generator, every
+    conv as a weight-norm pair at dim 0 (g [Cout,1,1]; the ``ups`` transposed
+    convs g [Cin,1,1]): v is the weight scaled by a random factor in [0.5, 2]
+    per slice of dim 0 and g the weight's norm over the other dims, so that
+    g v / |v| is the weight again to within float rounding. The convs take
+    the old ``weight_g``/``weight_v`` keys and the newer
+    ``parametrizations.weight.original0/1`` keys in turn."""
+    import numpy as np
+
+    sd = {}
+    n_conv = [0]
+
+    def put_wn(prefix, w, bias):  # w in torch layout, weight norm over dim 0
+        g = np.sqrt(np.sum(np.asarray(w, np.float64) ** 2, axis=(1, 2), keepdims=True))
+        scale = rng.uniform(0.5, 2.0, (w.shape[0], 1, 1))
+        gk, vk = (WN_OLD_STYLE, WN_NEW_STYLE)[n_conv[0] % 2]
+        n_conv[0] += 1
+        sd[f"{prefix}.{gk}"] = g.astype(np.float32)
+        sd[f"{prefix}.{vk}"] = (w * scale).astype(np.float32)
+        sd[f"{prefix}.bias"] = bias
+
+    def conv(prefix, p):
+        put_wn(prefix, p["kernel"].transpose(2, 1, 0), p["bias"])
+
+    def act(prefix, p):
+        for k, v in p.items():
+            sd[f"{prefix}.act.{k}"] = v
+
+    nk = len(vcfg.resblock_kernel_sizes)
+    conv("conv_pre", tree["conv_pre"]["conv"])
+    for i in range(len(vcfg.upsample_rates)):
+        conv(f"ups.{i}.0", tree[f"up_{i}"])  # [K,Cout,Cin] -> [Cin,Cout,K]
+        for j in range(nk):
+            base, block = f"resblocks.{i * nk + j}", tree[f"resblock_{i}_{j}"]
+            for k in range(len(vcfg.resblock_dilation_sizes[j])):
+                if vcfg.resblock == "1":
+                    conv(f"{base}.convs1.{k}", block[f"conv1_{k}"]["conv"])
+                    conv(f"{base}.convs2.{k}", block[f"conv2_{k}"]["conv"])
+                    act(f"{base}.activations.{2 * k}", block[f"act1_{k}"])
+                    act(f"{base}.activations.{2 * k + 1}", block[f"act2_{k}"])
+                else:
+                    conv(f"{base}.convs.{k}", block[f"conv_{k}"]["conv"])
+                    act(f"{base}.activations.{k}", block[f"act_{k}"])
+    conv("conv_post", tree["conv_post"]["conv"])
+    act("activation_post", tree["activation_post"])
+    return {"generator_state_dict": _tensors(sd)}
+
+
+def whisper_checkpoint(dims: dict, enc: dict, rng) -> dict:
+    """{"dims", "model_state_dict"} in OpenAI's file layout, fp16: the
+    encoder from ``enc`` (a tree with ``block_i`` keys), a random text
+    decoder of ``dims``' text sizes (no module of the port reads it)."""
+    import numpy as np
+    import torch
+
+    sd = {}
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
+
+    def attn(prefix, p):
+        for k in ("query", "key", "value", "out"):
+            _put_linear(sd, f"{prefix}.{k}", p[k])
+
+    def block(prefix, p):
+        attn(f"{prefix}.attn", p["attn"])
+        ln(f"{prefix}.attn_ln", p["attn_ln"])
+        _put_linear(sd, f"{prefix}.mlp.0", p["mlp_0"])
+        _put_linear(sd, f"{prefix}.mlp.2", p["mlp_2"])
+        ln(f"{prefix}.mlp_ln", p["mlp_ln"])
+        if "cross_attn" in p:
+            attn(f"{prefix}.cross_attn", p["cross_attn"])
+            ln(f"{prefix}.cross_attn_ln", p["cross_attn_ln"])
+
+    for k in ("conv1", "conv2"):
+        sd[f"encoder.{k}.weight"] = enc[k]["kernel"].transpose(2, 1, 0)
+        sd[f"encoder.{k}.bias"] = enc[k]["bias"]
+    for i in range(dims["n_audio_layer"]):
+        block(f"encoder.blocks.{i}", enc[f"block_{i}"])
+    ln("encoder.ln_post", enc["ln_post"])
+
+    d = dims["n_text_state"]
+
+    def rand(*shape):
+        return (rng.standard_normal(shape, np.float32) / np.sqrt(shape[-1])).astype(np.float32)
+
+    def lin(bias=True, n_in=d, n_out=d):
+        p = {"kernel": rand(n_in, n_out)}
+        if bias:
+            p["bias"] = rand(n_out)
+        return p
+
+    def norm():
+        return {"scale": 1.0 + rand(d), "bias": rand(d)}
+
+    def attn_tree():
+        return {"query": lin(), "key": lin(bias=False), "value": lin(), "out": lin()}
+
+    sd["decoder.token_embedding.weight"] = rand(dims["n_vocab"], d)
+    sd["decoder.positional_embedding"] = rand(dims["n_text_ctx"], d)
+    for i in range(dims["n_text_layer"]):
+        block(f"decoder.blocks.{i}", {"attn": attn_tree(), "attn_ln": norm(), "cross_attn": attn_tree(),
+                                      "cross_attn_ln": norm(), "mlp_0": lin(n_out=4 * d),
+                                      "mlp_2": lin(n_in=4 * d), "mlp_ln": norm()})
+    ln("decoder.ln", norm())
+    return {"dims": dict(dims), "model_state_dict": _tensors(sd, dtype=torch.float16)}
+
+
+def param_mismatches(loaded, expected, names=None) -> list:
+    """Parameters of ``loaded`` (of the names given, default all) that differ
+    from ``expected``'s rounded to the loaded parameter's dtype."""
+    import torch
+
+    want = dict(expected.named_parameters())
+    return [name for name, p in loaded.named_parameters() if (names is None or name in names)
+            and not torch.equal(p.detach(), want[name].detach().to(device=p.device, dtype=p.dtype))]
+
+
+def weight_norm_reference(vocoder_sd: dict, device) -> tuple:
+    """(the vocoder state dict with every weight-norm pair replaced by
+    g v / |v| evaluated on the card in float64 and rounded to f32, which is
+    what the reference's Generator computes at every step; the largest
+    distance of the port's folds, ``fold_weight_norm``, from those weights in
+    f32 ulps; the same for ``torch._weight_norm(v, g, 0)`` in float64 on the
+    card and on the host, printed beside it: its CUDA kernel lands further
+    from an exact float64 evaluation than an ulp)."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.torch_convert import fold_weight_norm, strip_ddp_prefix
+
+    sd = strip_ddp_prefix(vocoder_sd)
+    folded = fold_weight_norm(sd)
+    out = {k: v for k, v in sd.items() if not k.endswith(WN_OLD_STYLE + WN_NEW_STYLE)}
+    worst = {"fold": 0.0, "torch._weight_norm": 0.0, "torch._weight_norm cpu": 0.0}
+    for key in sd:
+        for gk, vk in (WN_OLD_STYLE, WN_NEW_STYLE):
+            if key.endswith(vk):
+                base = key[: -len(vk)]
+                g, v = (torch.from_numpy(sd[base + k]).to(device, torch.float64) for k in (gk, vk))
+                ref = (v * (g / torch.linalg.vector_norm(v, dim=(1, 2), keepdim=True))).float().cpu().numpy()
+                out[base + "weight"] = ref
+                ulp = np.spacing(np.abs(ref))
+                for name, w in (("fold", folded[base + "weight"]),
+                                ("torch._weight_norm", torch._weight_norm(v, g, 0).float().cpu().numpy()),
+                                ("torch._weight_norm cpu", torch._weight_norm(v.cpu(), g.cpu(), 0).float().numpy())):
+                    worst[name] = max(worst[name], float(np.max(np.abs(w - ref) / ulp)))
+    if len(out) == len(sd):
+        raise AssertionError("no weight-norm pair in the vocoder file")
+    return out, worst
+
+
+def checkpoint_paths(cfg, counters, paths, device) -> dict:
+    """Paths n and o (module docstring, step 4): the CLI and ``eval --golden``
+    from reference-layout checkpoint files and a FLAC clip; returns their
+    checks' numbers."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch import cli
+    from svc_inference_pipeline_tpu_torch import eval as port_eval
+    from svc_inference_pipeline_tpu_torch.checkpoints import torch_convert
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params, random_init_
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.models.bigvgan import BigVGANGenerator
+    from svc_inference_pipeline_tpu_torch.models.whisper import WHISPER_SIZES, WhisperAudioEncoder
+    from svc_inference_pipeline_tpu_torch.native import wav_codec
+    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import make_denoise_fn
+    from svc_inference_pipeline_tpu_torch.pipeline.content import WhisperPPGExtractor, cast_matmul_weights_
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline, mel_frame_count
+    from svc_inference_pipeline_tpu_torch.utils.audio_io import read_wav
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from flac_fixture import write_flac
+
+    steps = int(cfg.mapper.noise_schedule_factors[2])
+    expected = {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1}
+    cd = torch.bfloat16
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the weights: f32 modules at full width on the card, Whisper rounded
+        # to fp16 (OpenAI's files are fp16), 1-D leaves random
+        g = torch.Generator(device=device).manual_seed(10)
+        with torch.device(device):
+            cond, den, voc = SVCPipeline._models(cfg, cd)
+            enc = WhisperAudioEncoder(WHISPER_SIZES[WHISPER_SIZE])
+        for m in (cond, den, voc, enc):
+            random_init_(m, g)
+            randomize_vectors_(m, g)
+        with torch.no_grad():
+            for sub in enc.modules():
+                if isinstance(sub, torch.nn.LayerNorm):
+                    sub.weight.add_(1.0)
+            for p in enc.parameters():
+                p.copy_(p.half().float())
+        rng = np.random.default_rng(10)
+        files = {k: os.path.join(tmp, f"{k}.pt") for k in ("mapper", "vocoder", "whisper-medium-synthetic")}
+        dims = dataclasses.replace(WHISPER_SIZES[WHISPER_SIZE], n_text_layer=2)  # the decoder is off the path
+        t0 = time.perf_counter()
+        torch.save(mapper_checkpoint(module_tree(cond), module_tree(den)), files["mapper"])
+        voc_ckpt = vocoder_checkpoint(module_tree(voc), cfg.vocoder, rng)
+        torch.save(voc_ckpt, files["vocoder"])
+        torch.save(whisper_checkpoint(dataclasses.asdict(dims), module_tree(enc), rng),
+                   files["whisper-medium-synthetic"])
+        sizes = {k: os.path.getsize(p) for k, p in files.items()}
+        print(f"path n: wrote {sum(sizes.values()) / 1e9:.3f} GB of checkpoints in {time.perf_counter() - t0:.1f}s "
+              f"({', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())})")
+        d = cfg.to_dict()
+        d.update(whisper_model=files["whisper-medium-synthetic"], svc_model_path=files["mapper"],
+                 vocoder_model_path=files["vocoder"])
+        cfg_path = os.path.join(tmp, "config_files.json")
+        with open(cfg_path, "w") as f:
+            json.dump(d, f)
+        fcfg = type(cfg)(**d)
+
+        x = clip(cfg.fs, CLIP_SECONDS)
+        flac = os.path.join(tmp, "clip.flac")
+        write_flac(flac, np.clip(np.round(x * 32767), -32768, 32767).astype(np.int64), cfg.fs, bits=16)
+        n_expected = mel_frame_count(cfg, len(x)) * cfg.hop_length
+
+        # load seconds: each file's torch.load + conversion, then the whole
+        # build from the files with the copy to the card
+        load = {}
+        for name, fn in (("whisper", lambda: torch_convert.load_whisper(files["whisper-medium-synthetic"])),
+                         ("mapper", lambda: torch_convert.load_mapper_params(files["mapper"], cfg.mapper)),
+                         ("vocoder", lambda: torch_convert.load_vocoder_params(files["vocoder"], cfg.vocoder))):
+            t0 = time.perf_counter()
+            fn()
+            load[f"{name}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        SVCPipeline.from_config(fcfg, device=device)
+        torch.cuda.synchronize()
+        load["from_config_s"] = time.perf_counter() - t0
+
+        # n. the CLI from the files and the FLAC clip, no --random-weights
+        wav_out = os.path.join(tmp, "files.wav")
+        built = {}
+
+        def run_cli():
+            timings_path = os.path.join(tmp, "files.json")
+            rc = cli.main(["--config", cfg_path, "--input", flac, "--singer", SINGER, "--output", wav_out,
+                           "--seed", "0", "--device", device.type, "--timings-json", timings_path], built=built)
+            if rc != 0:
+                raise AssertionError(f"cli.main returned {rc}")
+            samples, sr = read_wav(wav_out)
+            silence = cfg.fs // 20
+            if sr != cfg.fs:
+                raise AssertionError(f"path n: WAV at {sr} Hz")
+            check_audio("path n", samples[silence: len(samples) - silence, 0].astype("float64") / 32768.0, n_expected)
+            with open(timings_path) as f:
+                return json.load(f)
+
+        drive("cli ddpm bf16 from checkpoint files, flac", counters, run_cli, expected, paths)
+        pipe = built["pipeline"]
+        lib = wav_codec.loaded_library()
+        if lib is None or os.path.dirname(lib) != str(wav_codec.BUILD_DIR):
+            raise AssertionError(f"native codec library not loaded from {wav_codec.BUILD_DIR}: {lib}")
+        on_cpu = [n for m in (pipe.cond_encoder, pipe.denoiser, pipe.vocoder, pipe.whisper.encoder)
+                  for n, p in m.named_parameters() if p.device.type != device.type]
+        if pipe.device.type != device.type or on_cpu:
+            raise AssertionError(f"pipeline on {pipe.device}, parameters off the card: {on_cpu[:5]}")
+
+        # check 1: the loaded parameters against the drawn ones (rounded to the
+        # loaded dtype); the vocoder's 2-D weights against the folds, which are
+        # held to g v / |v| in float64 on the card
+        wn_sd, ulps = weight_norm_reference(voc_ckpt["generator_state_dict"], device)
+        with torch.device(device):
+            voc_fold, voc_wn = (BigVGANGenerator(cfg.vocoder, compute_dtype=cd) for _ in range(2))
+        load_jax_params(voc_fold, torch_convert.load_vocoder_params(files["vocoder"], cfg.vocoder))
+        load_jax_params(voc_wn, torch_convert.convert_vocoder_state_dict(wn_sd, cfg.vocoder))
+        vectors = {n for n, p in voc.named_parameters() if p.dim() == 1}
+        weights = {n for n, _ in voc.named_parameters()} - vectors
+        bad = {"cond_encoder": param_mismatches(pipe.cond_encoder, cond),
+               "denoiser": param_mismatches(pipe.denoiser, den),
+               "whisper": param_mismatches(pipe.whisper.encoder, enc),
+               "vocoder 1-D": param_mismatches(pipe.vocoder, voc, vectors),
+               "vocoder folded": param_mismatches(pipe.vocoder, voc_fold, weights)}
+        n_params = sum(1 for m in (pipe.cond_encoder, pipe.denoiser, pipe.whisper.encoder, pipe.vocoder)
+                       for _ in m.parameters())
+        bf16_apart = len(param_mismatches(pipe.vocoder, voc_wn, weights))
+        print(f"path n: {n_params} loaded parameters equal the files' (folds within {ulps['fold']:.2f} f32 ulp "
+              f"of g v / |v| in float64 on the card; torch._weight_norm in float64 within "
+              f"{ulps['torch._weight_norm']:.2f} there, {ulps['torch._weight_norm cpu']:.2f} on the host; {bf16_apart} of {len(weights)} bf16 weight tensors apart from "
+              f"it); mismatches {({k: v[:3] for k, v in bad.items() if v})}")
+        if any(bad.values()) or ulps["fold"] > 1.0:
+            raise AssertionError(f"loaded parameters differ from the files: {bad}, fold ulps {ulps}")
+
+        # check 4: against a pipeline holding the drawn weights directly
+        gen = torch.Generator(device=device).manual_seed(0)
+        t0 = time.perf_counter()
+        wave = pipe.convert(flac, SINGER, generator=gen)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        ref = SVCPipeline(fcfg, cond, den, voc_wn,
+                          WhisperPPGExtractor(cast_matmul_weights_(enc.eval(), cd), cfg.fs), device)
+        ref_wave = ref.convert(flac, SINGER, generator=torch.Generator(device=device).manual_seed(0))
+        feats, mels = [], []
+        with torch.no_grad():
+            for p in (pipe, ref):
+                batch, n_frames = p.extract_features(flac, SINGER)
+                cond_t = p.cond_encoder(batch)
+                fn = make_denoise_fn(p.denoiser, cond_t, steps, p.compute_dtype, None)
+                feats.append(batch)
+                mels.append(fn.fused_ddpm(p.schedule, (1, cond_t.shape[1], cfg.mapper.n_mel),
+                                          torch.Generator(device=device).manual_seed(0)))
+        same_features = all(torch.equal(feats[0][k], feats[1][k]) for k in feats[0])
+        same_mel = torch.equal(mels[0], mels[1])
+        corr = float(np.corrcoef(wave.astype(np.float64), ref_wave.astype(np.float64))[0, 1])
+        print(f"path n: against the weights held directly (the vocoder's g v / |v| in float64): content and F0/loudness/singer equal "
+              f"{same_features}, final mel (DDPM-{steps}) equal {same_mel}, waveform correlation {corr:.8f}")
+        if not (same_features and same_mel and corr >= FILES_MIN_CORR):
+            raise AssertionError(f"path n: features equal {same_features}, mel equal {same_mel}, corr {corr}")
+        first_s = paths[-1]["total_s"]
+        print(f"path n ({card_line()}): load whisper {load['whisper_s']:.3f}s, mapper {load['mapper_s']:.3f}s, "
+              f"vocoder {load['vocoder_s']:.3f}s (torch.load + conversion), from_config {load['from_config_s']:.3f}s "
+              f"(with the copy to the card); conversion from the files: first {first_s:.3f}s, second {second_s:.3f}s")
+        out["checkpoint_files"] = {"load": load, "first_conversion_s": first_s, "second_conversion_s": second_s,
+                                   "fold_max_ulps": ulps["fold"], "torch_weight_norm_max_ulps":
+                                   ulps["torch._weight_norm"], "torch_weight_norm_cpu_max_ulps":
+                                   ulps["torch._weight_norm cpu"], "waveform_corr": corr, "file_bytes": sizes}
+        del pipe, ref, built
+
+        # o. eval --golden on the card, scored against path n's WAV. The F0
+        # RMSE is over frames voiced in both waveforms; random weights may
+        # give unvoiced noise, and then the metric is NaN by its definition,
+        # which the check confirms from both waveforms' F0 tracks
+        def run_eval():
+            from svc_inference_pipeline_tpu_torch.ops.f0 import get_f0_features
+            from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio
+
+            eval_out = os.path.join(tmp, "eval.wav")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = port_eval.main(["--golden", "--config", cfg_path, "--mapper", files["mapper"],
+                                     "--vocoder", files["vocoder"], "--whisper", files["whisper-medium-synthetic"],
+                                     "--input", flac, "--golden-wav", wav_out, "--output", eval_out])
+            if rc != 0:
+                raise AssertionError(f"eval.main returned {rc}")
+            metrics = json.loads(buf.getvalue().strip().splitlines()[-1])
+            print("  eval --golden: " + json.dumps(metrics))
+            keys = ("mel_mae", "mcd_db", "snr_db", "rtf")
+            voiced = []
+            for path in (wav_out, eval_out):
+                a = load_audio(path, cfg.fs)[0]
+                voiced.append(get_f0_features(a, len(a) // cfg.hop_length, cfg)[0] > 0)
+            n = min(len(v) for v in voiced)
+            both = int(np.sum(voiced[0][:n] & voiced[1][:n]))
+            f0_ok = math.isfinite(metrics["f0_rmse_cents"]) or both == 0
+            print(f"  voiced frames: golden {int(voiced[0].sum())}, converted {int(voiced[1].sum())}, both {both}")
+            if not (all(math.isfinite(metrics[k]) for k in keys) and f0_ok):
+                raise AssertionError(f"eval --golden: {metrics}, frames voiced in both {both}")
+            return {k: metrics[k] for k in keys + ("f0_rmse_cents", "voicing_agreement", "duration_s")}
+
+        drive("eval --golden from checkpoint files", counters, run_eval, expected, paths)
+        out["eval_golden"] = {k: v for k, v in paths[-1].items() if k not in ("path", "launches")}
+    return out
+
+
 def main_paths(cfg, device, voc) -> tuple:
     """The main paths (module docstring, step 4); returns their records and
     the checks' numbers (int8-w1 mel correlation, per-block vocoder, harness)."""
@@ -1172,6 +1637,7 @@ def main_paths(cfg, device, voc) -> tuple:
               "vocoder_per_block": vocoder_paths(cfg, voc, counters, paths, device, clip(cfg.fs, CLIP_SECONDS)),
               "harness": harness_paths(cfg, counters, paths, device)}
     checks.update(batch_paths(cfg, counters, paths, device))
+    checks.update(checkpoint_paths(cfg, counters, paths, device))
     return paths, checks
 
 

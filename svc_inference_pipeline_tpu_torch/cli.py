@@ -1,8 +1,7 @@
 """Command-line interface of the PyTorch/CUDA pipeline.
 
     python -m svc_inference_pipeline_tpu_torch.cli \\
-        --input clip.wav --singer svcc_CDF1 --output out.wav \\
-        --random-weights --whisper-size medium
+        --input clip.wav --singer svcc_CDF1 --output out.wav
 
 Flags follow ``svc_inference_pipeline_tpu.cli`` (``--sampler
 {ddpm,plms,ddim,dpmpp}``, ``--speedup``, ``--quantize {int8,int8-w1}``,
@@ -10,7 +9,11 @@ Flags follow ``svc_inference_pipeline_tpu.cli`` (``--sampler
 ``--pcm16-io``, ``--profile DIR``), plus ``--device`` (default cuda) and
 ``--timings-json``. ``--input/--singer/--output`` repeat: one input goes
 through ``SVCPipeline.convert``, several through one ``convert_batch``.
-Checkpoint loading is not ported yet, so ``--random-weights`` is required.
+The models load from the checkpoint files that ``--config`` names
+(``whisper_model``, ``svc_model_path``, ``vocoder_model_path``; see
+``SVCPipeline.from_config``); ``--random-weights`` draws them at random
+instead, Whisper at ``--whisper-size``. Inputs may be WAV, FLAC, or another
+format that soundfile or ffmpeg decodes.
 """
 
 from __future__ import annotations
@@ -68,9 +71,6 @@ def main(argv=None, built: Optional[dict] = None) -> int:
     if not (len(args.input) == len(args.singer) == len(args.output)):
         print("error: --input/--singer/--output must repeat the same number of times", file=sys.stderr)
         return 2
-    if not args.random_weights:
-        print("error: checkpoint loading is not ported yet; pass --random-weights", file=sys.stderr)
-        return 2
     cfg = load_config(args.config)
     if args.sampler:
         cfg.mapper.sampler = args.sampler
@@ -80,9 +80,9 @@ def main(argv=None, built: Optional[dict] = None) -> int:
         cfg.denoiser_quantize = args.quantize
     if args.quantize_tail is not None:
         cfg.denoiser_quantize_tail = args.quantize_tail
-    print("Loading models (random weights)...")
+    print(f"Loading models ({'random weights' if args.random_weights else 'checkpoints'})...")
     t0 = time.perf_counter()
-    pipe = SVCPipeline.from_config(cfg, random_weights=True, whisper_size=args.whisper_size,
+    pipe = SVCPipeline.from_config(cfg, random_weights=args.random_weights, whisper_size=args.whisper_size,
                                    seed=args.seed, device=args.device, bucket=args.bucket or DEFAULT_BUCKET)
     print(f"Models ready in {time.perf_counter() - t0:.2f}s on {pipe.device}")
     if built is not None:

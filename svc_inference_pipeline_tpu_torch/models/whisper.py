@@ -28,6 +28,13 @@ class WhisperDims:
     n_audio_state: int = 1024
     n_audio_head: int = 16
     n_audio_layer: int = 24
+    # the text decoder's dims: carried by every Whisper checkpoint and read
+    # by no module of the port (the decoder is not ported)
+    n_vocab: int = 51865
+    n_text_ctx: int = 448
+    n_text_state: int = 1024
+    n_text_head: int = 16
+    n_text_layer: int = 24
 
 
 WHISPER_SIZES: Dict[str, WhisperDims] = {

@@ -4,7 +4,9 @@ Counterpart of ``svc_inference_pipeline_tpu/ops/resample.py``: the same
 Kaiser-windowed sinc filter evaluated at each rational phase (resampy's
 kaiser_best/kaiser_fast parameters). :func:`_resample_conv` runs on the
 tensor's device as one strided conv per output phase; :func:`resample_host`
-is the numpy gather form for host-side file loading.
+runs on the host for file loading: the native C++ resampler
+(``native/wav_codec.py``) for kaiser_best where its library loads, else the
+numpy gather form of the same math.
 """
 
 from __future__ import annotations
@@ -73,9 +75,17 @@ def _resample_conv(x: torch.Tensor, sr_orig: int, sr_new: int,
 
 def resample_host(x: np.ndarray, sr_orig: int, sr_new: int,
                   quality: str = "kaiser_best") -> np.ndarray:
-    """Host-side numpy resampling, the same math as :func:`_resample_conv`."""
+    """Host-side resampling, the same math as :func:`_resample_conv`: native
+    C++ for kaiser_best where the library loads, else numpy."""
     if sr_orig == sr_new:
         return np.asarray(x, dtype=np.float32)
+    if quality == "kaiser_best":
+        try:
+            from svc_inference_pipeline_tpu_torch.native import wav_codec as _native
+
+            return _native.resample(np.asarray(x, dtype=np.float32), sr_orig, sr_new)
+        except Exception:
+            pass
     taps, up, down, half = _polyphase_taps(sr_orig, sr_new, quality)
     xf = np.asarray(x, dtype=np.float32).reshape(-1)
     n_out = _out_len(len(xf), up, down)

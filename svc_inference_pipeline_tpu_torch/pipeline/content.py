@@ -62,9 +62,20 @@ class WhisperPPGExtractor:
                         compute_dtype=torch.bfloat16, fs: int = 24000) -> "WhisperPPGExtractor":
         """JAX weights (numpy) on ``device`` (None: the GPU)."""
         device = resolve_device(device)
-        enc = WhisperAudioEncoder(dims)
+        with torch.device(device):
+            enc = WhisperAudioEncoder(dims)
         load_jax_params(enc, unstack_blocks(params, dims.n_audio_layer))
         return cls(cast_matmul_weights_(enc.to(device).eval(), compute_dtype), fs)
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, device=None, compute_dtype=torch.bfloat16,
+                              fs: int = 24000) -> "WhisperPPGExtractor":
+        """A Whisper ``.pt`` file (``{"dims", "model_state_dict"}``, fp16 in
+        OpenAI's files) on ``device`` (None: the GPU)."""
+        from svc_inference_pipeline_tpu_torch.checkpoints.torch_convert import load_whisper
+
+        dims_dict, params = load_whisper(path)
+        return cls.from_jax_params(WhisperDims(**dims_dict), params["encoder"], device, compute_dtype, fs)
 
     @torch.no_grad()
     def embed_audio(self, mel: torch.Tensor) -> torch.Tensor:

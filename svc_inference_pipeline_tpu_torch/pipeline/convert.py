@@ -2,7 +2,8 @@
 
 Counterpart of ``svc_inference_pipeline_tpu/pipeline/convert.py``:
 
-    pipe = SVCPipeline.from_config(cfg, random_weights=True)   # on the GPU
+    pipe = SVCPipeline.from_config(cfg)        # checkpoint files of cfg, on the GPU
+    pipe = SVCPipeline.from_config(cfg, random_weights=True)   # seeded random weights
     wav  = pipe.convert("clip.wav", "svcc_CDF1")
     wav  = pipe.convert("clip.wav", "svcc_CDF1", sampler="plms", speedup=10)
     wavs = pipe.convert_batch(["a.wav", "b.wav"], ["svcc_CDF1", "svcc_CDM1"])
@@ -139,21 +140,68 @@ class SVCPipeline:
     def from_config(cls, cfg: HParams, random_weights: bool = False, whisper_size: str = "tiny",
                     seed: int = 0, device: Optional[str] = None,
                     bucket: int = DEFAULT_BUCKET) -> "SVCPipeline":
-        """Build with random weights drawn from one ``torch.Generator``
-        seeded with ``seed`` (checkpoint loading is not ported yet)."""
-        if not random_weights:
-            raise NotImplementedError("checkpoint loading is not ported yet; use random_weights=True")
+        """Build from the config's checkpoint files, as the JAX pipeline does:
+        ``cfg.whisper_model`` (a ``.pt`` path, or a registry name resolved
+        through ``checkpoints/fetch.py``), ``cfg.svc_model_path`` and
+        ``cfg.vocoder_model_path``. A mapper or vocoder file that does not
+        exist is replaced by random weights, as in the JAX package. A
+        registry name that is neither cached nor downloadable raises
+        ``FileNotFoundError`` unless ``cfg.allow_random_whisper`` or
+        ``SVC_ALLOW_RANDOM_WHISPER=1`` opts into random Whisper weights at the
+        configured size. ``random_weights=True`` draws every model from one
+        ``torch.Generator`` seeded with ``seed`` (Whisper at
+        ``whisper_size``)."""
+        import os
+
         dev = resolve_device(device or cfg.get("device"))
         cd = compute_dtype(cfg)
         g = torch.Generator(device=dev).manual_seed(seed)
-        whisper = WhisperPPGExtractor.random_init(whisper_size, g, dev, cd, fs=cfg.fs)
-        # a non-medium random whisper emits another feature width: adapt the
-        # content-encoder input to it
-        cfg = cls._adapt_content_width(cfg, whisper.dims.n_audio_state)
+        whisper_ref = str(cfg.whisper_model)
+        if not random_weights and not os.path.exists(whisper_ref):
+            from svc_inference_pipeline_tpu_torch.checkpoints.fetch import WHISPER_URLS, fetch_whisper_checkpoint
+
+            if whisper_ref in WHISPER_URLS:
+                try:
+                    whisper_ref = fetch_whisper_checkpoint(whisper_ref)
+                except FileNotFoundError as e:
+                    allow = bool(cfg.get("allow_random_whisper", False)) or (
+                        os.environ.get("SVC_ALLOW_RANDOM_WHISPER", "") == "1")
+                    if not allow:
+                        raise FileNotFoundError(
+                            f"whisper checkpoint {whisper_ref!r} unavailable ({e}); set "
+                            "SVC_ALLOW_DOWNLOAD=1 to fetch it, point cfg.whisper_model at a "
+                            "local .pt, or opt into random weights for smoke runs with "
+                            "cfg.allow_random_whisper / SVC_ALLOW_RANDOM_WHISPER=1"
+                        ) from e
+                    from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
+
+                    get_logger("svc_tpu.pipeline").warning(
+                        "whisper checkpoint unavailable — falling back to RANDOM weights at the "
+                        "configured size (%s)", e)
+                    whisper_size = str(cfg.whisper_model)
+        if not random_weights and os.path.exists(whisper_ref):
+            whisper = WhisperPPGExtractor.from_torch_checkpoint(whisper_ref, dev, cd, fs=cfg.fs)
+        else:
+            whisper = WhisperPPGExtractor.random_init(whisper_size, g, dev, cd, fs=cfg.fs)
+            # a non-medium random whisper emits another feature width: adapt
+            # the content-encoder input to it
+            cfg = cls._adapt_content_width(cfg, whisper.dims.n_audio_state)
         with torch.device(dev):
             models = cls._models(cfg, cd)
-        for m in models:
-            random_init_(m, g)
+        if not random_weights and os.path.exists(str(cfg.svc_model_path)):
+            from svc_inference_pipeline_tpu_torch.checkpoints.torch_convert import load_mapper_params
+
+            for m, p in zip(models[:2], load_mapper_params(cfg.svc_model_path, cfg.mapper)):
+                load_jax_params(m, p)
+        else:
+            for m in models[:2]:
+                random_init_(m, g)
+        if not random_weights and os.path.exists(str(cfg.vocoder_model_path)):
+            from svc_inference_pipeline_tpu_torch.checkpoints.torch_convert import load_vocoder_params
+
+            load_jax_params(models[2], load_vocoder_params(cfg.vocoder_model_path, cfg.vocoder))
+        else:
+            random_init_(models[2], g)
         return cls(cfg, *models, whisper, dev, bucket)
 
     @classmethod

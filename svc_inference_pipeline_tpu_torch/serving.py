@@ -4,7 +4,7 @@ Counterpart of ``svc_inference_pipeline_tpu/serving.py``, with the same
 classes, flags and HTTP surface, plus ``--device`` (default cuda):
 
     python -m svc_inference_pipeline_tpu_torch.serving --port 8787 \
-        --random-weights --whisper-size medium
+        [--random-weights --whisper-size medium]
 
     POST /convert?singer=svcc_CDF1[&sampler=dpmpp&speedup=10]
                                      (body: WAV bytes) → WAV bytes
@@ -19,8 +19,9 @@ batched sampler loop, one batched vocoder pass — so throughput under load
 scales with the device batch instead of queueing sequential conversions.
 ``?stream=1&chunk_seconds=`` answers with chunked raw PCM16 instead
 (``pipeline/streaming.py``), each chunk converted under the same device
-lock as the batches. Checkpoint loading is not ported yet, so
-``--random-weights`` is required.
+lock as the batches. The models load from the checkpoint files that
+``--config`` names (``SVCPipeline.from_config``); ``--random-weights`` draws
+them at random instead.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from __future__ import annotations
 import argparse
 import json
 import queue
-import sys
 import tempfile
 import threading
 import time
@@ -502,7 +502,7 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--random-weights", action="store_true",
-                   help="random-init models (required: checkpoint loading is not ported yet)")
+                   help="random-init models (no checkpoints needed)")
     p.add_argument("--whisper-size", default="tiny")
     p.add_argument("--sampler", choices=["ddpm", "plms", "ddim", "dpmpp"],
                    default=None, help="override cfg.mapper.sampler")
@@ -520,14 +520,11 @@ def main(argv: Optional[list] = None) -> int:
     from svc_inference_pipeline_tpu_torch.config import load_config
     from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
 
-    if not args.random_weights:
-        print("error: checkpoint loading is not ported yet; pass --random-weights", file=sys.stderr)
-        return 2
     cfg = load_config(args.config)
     if args.quantize:
         cfg.denoiser_quantize = args.quantize
     pipeline = SVCPipeline.from_config(
-        cfg, random_weights=True, whisper_size=args.whisper_size, device=args.device
+        cfg, random_weights=args.random_weights, whisper_size=args.whisper_size, device=args.device
     )
     if args.sampler or args.speedup is not None:
         pipeline.set_sampler(args.sampler or pipeline.sampler, speedup=args.speedup)

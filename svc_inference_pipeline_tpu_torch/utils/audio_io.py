@@ -1,12 +1,17 @@
-"""Audio file I/O: a self-contained RIFF/WAVE codec.
+"""Audio file I/O.
 
-Counterpart of the RIFF read/write path and ``save_audio`` of
-``svc_inference_pipeline_tpu/utils/audio_io.py`` (FLAC and the native C++
-codec are not ported). Loader contract: channel 0 of multichannel files,
-integer PCM normalised by ``-iinfo.min``, float data with magnitude > 1.01
-treated as 16/32-bit-scaled, NaN/Inf input returns an empty array, then a
-windowed-sinc resample to the requested rate. Writer contract: peak
-normalise to 0.9, 50 ms of silence each side, 16-bit PCM.
+Counterpart of ``svc_inference_pipeline_tpu/utils/audio_io.py``. ``load_audio``
+dispatches on the file's first bytes: FLAC (``fLaC``) goes to the native
+decoder, RIFF/WAVE to the native codec with this module's numpy codec as the
+fallback, anything else (mp3, ogg, ...) to an optional external decoder (the
+``soundfile`` package, then an ``ffmpeg`` binary). The native library is the
+repo's ``native/*.cc``, built by ``native/wav_codec.py``.
+
+Loader contract (the reference's): channel 0 of multichannel files, integer
+PCM normalised by ``-iinfo.min``, float data with magnitude > 1.01 treated as
+16/32-bit-scaled, NaN/Inf input returns an empty array, then a windowed-sinc
+resample to the requested rate. Writer contract: peak normalise to 0.9,
+50 ms of silence each side, 16-bit PCM.
 """
 
 from __future__ import annotations
@@ -103,10 +108,91 @@ def write_wav(path: str, waveform: np.ndarray, fs: int) -> None:
         f.write(body)
 
 
+# ---------------------------------------------------------------------------
+# Optional decoders (mp3 / ogg / anything outside WAV and FLAC)
+# ---------------------------------------------------------------------------
+
+
+class UnsupportedAudioFormatError(RuntimeError):
+    """No available decoder for this audio format.
+
+    WAV and FLAC decode natively; other formats (mp3, ogg, ...) need an
+    optional external decoder, the ``soundfile`` package or an ``ffmpeg``
+    binary, as the reference reads them through librosa/audioread."""
+
+
+def _decode_external(path: str) -> Tuple[np.ndarray, int]:
+    """Decode through soundfile or ffmpeg, whichever works.
+
+    Returns raw ``(samples [n, ch] float32, rate)``: the caller applies the
+    reference's magnitude rules, as for the native paths. Raises
+    :class:`UnsupportedAudioFormatError` listing every decoder's failure
+    when none works."""
+    errors = []
+    try:
+        import soundfile as sf
+    except Exception as e:  # noqa: BLE001 - any import failure disables it
+        sf = None
+        errors.append(f"soundfile unavailable ({type(e).__name__}: {e})")
+    if sf is not None:
+        try:
+            data, rate = sf.read(path, always_2d=True, dtype="float32")
+            return np.asarray(data, dtype=np.float32), int(rate)
+        except Exception as e:  # noqa: BLE001 - fall through to ffmpeg
+            errors.append(f"soundfile failed ({type(e).__name__}: {e})")
+
+    import shutil
+
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        errors.append("ffmpeg not on PATH")
+    else:
+        import os
+        import subprocess
+        import tempfile
+
+        fd, tmp = tempfile.mkstemp(suffix=".wav")
+        os.close(fd)
+        try:
+            # to a temp WAV (a RIFF header piped to stdout carries no sizes),
+            # at f32 so nothing is quantised; the channels are kept and
+            # load_audio takes channel 0
+            proc = subprocess.run(
+                [ffmpeg, "-nostdin", "-v", "error", "-y", "-i", path, "-c:a", "pcm_f32le", tmp],
+                capture_output=True,
+                timeout=600,
+            )
+            if proc.returncode == 0:
+                return read_wav(tmp)
+            errors.append("ffmpeg failed (" + proc.stderr.decode(errors="replace").strip() + ")")
+        finally:
+            os.unlink(tmp)
+    raise UnsupportedAudioFormatError(
+        f"{path}: not WAV/FLAC and no external decoder succeeded — "
+        + "; ".join(errors)
+        + ". Install the 'soundfile' package or put an ffmpeg binary on PATH."
+    )
+
+
 def load_audio(path: str, fs: Optional[int] = None,
                resampler: str = "kaiser_best") -> Tuple[np.ndarray, int]:
-    """(mono float32 waveform, sample rate) of a WAV file, resampled to ``fs``."""
-    samples, sample_rate = read_wav(path)
+    """(mono float32 waveform, sample rate) of an audio file, resampled to ``fs``."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic == b"fLaC":
+        # no Python fallback: the FLAC decoder is C++ only
+        from svc_inference_pipeline_tpu_torch.native import wav_codec as _native
+
+        samples, sample_rate = _native.read_flac(path)
+    elif magic == b"RIFF":
+        try:
+            from svc_inference_pipeline_tpu_torch.native import wav_codec as _native
+
+            samples, sample_rate = _native.read_wav(path)
+        except Exception:
+            samples, sample_rate = read_wav(path)
+    else:
+        samples, sample_rate = _decode_external(path)
     audio = samples[:, 0] if samples.ndim > 1 else samples
     if np.issubdtype(audio.dtype, np.integer):
         max_mag = -float(np.iinfo(audio.dtype).min)

@@ -36,14 +36,18 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-# every module of the port, then one tiny conversion on CPU, in a fresh
-# interpreter that must end without jax loaded
+# every module of the port (checkpoint loading, the native codecs and eval
+# among them), then one tiny conversion on CPU, in a fresh interpreter that
+# must end without jax loaded
 _NO_JAX = """
 import importlib, pkgutil, sys
 import numpy as np, torch
 import svc_inference_pipeline_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+for name in sorted(names):
+    importlib.import_module(name)
+new = {"eval", "checkpoints.torch_convert", "checkpoints.native_io", "checkpoints.fetch", "native.wav_codec"}
+assert {pkg.__name__ + "." + m for m in new} <= names, names
 from svc_inference_pipeline_tpu_torch.config import HParams, load_config
 from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
 d = load_config(sys.argv[1]).to_dict()
@@ -145,9 +149,12 @@ def test_bridge_is_strict_and_random_init_follows_the_jax_scheme():
     assert torch.all(lin.ln.weight == 1) and torch.all(lin.ln.bias == 0)
 
 
-def test_cli_writes_wav_on_cpu(tmp_path):
+def test_cli_writes_wav_on_cpu(tmp_path, monkeypatch):
     """The port's CLI end to end on CPU at a tiny config writes a WAV of
-    n_frames * hop samples between the writer's 50 ms silences."""
+    n_frames * hop samples between the writer's 50 ms silences. Without
+    --random-weights it loads the config's checkpoints, and with none there
+    (Whisper "medium" not cached, downloads off) it raises as the JAX CLI
+    does; mismatched --input/--singer/--output counts give rc 2."""
     d = load_config(CONFIG).to_dict()
     for k in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):
         d[k] = os.path.join(REPO, d[k].lstrip("./"))
@@ -166,4 +173,10 @@ def test_cli_writes_wav_on_cpu(tmp_path):
     assert sr == 24000 and len(samples) == mel_frame_count(load_config(CONFIG), 30000) * 256 + 2 * 1200
     timings = json.loads((tmp_path / "t.json").read_text())
     assert set(timings) >= {"frontend_s", "ddpm_s", "vocoder_s", "total_s", "audio_s"}
-    assert cli.main(["--input", "x.wav", "--singer", "s", "--output", "o.wav", "--device", "cpu"]) == 2
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    monkeypatch.delenv("SVC_ALLOW_DOWNLOAD", raising=False)
+    monkeypatch.delenv("SVC_ALLOW_RANDOM_WHISPER", raising=False)
+    with pytest.raises(FileNotFoundError, match="whisper checkpoint 'medium' unavailable"):
+        cli.main(["--input", "x.wav", "--singer", "s", "--output", "o.wav", "--device", "cpu"])
+    assert cli.main(["--input", "x.wav", "--singer", "s", "--output", "o.wav", "--output", "p.wav",
+                     "--device", "cpu"]) == 2
