@@ -77,6 +77,24 @@
       SNR and RTF, and an F0 RMSE that is finite or, where no frame is voiced
       in both waveforms (random weights give unvoiced noise), NaN as the
       metric defines it;
+   q. (after o) the transcription CLI from path n's Whisper file (the text
+      decoder cut to 2 layers), the 4 s clip at 16 kHz, without the
+      temperature fallback (K4 x 24 for each 30 s window the transcription
+      encodes: a window ends at its last timestamp pair, so a decode whose
+      last pair falls inside the clip takes a second window over the rest):
+      .txt/.vtt/.srt written; the
+      loaded decoder's parameters equal the file's; the decoder's prime +
+      one-token steps equal its full-prefix logits within 2e-4 on the card;
+      the log-probs of a forced token sequence from the K4 route's bf16
+      features and from the plain route's f32 features agree within
+      ``LOGPROB_BF16_BOUND``;
+   p. (last) the transcription CLI on the 4 s clip with Whisper-medium at
+      full width (24 + 24 layers, 1024 wide, vocabulary 51865) on random
+      weights, the whole fallback ladder (beam 5 at temperature 0, then
+      sampling at 0.2-1.0), K4 x 24 a window as in q: .txt/.vtt/.srt written,
+      ``transformers`` not imported; prints the tokens decoded, the decoder
+      steps, the median ms of a step, the host's share of it and the whole
+      call's seconds;
 5. prints the card again, the kernels' JSON line (``launches`` summed over
    the paths; K6 counts K1's and K5's int8 launches), then the result line.
 
@@ -1236,7 +1254,7 @@ def vocoder_checkpoint(tree: dict, vcfg, rng) -> dict:
 def whisper_checkpoint(dims: dict, enc: dict, rng) -> dict:
     """{"dims", "model_state_dict"} in OpenAI's file layout, fp16: the
     encoder from ``enc`` (a tree with ``block_i`` keys), a random text
-    decoder of ``dims``' text sizes (no module of the port reads it)."""
+    decoder of ``dims``' text sizes."""
     import numpy as np
     import torch
 
@@ -1386,13 +1404,15 @@ def checkpoint_paths(cfg, counters, paths, device) -> dict:
                 p.copy_(p.half().float())
         rng = np.random.default_rng(10)
         files = {k: os.path.join(tmp, f"{k}.pt") for k in ("mapper", "vocoder", "whisper-medium-synthetic")}
-        dims = dataclasses.replace(WHISPER_SIZES[WHISPER_SIZE], n_text_layer=2)  # the decoder is off the path
+        # the text decoder cut to 2 layers: conversion does not run it, and
+        # path q decodes with it
+        dims = dataclasses.replace(WHISPER_SIZES[WHISPER_SIZE], n_text_layer=2)
         t0 = time.perf_counter()
         torch.save(mapper_checkpoint(module_tree(cond), module_tree(den)), files["mapper"])
         voc_ckpt = vocoder_checkpoint(module_tree(voc), cfg.vocoder, rng)
         torch.save(voc_ckpt, files["vocoder"])
-        torch.save(whisper_checkpoint(dataclasses.asdict(dims), module_tree(enc), rng),
-                   files["whisper-medium-synthetic"])
+        whisper_ckpt = whisper_checkpoint(dataclasses.asdict(dims), module_tree(enc), rng)
+        torch.save(whisper_ckpt, files["whisper-medium-synthetic"])
         sizes = {k: os.path.getsize(p) for k, p in files.items()}
         print(f"path n: wrote {sum(sizes.values()) / 1e9:.3f} GB of checkpoints in {time.perf_counter() - t0:.1f}s "
               f"({', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sizes.items())})")
@@ -1544,7 +1564,179 @@ def checkpoint_paths(cfg, counters, paths, device) -> dict:
 
         drive("eval --golden from checkpoint files", counters, run_eval, expected, paths)
         out["eval_golden"] = {k: v for k, v in paths[-1].items() if k not in ("path", "launches")}
+        out["transcribe_file"] = transcribe_file_path(counters, paths, device, files["whisper-medium-synthetic"],
+                                                      whisper_ckpt, enc, tmp)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Paths p and q: transcription
+# ---------------------------------------------------------------------------
+
+# path q: the text decoder's log-probs of a forced token sequence from the
+# encoder's K4 route (bf16 weights and activations) against its plain route
+# (f32), on the card: measured 1.1e-2 on an H100 (features 8.9e-2 apart,
+# log-probs -12.5..-8.9); the bound is 2.7x that
+LOGPROB_BF16_BOUND = 0.03
+
+
+def step_stats(decoder) -> dict:
+    """Tokens decoded, decoder steps, the median ms of a token position that
+    ran a step (host filters and choice + the step with its logits' copy) and
+    the host's share of those positions' time, from ``step_log``."""
+    ran = [(h, c) for h, c in decoder.step_log if c > 0]
+    host = sum(h for h, _ in ran)
+    total = host + sum(c for _, c in ran)
+    return {"tokens": len(decoder.step_log), "steps": len(ran), "primes": decoder.primes,
+            "ms_per_step": 1e3 * statistics.median(h + c for h, c in ran),
+            "ms_per_call": 1e3 * statistics.median(c for _, c in ran), "host_share": host / total}
+
+
+def check_transcripts(out_dir: str, name: str) -> int:
+    """The .txt/.vtt/.srt of one input exist and are well formed; returns
+    the segment count of the .srt."""
+    base = os.path.join(out_dir, name)
+    with open(base + ".vtt", encoding="utf-8") as f:
+        vtt = f.read()
+    with open(base + ".srt", encoding="utf-8") as f:
+        srt = f.read()
+    with open(base + ".txt", encoding="utf-8") as f:
+        txt = f.read()
+    n = srt.count(" --> ")
+    if not vtt.startswith("WEBVTT") or vtt.count(" --> ") != n or len(txt.splitlines()) != n:
+        raise AssertionError(f"{name}: transcripts disagree ({n} srt segments)")
+    return n
+
+
+def transcribe_paths(counters, paths, device) -> dict:
+    """Path p: the transcription CLI on the synthetic 4 s clip at
+    Whisper-medium's full width with random weights (K4 x 24 a window)."""
+    from svc_inference_pipeline_tpu_torch import transcribe
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "clip.wav")
+        synth_clip(wav, 16000, CLIP_SECONDS)
+        built, expected = {}, {}
+
+        def run():
+            t0 = time.perf_counter()
+            rc = transcribe.main([wav, "--model", WHISPER_SIZE, "--random-weights", "--device", device.type,
+                                  "--output_format", "all", "-o", tmp], built=built)
+            if rc != 0:
+                raise AssertionError(f"transcribe.main returned {rc}")
+            expected["K4"] = 24 * built["decoder"].windows
+            return {"call_s": time.perf_counter() - t0}
+
+        drive("transcribe medium random weights", counters, run, expected, paths)
+        segments = check_transcripts(tmp, "clip.wav")
+        dec = built["decoder"]
+        if "transformers" in sys.modules:
+            raise AssertionError("transcribe imported transformers")
+        stats = dict(step_stats(dec), segments=segments, windows=dec.windows, call_s=paths[-1]["call_s"])
+        print(f"path p ({card_line()}): {dec.windows} window(s), {stats['tokens']} tokens decoded, "
+              f"{stats['steps']} decoder steps + {stats['primes']} primes, {stats['ms_per_step']:.2f} ms a step "
+              f"(median; the step call alone {stats['ms_per_call']:.2f} ms), host share "
+              f"{stats['host_share']:.3f}, {segments} segments, whole call {stats['call_s']:.2f}s")
+    return stats
+
+
+def transcribe_file_path(counters, paths, device, whisper_path: str, ckpt: dict, enc, tmp: str) -> dict:
+    """Path q: the transcription CLI from path n's Whisper file (decoder cut
+    to 2 layers), no temperature fallback (K4 x 24 a window); then the loaded weights
+    against the file's, prime + steps against the full prefix on the card,
+    and the log-probs of a forced token sequence from the K4 route's bf16
+    features against the plain route's f32 features."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch import transcribe
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params, unstack_blocks
+    from svc_inference_pipeline_tpu_torch.checkpoints.torch_convert import load_whisper
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.models.whisper import WhisperAudioEncoder, WhisperDims
+    from svc_inference_pipeline_tpu_torch.models.whisper_decoding import get_tokenizer
+    from svc_inference_pipeline_tpu_torch.ops.pallas import attention
+    from svc_inference_pipeline_tpu_torch.ops.whisper_mel import N_FRAMES, log_mel_spectrogram_frames, pad_or_trim
+
+    wav = os.path.join(tmp, "clip16k.wav")
+    synth_clip(wav, 16000, CLIP_SECONDS)
+    out_dir = os.path.join(tmp, "transcripts")
+    built, expected = {}, {}
+
+    def run():
+        t0 = time.perf_counter()
+        rc = transcribe.main([wav, "--model", whisper_path, "--device", device.type, "--logprob_threshold=-inf",
+                              "--compression_ratio_threshold", "inf", "-o", out_dir], built=built)
+        if rc != 0:
+            raise AssertionError(f"transcribe.main returned {rc}")
+        expected["K4"] = 24 * built["decoder"].windows
+        return {"call_s": time.perf_counter() - t0}
+
+    drive("transcribe from path n's whisper file", counters, run, expected, paths)
+    segments = check_transcripts(out_dir, "clip16k.wav")
+    dec = built["decoder"]
+    stats = dict(step_stats(dec), segments=segments, windows=dec.windows, call_s=paths[-1]["call_s"])
+
+    # the loaded weights: the encoder equals the drawn one rounded to bf16,
+    # every decoder parameter the file's tensor
+    sd = ckpt["model_state_dict"]
+    want = {}
+    for key, t in sd.items():
+        if key.startswith("decoder."):
+            name = key[len("decoder."):].replace("blocks.", "block_", 1).replace("mlp.0", "mlp_0").replace(
+                "mlp.2", "mlp_2")
+            want[name] = t
+    got = dict(dec.decoder.named_parameters())
+    bad = [n for n, p in got.items() if n not in want or not torch.equal(p.detach().cpu(), want[n].float())]
+    bad += param_mismatches(dec.encoder, enc)
+    if bad or len(got) != len(want):
+        raise AssertionError(f"path q: loaded parameters differ from the file's: {bad[:5]}, {len(got)} vs {len(want)}")
+
+    # prime + one-token steps against the full prefix, on the card
+    tok = get_tokenizer(True)
+    forced = tok.sot_sequence("en") + tok.encode(" hello singing world, once again") + [
+        tok.timestamp_begin + 10, tok.timestamp_begin + 60, 50, 500, 5000, tok.eot]
+    tokens = np.asarray([forced], np.int32)
+    audio16 = clip(16000, CLIP_SECONDS)
+    mel = pad_or_trim(log_mel_spectrogram_frames(audio16, device), N_FRAMES)[None]
+    with torch.no_grad():
+        feats_bf16 = dec.embed_audio(mel)
+        full, _ = dec.decoder(torch.as_tensor(tokens, dtype=torch.long, device=device), feats_bf16)
+        full = full.cpu().numpy()
+        logits, cache, offset = dec.incremental.prime(tokens[:, :3], feats_bf16)
+        inc_err = float(np.abs(logits - full[:, :3]).max())
+        for i in range(3, tokens.shape[1]):
+            step, cache = dec.incremental.step(tokens[:, i: i + 1], feats_bf16, cache, offset)
+            offset += 1
+            inc_err = max(inc_err, float(np.abs(step - full[:, i]).max()))
+
+        # the plain route: the encoder in f32 from the file, its attention the
+        # plain version
+        dims_dict, params = load_whisper(whisper_path)
+        dims = WhisperDims(**dims_dict)
+        with torch.device(device):
+            enc32 = WhisperAudioEncoder(dims)
+        load_jax_params(enc32, unstack_blocks(params["encoder"], dims.n_audio_layer))
+        with mock.patch.object(attention, "encoder_attention", attention.encoder_attention_plain):
+            feats_f32 = enc32.eval()(torch.as_tensor(mel, device=device))
+        lp = {}
+        for name, feats in (("bf16", feats_bf16), ("f32", feats_f32)):
+            out, _ = dec.decoder(torch.as_tensor(tokens, dtype=torch.long, device=device), feats)
+            logp = torch.log_softmax(out[0, :-1].double(), dim=-1)
+            lp[name] = logp.gather(1, torch.as_tensor(tokens[0, 1:], device=device).long()[:, None])[:, 0].cpu().numpy()
+    feat_err = float((feats_bf16 - feats_f32).abs().max())
+    lp_err = float(np.abs(lp["bf16"] - lp["f32"]).max())
+    print(f"path q ({card_line()}): {dec.windows} window(s), {stats['tokens']} tokens, {stats['steps']} steps, {stats['ms_per_step']:.2f} ms a "
+          f"step (median), host share {stats['host_share']:.3f}, {segments} segments, whole call "
+          f"{stats['call_s']:.2f}s; {len(got)} decoder parameters equal the file's; prime + steps vs full prefix "
+          f"max |d logit| {inc_err:.3e} (bound 2e-4); K4 (bf16) vs plain (f32) features max |d| {feat_err:.3e}, "
+          f"log-probs of {len(forced) - 1} forced tokens max |d| {lp_err:.3e} (bound {LOGPROB_BF16_BOUND}), "
+          f"log-prob range {lp['f32'].min():.3f}..{lp['f32'].max():.3f}")
+    if not inc_err <= 2e-4 or not lp_err <= LOGPROB_BF16_BOUND:
+        raise AssertionError(f"path q: incremental vs full {inc_err}, bf16 vs f32 log-probs {lp_err}")
+    return dict(stats, incremental_max_abs=inc_err, feature_bf16_max_abs=feat_err, logprob_bf16_max_abs=lp_err)
 
 
 def main_paths(cfg, device, voc) -> tuple:
@@ -1638,6 +1830,7 @@ def main_paths(cfg, device, voc) -> tuple:
               "harness": harness_paths(cfg, counters, paths, device)}
     checks.update(batch_paths(cfg, counters, paths, device))
     checks.update(checkpoint_paths(cfg, counters, paths, device))
+    checks["transcribe"] = transcribe_paths(counters, paths, device)
     return paths, checks
 
 

@@ -16,6 +16,9 @@ nn.Embedding          embedding   weight
 nn.LayerNorm          scale       weight
 any                   bias        bias
 Activation1d          alpha/beta  alpha/beta
+any                   its own     the parameter of that name on the
+                      parameter   module itself (the Whisper decoder's
+                                  ``positional_embedding``)
 ====================  ==========  ====================================
 
 Whisper encoders with a scanned layout (``blocks/block/...`` with a
@@ -67,7 +70,7 @@ def _convert(module: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.n
         return "weight", value
     if isinstance(module, nn.LayerNorm) and leaf == "scale":
         return "weight", value
-    if leaf in ("alpha", "beta"):
+    if leaf in ("alpha", "beta") or leaf in module._parameters:
         return leaf, value
     raise KeyError(f"no bridge rule for leaf {leaf!r} of {type(module).__name__}")
 

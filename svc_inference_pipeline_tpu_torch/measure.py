@@ -1,6 +1,6 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
-    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch]
+    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch | --decode]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
@@ -11,8 +11,9 @@ conversion per path, the device time by kernel from ``torch.profiler`` and
 the device's busy share of the conversion. ``--steps`` times K1 steps alone
 instead (:func:`step_times`), ``--k2`` the vocoder's AMP stages
 (:func:`k2_times`), ``--batch`` warm ``convert_batch`` calls on B copies of
-the 4 s clip (:func:`batch_times`). Every line names the card (``nvidia-smi``
-name and power limit). Needs a CUDA device.
+the 4 s clip (:func:`batch_times`), ``--decode`` the Whisper text
+decoder's steps at medium width (:func:`decode_times`). Every line names the
+card (``nvidia-smi`` name and power limit). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -270,12 +271,84 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+DECODE_STEPS = 32
+
+
+def decode_times(gpu: str) -> None:
+    """The Whisper text decoder's incremental steps at Whisper-medium's width
+    (random weights, the 4 s clip's window encoded through K4), greedy (one
+    row) and beam (five rows, reordered every step), over ``DECODE_STEPS``
+    steps after a warm-up: ms a step on the host clock (the step returns its
+    logits to the host, which waits for the device), the host's time to
+    issue the step's launches, the device's busy ms a step and kernel
+    launches a step under ``torch.profiler``, and the host's logit filters
+    and token choice of the decode loop on those logits."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from svc_inference_pipeline_tpu_torch.models import whisper_decoding as wd
+    from svc_inference_pipeline_tpu_torch.ops.resample import resample_host
+    from svc_inference_pipeline_tpu_torch.ops.whisper_mel import N_FRAMES, log_mel_spectrogram_frames, pad_or_trim
+
+    dec = wd.WhisperDecoder.random_init("medium", device="cuda")
+    tok = wd.get_tokenizer(True)
+    audio16 = resample_host(synth_clip(24000, CLIP_SECONDS[0]), 24000, 16000)
+    feats = dec.embed_audio(pad_or_trim(log_mel_spectrogram_frames(audio16, "cuda"), N_FRAMES)[None])
+    inc = dec.incremental
+    for rows in (1, 5):
+        f = feats.repeat(rows, 1, 1)
+        initial = tok.sot_sequence("en")
+        filters = dec._build_filters(tok, wd.DecodingOptions(), len(initial))
+
+        def steps(n, timed=None):
+            tokens = np.tile(np.asarray(initial, np.int32), (rows, 1))
+            logits, cache, off = inc.prime(tokens, f)
+            step_logits = logits[:, -1].copy()
+            for _ in range(n):
+                t0 = time.perf_counter()
+                for flt in filters:
+                    flt.apply(step_logits, tokens)
+                lp = wd._log_softmax_np(step_logits)
+                nxt = (np.argsort(lp, axis=-1)[:, ::-1][:, :1] if rows > 1 else lp.argmax(-1)[:, None])
+                nxt = nxt.astype(np.int32)
+                tokens = np.concatenate([tokens, nxt], axis=1)
+                t1 = time.perf_counter()
+                if rows > 1:
+                    cache = inc.reorder(cache, list(range(rows)))
+                with torch.no_grad():
+                    out, cache = dec.decoder(torch.as_tensor(nxt, dtype=torch.long, device="cuda"), f, cache, off)
+                t2 = time.perf_counter()
+                step_logits = out[:, -1].cpu().numpy()
+                off += 1
+                if timed is not None:
+                    timed.append((t1 - t0, t2 - t1, time.perf_counter() - t1))
+
+        steps(4)
+        timed = []
+        steps(DECODE_STEPS, timed)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            steps(DECODE_STEPS)
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        busy = busy_ms([(ev.time_range.start, ev.time_range.end) for ev in kernels])
+        host = statistics.median(h for h, _, _ in timed)
+        step = statistics.median(s for _, _, s in timed)
+        print(json.dumps({
+            "card": gpu, "decode": "beam" if rows > 1 else "greedy", "rows": rows, "steps": DECODE_STEPS,
+            "ms_per_step": 1e3 * step, "issue_ms_per_step": 1e3 * statistics.median(i for _, i, _ in timed),
+            "host_filter_ms_per_step": 1e3 * host, "host_share": host / (host + step),
+            "device_busy_ms_per_step": busy / (DECODE_STEPS + 1),
+            "device_spans_per_step": len(kernels) / (DECODE_STEPS + 1)}), flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
     p.add_argument("--steps", action="store_true")
     p.add_argument("--k2", action="store_true")
     p.add_argument("--batch", action="store_true")
+    p.add_argument("--decode", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -294,6 +367,9 @@ def main(argv=None) -> int:
     if args.k2:
         with torch.no_grad():
             k2_times(cfg, gpu)
+        return 0
+    if args.decode:
+        decode_times(gpu)
         return 0
     root = os.path.dirname(os.path.dirname(DEFAULT_CONFIG))
     for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):

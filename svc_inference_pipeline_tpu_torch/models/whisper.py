@@ -1,19 +1,25 @@
-"""Whisper audio encoder.
+"""Whisper audio encoder and text decoder.
 
-Counterpart of ``WhisperAudioEncoder`` in
-``svc_inference_pipeline_tpu/models/whisper.py`` (the decoder is not ported):
-conv stem with exact GELU, sinusoidal positions, pre-LN residual attention
-blocks with LayerNorm computed in f32, ``ln_post``. Matmuls run at the
-compute dtype; the attention is K4 (``ops/pallas/attention.py``), which
+Counterpart of ``svc_inference_pipeline_tpu/models/whisper.py``: conv stem
+with exact GELU, sinusoidal positions, pre-LN residual attention blocks with
+LayerNorm computed in f32, ``ln_post``. The encoder's matmuls run at its
+weights' dtype, and its attention is K4 (``ops/pallas/attention.py``), which
 takes its plain version on CPU tensors.
 
-[B, n_mels, 3000] log-mel -> [B, 1500, n_state] f32.
+The text decoder (``WhisperTextDecoder``, used by
+``models/whisper_decoding.py``) runs at f32: causal self-attention over a
+fixed-size KV buffer per layer, cross-attention over the audio features
+with their (k, v) computed once, and logits ``x @ token_embedding.T``. Its
+attention is not a kernel in the JAX package either (``_attention``'s einsum
+branch): here it is ``torch.matmul`` with the same split scale.
+
+Encoder: [B, n_mels, 3000] log-mel -> [B, 1500, n_state] f32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +34,6 @@ class WhisperDims:
     n_audio_state: int = 1024
     n_audio_head: int = 16
     n_audio_layer: int = 24
-    # the text decoder's dims: carried by every Whisper checkpoint and read
-    # by no module of the port (the decoder is not ported)
     n_vocab: int = 51865
     n_text_ctx: int = 448
     n_text_state: int = 1024
@@ -38,13 +42,13 @@ class WhisperDims:
 
 
 WHISPER_SIZES: Dict[str, WhisperDims] = {
-    "tiny": WhisperDims(80, 1500, 384, 6, 4),
-    "base": WhisperDims(80, 1500, 512, 8, 6),
-    "small": WhisperDims(80, 1500, 768, 12, 12),
-    "medium": WhisperDims(80, 1500, 1024, 16, 24),
-    "large-v1": WhisperDims(80, 1500, 1280, 20, 32),
-    "large-v2": WhisperDims(80, 1500, 1280, 20, 32),
-    "large": WhisperDims(80, 1500, 1280, 20, 32),
+    "tiny": WhisperDims(80, 1500, 384, 6, 4, 51865, 448, 384, 6, 4),
+    "base": WhisperDims(80, 1500, 512, 8, 6, 51865, 448, 512, 8, 6),
+    "small": WhisperDims(80, 1500, 768, 12, 12, 51865, 448, 768, 12, 12),
+    "medium": WhisperDims(80, 1500, 1024, 16, 24, 51865, 448, 1024, 16, 24),
+    "large-v1": WhisperDims(80, 1500, 1280, 20, 32, 51865, 448, 1280, 20, 32),
+    "large-v2": WhisperDims(80, 1500, 1280, 20, 32, 51865, 448, 1280, 20, 32),
+    "large": WhisperDims(80, 1500, 1280, 20, 32, 51865, 448, 1280, 20, 32),
 }
 
 
@@ -63,6 +67,25 @@ def layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def text_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The decoder's attention, q [B, Tq, D] over k, v [B, Tk, D]: q and k
+    each scaled by hd^-0.25, ``mask`` [Tq, Tk] added to the scores, softmax
+    in f32."""
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    hd = d // n_head
+    scale = hd ** -0.25
+    q = q.reshape(b, tq, n_head, hd).transpose(1, 2) * scale
+    k = k.reshape(b, tk, n_head, hd).permute(0, 2, 3, 1) * scale
+    v = v.reshape(b, tk, n_head, hd).transpose(1, 2)
+    qk = q @ k
+    if mask is not None:
+        qk = qk + mask
+    w = torch.softmax(qk.float(), dim=-1).to(q.dtype)
+    return (w @ v).transpose(1, 2).reshape(b, tq, d)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, n_state: int, n_head: int):
         super().__init__()
@@ -73,10 +96,32 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(n_state, n_state)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The encoder's self-attention, through K4."""
         from svc_inference_pipeline_tpu_torch.ops.pallas.attention import encoder_attention
 
         q, k, v = self.query(x), self.key(x), self.value(x)
         return self.out(encoder_attention(q.contiguous(), k.contiguous(), v.contiguous(), self.n_head))
+
+    def attend(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
+               mask: Optional[torch.Tensor] = None, kv: Optional[Tuple] = None,
+               kv_buffer: Optional[Tuple] = None, offset: int = 0):
+        """The decoder's self-attention (``xa`` None) or cross-attention over
+        ``xa``. ``kv`` is a precomputed (k, v). ``kv_buffer`` is a pair of
+        [B, T_max, D] buffers: the new k/v rows are written at ``offset``
+        and attention reads the rows written so far. Returns (out, (k, v))."""
+        q = self.query(x)
+        if kv is not None:
+            k, v = kv
+        else:
+            src = x if xa is None else xa
+            k, v = self.key(src), self.value(src)
+        if kv_buffer is not None:
+            kb, vb = kv_buffer
+            end = offset + x.shape[1]
+            kb[:, offset:end] = k
+            vb[:, offset:end] = v
+            k, v = kb[:, :end], vb[:, :end]
+        return self.out(text_attention(q, k, v, self.n_head, mask)), (k, v)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -88,10 +133,32 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp_0 = nn.Linear(n_state, 4 * n_state)
         self.mlp_2 = nn.Linear(4 * n_state, n_state)
 
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp_2(F.gelu(self.mlp_0(layer_norm_f32(self.mlp_ln, x))))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(layer_norm_f32(self.attn_ln, x))
-        y = F.gelu(self.mlp_0(layer_norm_f32(self.mlp_ln, x)))
-        return x + self.mlp_2(y)
+        return x + self.mlp(x)
+
+
+class TextResidualAttentionBlock(ResidualAttentionBlock):
+    """A decoder layer: causal self-attention, cross-attention over the audio
+    features, MLP."""
+
+    def __init__(self, n_state: int, n_head: int):
+        super().__init__(n_state, n_head)
+        self.cross_attn_ln = nn.LayerNorm(n_state)
+        self.cross_attn = MultiHeadAttention(n_state, n_head)
+
+    def forward(self, x: torch.Tensor, xa: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                cross_kv: Optional[Tuple] = None, self_buffer: Optional[Tuple] = None,
+                offset: int = 0):
+        h, self_kv = self.attn.attend(layer_norm_f32(self.attn_ln, x), mask=mask,
+                                      kv_buffer=self_buffer, offset=offset)
+        x = x + h
+        h, cross_kv = self.cross_attn.attend(layer_norm_f32(self.cross_attn_ln, x), xa=xa, kv=cross_kv)
+        x = x + h
+        return x + self.mlp(x), (self_kv, cross_kv)
 
 
 class WhisperAudioEncoder(nn.Module):
@@ -121,3 +188,58 @@ class WhisperAudioEncoder(nn.Module):
         for i in range(self.dims.n_audio_layer):
             x = getattr(self, f"block_{i}")(x)
         return layer_norm_f32(self.ln_post, x).float()
+
+
+class WhisperTextDecoder(nn.Module):
+    """Tokens [B, T] and audio features [B, n_audio_ctx, D] -> logits
+    [B, T, n_vocab] f32, with a KV cache.
+
+    ``cache`` holds ``cross_i`` (the cross-attention (k, v), computed from
+    the audio features when absent) and, for incremental decoding,
+    ``self_i``: a pair of [B, n_text_ctx, D] buffers that the new tokens'
+    k/v rows are written into at ``offset``. Returns (logits, cache).
+
+    ``embedding_dtypes`` are the storage dtypes of the token and positional
+    embeddings in the weights' source: their sum is taken at those dtypes
+    (fp16 for OpenAI's files), as the JAX decoder's ``nn.Embed`` does, and
+    everything after it at f32."""
+
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        self.dims = dims
+        self.embedding_dtypes = (torch.float32, torch.float32)
+        d = dims.n_text_state
+        self.positional_embedding = nn.Parameter(torch.empty(dims.n_text_ctx, d))
+        self.token_embedding = nn.Embedding(dims.n_vocab, d)
+        for i in range(dims.n_text_layer):
+            self.add_module(f"block_{i}", TextResidualAttentionBlock(d, dims.n_text_head))
+        self.ln = nn.LayerNorm(d)
+
+    def forward(self, tokens: torch.Tensor, audio_features: torch.Tensor,
+                cache: Optional[Dict[str, Tuple]] = None, offset: int = 0):
+        tq = tokens.shape[-1]
+        tok_dtype, pos_dtype = self.embedding_dtypes
+        x = (self.token_embedding(tokens).to(tok_dtype)
+             + self.positional_embedding[offset: offset + tq].to(pos_dtype)).float()
+        xa = audio_features.float()
+        # row i (position offset + i) sees the columns up to its own position;
+        # a single new token sees every row written so far and needs no mask
+        mask = None
+        if tq > 1:
+            rows = offset + torch.arange(tq, device=x.device)[:, None]
+            cols = torch.arange(offset + tq, device=x.device)[None, :]
+            mask = torch.zeros((), device=x.device).masked_fill(cols > rows, float("-inf"))
+        incremental = cache is not None and "self_0" in cache
+        new_cache: Dict[str, Tuple] = {}
+        for i in range(self.dims.n_text_layer):
+            x, (self_kv, cross_kv) = getattr(self, f"block_{i}")(
+                x, xa, mask=mask, cross_kv=cache.get(f"cross_{i}") if cache else None,
+                self_buffer=cache[f"self_{i}"] if incremental else None, offset=offset)
+            new_cache[f"cross_{i}"] = cross_kv
+            new_cache[f"self_{i}"] = cache[f"self_{i}"] if incremental else self_kv
+        x = layer_norm_f32(self.ln, x)
+        return x.float() @ self.token_embedding.weight.float().T, new_cache
+
+
+def is_multilingual(dims: WhisperDims) -> bool:
+    return dims.n_vocab == 51865

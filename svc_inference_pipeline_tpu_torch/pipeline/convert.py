@@ -144,7 +144,8 @@ class SVCPipeline:
         ``cfg.whisper_model`` (a ``.pt`` path, or a registry name resolved
         through ``checkpoints/fetch.py``), ``cfg.svc_model_path`` and
         ``cfg.vocoder_model_path``. A mapper or vocoder file that does not
-        exist is replaced by random weights, as in the JAX package. A
+        exist is replaced by random weights, as in the JAX package, with a
+        warning on the ``svc_tpu.pipeline`` logger that names the path. A
         registry name that is neither cached nor downloadable raises
         ``FileNotFoundError`` unless ``cfg.allow_random_whisper`` or
         ``SVC_ALLOW_RANDOM_WHISPER=1`` opts into random Whisper weights at the
@@ -188,12 +189,21 @@ class SVCPipeline:
             cfg = cls._adapt_content_width(cfg, whisper.dims.n_audio_state)
         with torch.device(dev):
             models = cls._models(cfg, cd)
+
+        def missing(what: str, path) -> None:
+            from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
+
+            get_logger("svc_tpu.pipeline").warning(
+                "%s checkpoint %s not found — falling back to RANDOM weights", what, path)
+
         if not random_weights and os.path.exists(str(cfg.svc_model_path)):
             from svc_inference_pipeline_tpu_torch.checkpoints.torch_convert import load_mapper_params
 
             for m, p in zip(models[:2], load_mapper_params(cfg.svc_model_path, cfg.mapper)):
                 load_jax_params(m, p)
         else:
+            if not random_weights:
+                missing("mapper", cfg.svc_model_path)
             for m in models[:2]:
                 random_init_(m, g)
         if not random_weights and os.path.exists(str(cfg.vocoder_model_path)):
@@ -201,6 +211,8 @@ class SVCPipeline:
 
             load_jax_params(models[2], load_vocoder_params(cfg.vocoder_model_path, cfg.vocoder))
         else:
+            if not random_weights:
+                missing("vocoder", cfg.vocoder_model_path)
             random_init_(models[2], g)
         return cls(cfg, *models, whisper, dev, bucket)
 

@@ -21,6 +21,18 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+def pack_data(data: dict, device=None) -> dict:
+    """Dict of numpy arrays -> dict of tensors with a leading batch axis of
+    one, on ``device`` (None: the GPU). The reference's helper; prefer
+    ``SVCPipeline.extract_features`` for real use."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
+
+    device = resolve_device(device)
+    return {key: torch.as_tensor(np.asarray(value), device=device)[None] for key, value in data.items()}
+
+
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
@@ -30,7 +42,8 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     """Read a RIFF/WAVE file → (samples ``[n, channels]`` raw dtype, rate).
 
     Supports PCM 8/16/24/32-bit and IEEE float 32/64-bit, plus
-    WAVE_FORMAT_EXTENSIBLE wrappers of either.
+    WAVE_FORMAT_EXTENSIBLE wrappers of either. 24-bit samples come back
+    in the top three bytes of an int32 (x * 256).
     """
     with open(path, "rb") as f:
         data = f.read()
@@ -67,12 +80,13 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
             samples = np.frombuffer(raw, dtype="<i2")
         elif bits == 24:
             b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
+            # left-justified in int32, so load_audio's -iinfo.min rule gives
+            # x / 2^23, as the native codec does
             samples = (
-                b[:, 0].astype(np.int32)
-                | (b[:, 1].astype(np.int32) << 8)
-                | (b[:, 2].astype(np.int32) << 16)
+                (b[:, 0].astype(np.int32) << 8)
+                | (b[:, 1].astype(np.int32) << 16)
+                | (b[:, 2].astype(np.int32) << 24)
             )
-            samples = (samples << 8) >> 8  # sign-extend
         elif bits == 32:
             samples = np.frombuffer(raw, dtype="<i4")
         else:

@@ -153,18 +153,35 @@ def _wav_file(tmp_path, kind, n=3000, ch=1, rate=24000):
 @pytest.mark.parametrize("kind", list(WAV_KINDS))
 def test_native_read_wav_equals_numpy(tmp_path, kind):
     """Channel 0, normalised as load_audio normalises the numpy codec's
-    integer samples (by -iinfo.min). 24-bit PCM is the exception, in both
-    packages: the numpy codec returns it sign-extended in int32, which that
-    rule divides by 2^31, while the native codec divides by 2^23; the native
-    codec is held to the numpy samples over 2^23."""
+    integer samples (by -iinfo.min, every integer kind at its dtype's full
+    scale: 24-bit PCM comes back left-justified in int32)."""
     path = _wav_file(tmp_path, kind, ch=2)
     got, rate = native.read_wav(path)
     raw, raw_rate = audio_io.read_wav(path)
     ch0 = raw[:, 0]
-    full_scale = 2.0**23 if kind == "pcm24" else -float(np.iinfo(ch0.dtype).min) if ch0.dtype.kind == "i" else 1.0
+    full_scale = -float(np.iinfo(ch0.dtype).min) if ch0.dtype.kind == "i" else 1.0
     want = ch0.astype(np.float32) / full_scale
     assert rate == raw_rate == 24000 and got.shape == (len(raw), 1)
     np.testing.assert_array_equal(got[:, 0], want)
+
+
+@pytest.mark.parametrize("kind", list(WAV_KINDS))
+def test_load_audio_numpy_fallback_equals_native(tmp_path, monkeypatch, kind):
+    """load_audio gives the same waveform through the native codec and
+    through the numpy fallback (the native reader made to raise); 24-bit
+    PCM lands at x / 2^23 on both."""
+    path = _wav_file(tmp_path, kind)
+    with_native, rate = audio_io.load_audio(path)
+
+    def unavailable(_path):
+        raise OSError("native codec unavailable")
+
+    monkeypatch.setattr(native, "read_wav", unavailable)
+    fallback, fallback_rate = audio_io.load_audio(path)
+    assert rate == fallback_rate == 24000 and fallback.dtype == np.float32
+    np.testing.assert_array_equal(fallback, with_native)
+    if kind == "pcm24":
+        np.testing.assert_array_equal(with_native, _tone_pcm(3000, 1, 24, seed=7)[:, 0] / np.float32(2.0**23))
 
 
 @pytest.mark.parametrize("rates", [(44100, 24000), (24000, 16000), (48000, 24000), (16000, 24000)])

@@ -395,6 +395,39 @@ def test_registry_name_without_cache_raises_or_falls_back(files, tmp_path, monke
     assert np.isfinite(wave).all()
 
 
+def test_missing_mapper_and_vocoder_warn_and_draw_as_random_weights(cfg, tmp_path, monkeypatch):
+    """A mapper or vocoder file that does not exist goes random with a
+    warning that names the missing path, and the weights drawn are those of
+    ``random_weights=True``: the same draws from the one generator, in the
+    same order."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    monkeypatch.delenv("SVC_ALLOW_DOWNLOAD", raising=False)
+    monkeypatch.setenv("SVC_ALLOW_RANDOM_WHISPER", "1")
+    absent = {"svc_model_path": str(tmp_path / "no_mapper.pt"),
+              "vocoder_model_path": str(tmp_path / "no_vocoder.pt")}
+    d = dict(_small_dict(cfg), whisper_model="tiny", **absent)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = logging.getLogger("svc_tpu.pipeline")
+    logger.addHandler(handler)
+    try:
+        pipe = SVCPipeline.from_config(HParams(**d), device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    messages = [r.getMessage() for r in records]
+    for what, key in (("mapper", "svc_model_path"), ("vocoder", "vocoder_model_path")):
+        assert any(what in m and absent[key] in m and "RANDOM weights" in m for m in messages), messages
+    ref = SVCPipeline.from_config(HParams(**d), random_weights=True, whisper_size="tiny", device="cpu")
+    for name in ("cond_encoder", "denoiser", "vocoder"):
+        got, want = getattr(pipe, name).state_dict(), getattr(ref, name).state_dict()
+        assert sorted(got) == sorted(want), name
+        for k in want:
+            assert torch.equal(got[k], want[k]), (name, k)
+    for k, v in ref.whisper.encoder.state_dict().items():
+        assert torch.equal(pipe.whisper.encoder.state_dict()[k], v), k
+
+
 # ---------------------------------------------------------------------------
 # Converted-tree files
 # ---------------------------------------------------------------------------

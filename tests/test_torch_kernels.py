@@ -514,3 +514,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         amp_pair.fused_amp_pair(x.to(BF), pair, 5, 1)
     with pytest.raises(ValueError, match="C <= 384"):
         amp_pair.fused_amp_pair(torch.zeros((1, 8, 392), dtype=BF, device=dev), pair, 3, 1)
+
+
+def test_whisper_decoder_incremental_equals_full_prefix_at_medium_width(dev):
+    """The text decoder at Whisper-medium's width (24 layers, 1024, 16 heads,
+    vocabulary 51865) on random weights: prime + one-token steps over the
+    KV buffers equal the full-prefix logits within 2e-4, also after a beam
+    reorder of identical rows."""
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.models.whisper import WHISPER_SIZES, WhisperTextDecoder
+    from svc_inference_pipeline_tpu_torch.models.whisper_decoding import IncrementalDecoder
+
+    dims = WHISPER_SIZES["medium"]
+    g = torch.Generator(device=dev).manual_seed(11)
+    with torch.device(dev):
+        dec = WhisperTextDecoder(dims)
+    random_init_(dec, g)
+    feats = torch.randn((1, dims.n_audio_ctx, dims.n_text_state), generator=g, device=dev).repeat(2, 1, 1)
+    tokens = np.asarray([[50258, 50259, 50359, 50364, 400, 5000, 23, 50400, 7, 1000]] * 2, np.int32)
+    with torch.no_grad():
+        full, _ = dec(torch.as_tensor(tokens, dtype=torch.long, device=dev), feats)
+    full = full.cpu().numpy()
+    inc = IncrementalDecoder(dims, dec)
+    logits, cache, offset = inc.prime(tokens[:, :3], feats)
+    np.testing.assert_allclose(logits, full[:, :3], rtol=0, atol=2e-4)
+    for i in range(3, tokens.shape[1]):
+        cache = inc.reorder(cache, [1, 0])
+        step, cache = inc.step(tokens[:, i: i + 1], feats, cache, offset)
+        offset += 1
+        np.testing.assert_allclose(step, full[:, i], rtol=0, atol=2e-4)

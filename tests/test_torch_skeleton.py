@@ -36,9 +36,10 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-# every module of the port (checkpoint loading, the native codecs and eval
-# among them), then one tiny conversion on CPU, in a fresh interpreter that
-# must end without jax loaded
+# every module of the port (checkpoint loading, the native codecs, eval and
+# Whisper decoding among them), then one tiny conversion and one tiny
+# transcription on CPU, in a fresh interpreter that must end without jax or
+# transformers loaded
 _NO_JAX = """
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -46,7 +47,8 @@ import svc_inference_pipeline_tpu_torch as pkg
 names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
 for name in sorted(names):
     importlib.import_module(name)
-new = {"eval", "checkpoints.torch_convert", "checkpoints.native_io", "checkpoints.fetch", "native.wav_codec"}
+new = {"eval", "checkpoints.torch_convert", "checkpoints.native_io", "checkpoints.fetch", "native.wav_codec",
+       "models.whisper_decoding", "models.text_normalizers", "transcribe"}
 assert {pkg.__name__ + "." + m for m in new} <= names, names
 from svc_inference_pipeline_tpu_torch.config import HParams, load_config
 from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
@@ -59,7 +61,24 @@ pipe = SVCPipeline.from_config(HParams(**d), random_weights=True, device="cpu")
 wave = pipe.convert(np.sin(np.arange(12000) / 10).astype(np.float32), "svcc_CDF1",
                     generator=torch.Generator().manual_seed(0))
 assert wave.shape == (46 * 256,) and np.isfinite(wave).all(), wave.shape
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "svc_inference_pipeline_tpu.")))
+import dataclasses, os, tempfile
+import chip_smoke
+from svc_inference_pipeline_tpu_torch import transcribe
+from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+from svc_inference_pipeline_tpu_torch.models.whisper import WhisperAudioEncoder, WhisperDims
+from svc_inference_pipeline_tpu_torch.utils.audio_io import write_wav
+dims = WhisperDims(80, 1500, 64, 4, 1, 51865, 448, 64, 4, 1)
+enc = random_init_(WhisperAudioEncoder(dims), torch.Generator().manual_seed(0))
+with tempfile.TemporaryDirectory() as tmp:
+    model = os.path.join(tmp, "w.pt")
+    torch.save(chip_smoke.whisper_checkpoint(dataclasses.asdict(dims), chip_smoke.module_tree(enc),
+                                             np.random.default_rng(0)), model)
+    write_wav(os.path.join(tmp, "in.wav"), 0.3 * np.sin(np.arange(16000) / 7), 16000)
+    assert transcribe.main([os.path.join(tmp, "in.wav"), "--model", model, "--device", "cpu", "--beam_size", "2",
+                            "--logprob_threshold=-inf", "--compression_ratio_threshold", "inf", "-o", tmp]) == 0
+    assert open(os.path.join(tmp, "in.wav.vtt")).read().startswith("WEBVTT")
+bad = sorted(m for m in sys.modules if m in ("jax", "transformers")
+             or m.startswith(("jax.", "transformers.", "svc_inference_pipeline_tpu.")))
 assert not bad, bad
 print("NO_JAX_OK")
 """
@@ -69,6 +88,18 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX, CONFIG, REPO], capture_output=True, text=True,
                          timeout=300, cwd=REPO)
     assert out.returncode == 0 and "NO_JAX_OK" in out.stdout, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("size", ["tiny", "base", "small", "medium", "large-v1", "large-v2", "large"])
+def test_whisper_sizes_equal_jax(size):
+    """Every size's ten fields, the text decoder's among them."""
+    import dataclasses
+
+    from svc_inference_pipeline_tpu.models.whisper import WHISPER_SIZES as JAX_SIZES
+    from svc_inference_pipeline_tpu_torch.models.whisper import WHISPER_SIZES
+
+    assert set(WHISPER_SIZES) == set(JAX_SIZES)
+    assert dataclasses.asdict(WHISPER_SIZES[size]) == dataclasses.asdict(JAX_SIZES[size])
 
 
 def test_config_matches_jax_loader_without_json5(monkeypatch):
