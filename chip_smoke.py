@@ -88,6 +88,30 @@
       the log-probs of a forced token sequence from the K4 route's bf16
       features and from the plain route's f32 features agree within
       ``LOGPROB_BF16_BOUND``;
+   r. ``get_f0_features(method=m)`` on the 4 s clip for the Praat, DIO, pYIN
+      and Harvest trackers (host numpy, no launches): each must voice >= 95%
+      of the tone's frames (0.1-1.7 s and 2.3-3.9 s) within 50 cents of the
+      true F0; prints each one's seconds and voiced share;
+   s. CREPE at capacity "full" from a torchcrepe-layout file of random
+      weights with non-trivial BatchNorm statistics (``crepe_checkpoint``)
+      named by ``SVC_CREPE_WEIGHTS``: ``get_f0_features_using_crepe`` with its
+      net on the card (no launches); f0 of mel_len frames and finite, the
+      net's probabilities on the clip's frames within 1e-4 of the same
+      module on the CPU; prints the net's ms and the whole call's;
+   t. ``WhisperPPGExtractor.extract`` at Whisper-medium width on random
+      weights: the 4 s clip (K4 x 24) and a 35 s clip with ``chunked=True``
+      (two 30 s windows encoded as one batch: K4 x 24); shapes, finite
+      values, and the 4 s features of the K4 route (bf16) against the plain
+      route (f32) on the card within ``CONTENT_BF16_BOUND``; prints each
+      call's ms;
+   u. ContentVec at HuBERT-base width (12 layers, 768, output layer 9,
+      ``final_proj`` 256) from a fairseq-layout file (``hubert_checkpoint``:
+      ``{"args", "model"}``, the positional conv a weight-norm pair over dim
+      2), ``extract`` on the card (no launches): the loaded parameters equal
+      the file's (the fold within one f32 ulp of g v / |v| in float64),
+      features [mel_len, 256],
+      finite and within 1e-3 x max|cpu| of the same file on the CPU; prints
+      the load seconds and the extract's ms;
    p. (last) the transcription CLI on the 4 s clip with Whisper-medium at
       full width (24 + 24 layers, 1024 wide, vocabulary 51865) on random
       weights, the whole fallback ladder (beam 5 at temperature 0, then
@@ -1149,7 +1173,7 @@ def module_tree(module) -> dict:
                 leaf, v = "kernel", v.transpose(2, 1, 0)
             elif isinstance(sub, nn.Embedding):
                 leaf = "embedding"
-            elif isinstance(sub, nn.LayerNorm):
+            elif isinstance(sub, (nn.LayerNorm, nn.GroupNorm)):
                 leaf = "scale"
         node = tree
         for k in path:
@@ -1309,6 +1333,76 @@ def whisper_checkpoint(dims: dict, enc: dict, rng) -> dict:
                                       "mlp_2": lin(n_in=4 * d), "mlp_ln": norm()})
     ln("decoder.ln", norm())
     return {"dims": dict(dims), "model_state_dict": _tensors(sd, dtype=torch.float16)}
+
+
+def crepe_checkpoint(model: str, rng) -> dict:
+    """A torchcrepe state dict of random weights for capacity ``model``:
+    Conv2d kernels [out, in, k, 1] and BatchNorm with non-trivial running
+    statistics (mean ~ 0.2 N(0, 1), var in [0.5, 1.5]), so that BN after the
+    ReLU and its fold into scale/shift are exercised."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.ops.f0_crepe import N_BINS, _capacity
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    sd, in_ch = {}, 1
+    for i, (f, k) in enumerate(zip(_capacity(model), [512, 64, 64, 64, 64, 64])):
+        sd[f"conv{i + 1}.weight"] = t(rng.standard_normal((f, in_ch, k, 1)) / np.sqrt(k * in_ch))
+        sd[f"conv{i + 1}.bias"] = t(0.1 * rng.standard_normal(f))
+        sd[f"conv{i + 1}_BN.weight"] = t(0.5 + rng.random(f))
+        sd[f"conv{i + 1}_BN.bias"] = t(0.2 * rng.standard_normal(f))
+        sd[f"conv{i + 1}_BN.running_mean"] = t(0.2 * rng.standard_normal(f))
+        sd[f"conv{i + 1}_BN.running_var"] = t(0.5 + rng.random(f))
+        in_ch = f
+    sd["classifier.weight"] = t(rng.standard_normal((N_BINS, in_ch * 4)) / np.sqrt(in_ch * 4))
+    sd["classifier.bias"] = t(0.1 * rng.standard_normal(N_BINS))
+    return sd
+
+
+def hubert_checkpoint(tree: dict, cfg, rng) -> dict:
+    """A fairseq HuBERT/ContentVec checkpoint, ``{"args", "model"}``, of a
+    JAX-layout ``HubertModel`` tree: ``args`` an ``argparse.Namespace`` as
+    fairseq pickles it, ``model`` the state dict with the positional conv as
+    a weight-norm pair over dim 2 (g [1, 1, K]; v the weight scaled by a
+    random factor in [0.5, 2] per tap, so g v / |v| is the weight again to
+    within float rounding)."""
+    import argparse
+
+    import numpy as np
+
+    sd = {}
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
+
+    fe = tree["feature_extractor"]
+    for i in range(len(cfg.conv_layers)):
+        sd[f"feature_extractor.conv_layers.{i}.0.weight"] = fe[f"conv_{i}"]["kernel"].transpose(2, 1, 0)
+    ln("feature_extractor.conv_layers.0.2", fe["group_norm"])
+    ln("layer_norm", tree["layer_norm"])
+    _put_linear(sd, "post_extract_proj", tree["post_extract_proj"])
+    w = tree["pos_conv"]["kernel"].transpose(2, 1, 0)  # [C, C/groups, K]
+    sd["encoder.pos_conv.0.weight_g"] = np.sqrt(
+        np.sum(np.asarray(w, np.float64) ** 2, axis=(0, 1), keepdims=True)).astype(np.float32)
+    sd["encoder.pos_conv.0.weight_v"] = (w * rng.uniform(0.5, 2.0, (1, 1, w.shape[2]))).astype(np.float32)
+    sd["encoder.pos_conv.0.bias"] = tree["pos_conv"]["bias"]
+    ln("encoder.layer_norm", tree["encoder_layer_norm"])
+    for i in range(cfg.encoder_layers):
+        base, p = f"encoder.layers.{i}", tree[f"layer_{i}"]
+        for k in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _put_linear(sd, f"{base}.self_attn.{k}", p["self_attn"][k])
+        ln(f"{base}.self_attn_layer_norm", p["self_attn_layer_norm"])
+        _put_linear(sd, f"{base}.fc1", p["fc1"])
+        _put_linear(sd, f"{base}.fc2", p["fc2"])
+        ln(f"{base}.final_layer_norm", p["final_layer_norm"])
+    _put_linear(sd, "final_proj", tree["final_proj"])
+    args = argparse.Namespace(arch="hubert", encoder_layers=cfg.encoder_layers, encoder_embed_dim=cfg.encoder_dim,
+                              final_dim=cfg.final_dim, conv_pos=cfg.pos_conv_kernel,
+                              conv_pos_groups=cfg.pos_conv_groups)
+    return {"args": args, "model": _tensors(sd)}
 
 
 def param_mismatches(loaded, expected, names=None) -> list:
@@ -1567,6 +1661,246 @@ def checkpoint_paths(cfg, counters, paths, device) -> dict:
         out["transcribe_file"] = transcribe_file_path(counters, paths, device, files["whisper-medium-synthetic"],
                                                       whisper_ckpt, enc, tmp)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Paths r-u: the feature extractors
+# ---------------------------------------------------------------------------
+
+F0_METHODS = ("parselmouth", "dio", "pyin", "harvest")
+# path r: frames of the synthetic clip's tone (0.1-1.7 s and 2.3-3.9 s) that
+# each tracker must voice within F0_MAX_CENTS of the true F0
+F0_MIN_SHARE, F0_MAX_CENTS = 0.95, 50.0
+CREPE_PROB_BOUND = 1e-4  # path s: the net's probabilities on the card vs on the CPU, f32 both
+# path t: the per-clip features of the K4 route (bf16 weights and
+# activations) against the plain route (f32) on the same draws: measured
+# 8.1e-2 on an H100 (max|f32| 3.7); the bound is 2.7x that, as path q's
+CONTENT_BF16_BOUND = 0.22
+CONTENTVEC_REL_BOUND = 1e-3  # path u: features on the card vs the CPU, of max|cpu|
+
+
+def f0_paths(cfg, counters, paths) -> dict:
+    """Path r: ``get_f0_features(method=m)`` on the synthetic 4 s clip for
+    each tracker (host numpy, no launches); each must voice >= F0_MIN_SHARE of
+    the tone's frames within F0_MAX_CENTS of the true F0."""
+    import numpy as np
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.ops.f0 import get_f0_features
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
+
+    audio = clip(cfg.fs, CLIP_SECONDS)
+    mel_len = mel_frame_count(cfg, len(audio))
+    t = np.arange(mel_len) * cfg.hop_length / cfg.fs
+    true = 220.0 * 2 ** (0.5 / 12 * np.sin(2 * np.pi * 5.5 * t))  # measure.synth_clip's F0
+    tone = ((t >= 0.1) & (t <= 1.7)) | ((t >= 2.3) & (t <= 3.9))
+    out = {}
+    for method in F0_METHODS:
+        got = {}
+
+        def run():
+            t0 = time.perf_counter()
+            got["f0"], _ = get_f0_features(audio, mel_len, cfg, method=method)
+            return {"seconds": time.perf_counter() - t0}
+
+        drive(f"f0 {method}", counters, run, {}, paths)
+        f0 = got["f0"]
+        cents = np.abs(1200 * np.log2(np.maximum(f0, 1e-9) / true))
+        share = float(((f0 > 0) & (cents <= F0_MAX_CENTS))[tone].mean())
+        voiced = float((f0 > 0).mean())
+        out[method] = {"seconds": paths[-1]["seconds"], "tone_share": share, "voiced_share": voiced,
+                       "p95_cents": float(np.percentile(cents[tone & (f0 > 0)], 95))}
+        print(f"path r {method}: {out[method]['seconds']:.3f}s, {mel_len} frames, voiced {voiced:.3f}, tone frames "
+              f"within {F0_MAX_CENTS:g} cents {share:.3f} (gate {F0_MIN_SHARE}), p95 {out[method]['p95_cents']:.1f} cents")
+        if f0.shape != (mel_len,) or not share >= F0_MIN_SHARE:
+            raise AssertionError(f"path r {method}: shape {f0.shape}, tone share {share}")
+    return out
+
+
+def crepe_path(cfg, counters, paths, device, tmp: str) -> dict:
+    """Path s: CREPE at capacity "full" from a torchcrepe-layout file of
+    random weights (``crepe_checkpoint``) named by ``SVC_CREPE_WEIGHTS``, the
+    chain ``get_f0_features_using_crepe`` with its net on the card (no
+    launches); f0 [mel_len] and finite, and the net's probabilities on the
+    clip's frames within CREPE_PROB_BOUND of the same module on the CPU."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.ops import f0_crepe
+    from svc_inference_pipeline_tpu_torch.ops.resample import resample_host
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
+
+    path = os.path.join(tmp, "full.pth")
+    torch.save(crepe_checkpoint("full", np.random.default_rng(12)), path)
+    audio = clip(cfg.fs, CLIP_SECONDS)
+    mel_len = mel_frame_count(cfg, len(audio))
+    got = {}
+    old = os.environ.get("SVC_CREPE_WEIGHTS")
+    os.environ["SVC_CREPE_WEIGHTS"] = path
+    try:
+        def run():
+            t0 = time.perf_counter()
+            got["f0"] = f0_crepe.get_f0_features_using_crepe(audio, mel_len, cfg.fs, cfg.hop_length, 160,
+                                                             float(cfg.f0_min), float(cfg.f0_max), device=device)
+            return {"call_s": time.perf_counter() - t0}
+
+        drive("crepe full", counters, run, {}, paths)
+        f0 = got["f0"]
+        if f0.shape != (mel_len,) or not np.isfinite(f0).all():
+            raise AssertionError(f"path s: f0 {f0.shape}, finite {bool(np.isfinite(f0).all())}")
+        params = f0_crepe._PARAM_CACHE[(path, "full")]
+    finally:
+        if old is None:
+            os.environ.pop("SVC_CREPE_WEIGHTS", None)
+        else:
+            os.environ["SVC_CREPE_WEIGHTS"] = old
+    frames = f0_crepe.frame_audio(resample_host(audio, cfg.fs, f0_crepe.SAMPLE_RATE), 160)
+    net = f0_crepe.build_crepe(params, "full", device)
+    probs = f0_crepe.crepe_probs(net, frames)
+    probs_cpu = f0_crepe.crepe_probs(f0_crepe.build_crepe(params, "full", "cpu"), frames)
+    err = float(np.abs(probs - probs_cpu).max())
+    frames_dev = torch.as_tensor(frames, device=device)
+    with torch.no_grad():
+        net_ms = cuda_ms(lambda: net(frames_dev), reps=5)
+    row = {"frames": len(frames), "net_ms": net_ms, "call_s": paths[-1]["call_s"], "prob_max_abs": err,
+           "voiced_share": float((f0 > 0).mean())}
+    print(f"path s ({card_line()}): {len(frames)} frames, net {net_ms:.3f} ms (one call, f32, TF32 off), whole call "
+          f"{1e3 * row['call_s']:.1f} ms; probabilities card vs CPU max |d| {err:.3e} (bound {CREPE_PROB_BOUND}); "
+          f"voiced {row['voiced_share']:.3f}")
+    if not err <= CREPE_PROB_BOUND:
+        raise AssertionError(f"path s: probabilities card vs CPU {err} > {CREPE_PROB_BOUND}")
+    return row
+
+
+def content_path(cfg, counters, paths, device) -> dict:
+    """Path t: ``WhisperPPGExtractor.extract`` at Whisper-medium width on
+    random weights: the 4 s clip (one window, K4 x 24) and a 35 s clip with
+    ``chunked=True`` (two windows, encoded as one batch of two: K4 x 24);
+    shapes, finite values, and the 4 s features of the K4 route (bf16)
+    against the plain route (f32 weights, the plain attention) on the card
+    within CONTENT_BF16_BOUND."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.ops.pallas import attention
+    from svc_inference_pipeline_tpu_torch.pipeline.content import WhisperPPGExtractor
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
+
+    def build(dtype):
+        return WhisperPPGExtractor.random_init(WHISPER_SIZE, torch.Generator(device=device).manual_seed(5), device,
+                                               compute_dtype=dtype, fs=cfg.fs)
+
+    ext = build(torch.bfloat16)
+    short = clip(cfg.fs, CLIP_SECONDS)
+    long = np.concatenate([short] * 9)[: 35 * cfg.fs]
+    out = {}
+    for name, audio in (("4 s", short), ("35 s chunked", long)):
+        mel_len = mel_frame_count(cfg, len(audio))
+        got = {}
+
+        def run():
+            t0 = time.perf_counter()
+            got["feats"] = ext.extract(audio, mel_len, chunked=True)
+            return {"call_s": time.perf_counter() - t0}
+
+        drive(f"whisper content {name}", counters, run, {"K4": 24}, paths)
+        feats = got["feats"]
+        if feats.shape != (mel_len, ext.dims.n_audio_state) or not np.isfinite(feats).all():
+            raise AssertionError(f"path t {name}: {feats.shape}, finite {bool(np.isfinite(feats).all())}")
+        out[name] = {"call_s": paths[-1]["call_s"], "frames": mel_len}
+        if name == "4 s":
+            ref = got["feats"]
+    plain = build(torch.float32)
+    with mock.patch.object(attention, "encoder_attention", attention.encoder_attention_plain):
+        f32 = plain.extract(short, len(ref))
+    err = float(np.abs(ref - f32).max())
+    out["bf16_max_abs"], out["f32_max"] = err, float(np.abs(f32).max())
+    print(f"path t ({card_line()}): 4 s {1e3 * out['4 s']['call_s']:.1f} ms, 35 s (two windows) "
+          f"{1e3 * out['35 s chunked']['call_s']:.1f} ms; K4 (bf16) vs plain (f32) features max |d| {err:.3e} "
+          f"(bound {CONTENT_BF16_BOUND}, max|f32| {out['f32_max']:.3e})")
+    if not err <= CONTENT_BF16_BOUND:
+        raise AssertionError(f"path t: bf16 vs f32 features {err} > {CONTENT_BF16_BOUND}")
+    return out
+
+
+def contentvec_path(cfg, counters, paths, device, tmp: str) -> dict:
+    """Path u: ContentVec at HuBERT-base width (12 layers, 768, output layer
+    9, ``final_proj`` 256) from a fairseq-layout file of random weights
+    (``hubert_checkpoint``, the positional conv a weight-norm pair), then
+    ``extract`` on the card (no launches); the loaded parameters equal the
+    file's (the positional conv within one f32 ulp of g v / |v| in float64
+    from the file's pair, which the reference computes), the features
+    [mel_len, 256], finite and within CONTENTVEC_REL_BOUND x max|cpu| of the
+    same file on the CPU."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from svc_inference_pipeline_tpu_torch.pipeline.content import ContentVecExtractor
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
+
+    hcfg = HubertConfig()
+    g = torch.Generator().manual_seed(9)
+    drawn = random_init_(HubertModel(hcfg), g)
+    with torch.no_grad():  # every vector drawn too, so a bias or norm mix-up shows
+        for p in drawn.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=g))
+    path = os.path.join(tmp, "contentvec.pt")
+    ckpt = hubert_checkpoint(module_tree(drawn), hcfg, np.random.default_rng(9))
+    torch.save(ckpt, path)
+    audio = clip(cfg.fs, CLIP_SECONDS)
+    mel_len = mel_frame_count(cfg, len(audio))
+    got = {}
+
+    def run():
+        t0 = time.perf_counter()
+        got["ext"] = ContentVecExtractor.from_torch_checkpoint(path, device=device, fs=cfg.fs)
+        t1 = time.perf_counter()
+        got["feats"] = got["ext"].extract(audio, mel_len)
+        return {"load_s": t1 - t0, "extract_s": time.perf_counter() - t1}
+
+    drive("contentvec from fairseq file", counters, run, {}, paths)
+    feats = got["feats"]
+    want = dict(drawn.named_parameters())
+    loaded = dict(got["ext"].model.named_parameters())
+    g_, v_ = (ckpt["model"][f"encoder.pos_conv.0.weight_{k}"].double().numpy() for k in "gv")
+    fold = (g_ * v_ / np.sqrt(np.sum(v_ * v_, axis=(0, 1), keepdims=True))).astype(np.float32)
+    bad = []
+    for name, p in loaded.items():
+        a = p.detach().cpu().numpy()
+        if name == "pos_conv.weight":
+            ok = (np.abs(a - fold) <= np.spacing(np.abs(fold))).all()
+        else:
+            ok = np.array_equal(a, want[name].detach().numpy())
+        if not ok:
+            bad.append(name)
+    cpu = ContentVecExtractor.from_torch_checkpoint(path, device="cpu", fs=cfg.fs).extract(audio, mel_len)
+    err, scale = float(np.abs(feats - cpu).max()), float(np.abs(cpu).max())
+    row = {"load_s": paths[-1]["load_s"], "extract_s": paths[-1]["extract_s"], "max_abs": err, "cpu_max": scale}
+    print(f"path u ({card_line()}): load {row['load_s']:.2f}s, extract {1e3 * row['extract_s']:.1f} ms, "
+          f"{len(loaded)} parameters equal the file's ({len(bad)} differ), features {feats.shape}, card vs CPU "
+          f"max |d| {err:.3e} (bound {CONTENTVEC_REL_BOUND:g} x max|cpu| {scale:.3e})")
+    if bad or len(loaded) != len(want):
+        raise AssertionError(f"path u: loaded parameters differ from the file's: {bad[:5]}")
+    if feats.shape != (mel_len, hcfg.final_dim) or not np.isfinite(feats).all() or not err <= CONTENTVEC_REL_BOUND * scale:
+        raise AssertionError(f"path u: features {feats.shape}, card vs CPU {err} (max|cpu| {scale})")
+    return row
+
+
+def feature_paths(cfg, counters, paths, device) -> dict:
+    """Paths r-u (the module docstring, step 4)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return {"f0": f0_paths(cfg, counters, paths),
+                "crepe": crepe_path(cfg, counters, paths, device, tmp),
+                "whisper_content": content_path(cfg, counters, paths, device),
+                "contentvec": contentvec_path(cfg, counters, paths, device, tmp)}
 
 
 # ---------------------------------------------------------------------------
@@ -1830,6 +2164,7 @@ def main_paths(cfg, device, voc) -> tuple:
               "harness": harness_paths(cfg, counters, paths, device)}
     checks.update(batch_paths(cfg, counters, paths, device))
     checks.update(checkpoint_paths(cfg, counters, paths, device))
+    checks.update(feature_paths(cfg, counters, paths, device))
     checks["transcribe"] = transcribe_paths(counters, paths, device)
     return paths, checks
 

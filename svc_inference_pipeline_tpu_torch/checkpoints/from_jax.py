@@ -14,12 +14,17 @@ nn.Conv1d             kernel      weight = [k,Cin,Cout] -> [Cout,Cin,k]
 nn.ConvTranspose1d    kernel      weight = [K,Cout,Cin] -> [Cin,Cout,K]
 nn.Embedding          embedding   weight
 nn.LayerNorm          scale       weight
+nn.GroupNorm          scale       weight
 any                   bias        bias
 Activation1d          alpha/beta  alpha/beta
 any                   its own     the parameter of that name on the
                       parameter   module itself (the Whisper decoder's
                                   ``positional_embedding``)
 ====================  ==========  ====================================
+
+Grouped ``nn.Conv1d`` kernels take the same rule: JAX's [k, Cin/g, Cout]
+is PyTorch's [Cout, Cin/g, k] (HuBERT's ``pos_conv``). CREPE's conv blocks
+are ``nn.Conv1d`` with their own ``scale`` and ``shift``.
 
 Whisper encoders with a scanned layout (``blocks/block/...`` with a
 leading layer axis) are unstacked to ``block_i`` first.
@@ -68,7 +73,7 @@ def _convert(module: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.n
         return "weight", np.transpose(value, (2, 1, 0))
     if isinstance(module, nn.Embedding) and leaf == "embedding":
         return "weight", value
-    if isinstance(module, nn.LayerNorm) and leaf == "scale":
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)) and leaf == "scale":
         return "weight", value
     if leaf in ("alpha", "beta") or leaf in module._parameters:
         return leaf, value
@@ -109,16 +114,17 @@ def _fan_in(module: nn.Module, p: torch.Tensor) -> int:
 
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights in place, the JAX smoke-run scheme: every weight of 2+
-    dimensions ~ N(0, 1/fan_in), LayerNorm scales 1, other 1-D leaves
-    (biases, log-scale snake alpha/beta) 0. Draws come from ``generator``,
-    on its device."""
+    dimensions ~ N(0, 1/fan_in), LayerNorm and GroupNorm scales and
+    parameters named ``scale`` (CREPE's folded BatchNorm) 1, as flax's and
+    JAX's inits give them, other 1-D leaves (biases, shifts, log-scale snake
+    alpha/beta) 0. Draws come from ``generator``, on its device."""
     with torch.no_grad():
         for sub in module.modules():
             for name, p in sub.named_parameters(recurse=False):
                 if p.dim() >= 2:
                     draw = torch.randn(p.shape, generator=generator, device=generator.device)
                     p.copy_(draw / math.sqrt(max(_fan_in(sub, p), 1)))
-                elif isinstance(sub, nn.LayerNorm) and name == "weight":
+                elif (isinstance(sub, (nn.LayerNorm, nn.GroupNorm)) and name == "weight") or name == "scale":
                     p.fill_(1.0)
                 else:
                     p.zero_()

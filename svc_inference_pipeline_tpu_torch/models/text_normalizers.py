@@ -4,7 +4,9 @@ Counterpart of ``svc_inference_pipeline_tpu/models/text_normalizers.py`` (a
 copy: pure Python, ``re`` and ``unicodedata``):
 
 * :class:`BasicTextNormalizer`: unicode symbol/diacritic removal,
-  lowercase, whitespace collapse;
+  lowercase, whitespace collapse; ``split_letters`` spaces out the grapheme
+  clusters of :func:`graphemes` (the JAX copy calls ``re``'s ``\\X``, which
+  stdlib ``re`` does not have, and raises);
 * :class:`EnglishNumberNormalizer`: spelled-out to arabic numbers with
   ordinal/plural suffixes, currency symbols, percent, decimals and
   double/triple digit runs, as an explicit-index state machine;
@@ -48,6 +50,19 @@ def remove_symbols_and_diacritics(s: str, keep: str = "") -> str:
     return "".join(out)
 
 
+def graphemes(s: str) -> List[str]:
+    """Grapheme clusters of ``s``: each character that is not a combining
+    mark (categories Mn, Mc, Me) starts a cluster and takes the marks that
+    follow it."""
+    clusters: List[str] = []
+    for c in s:
+        if clusters and unicodedata.category(c) in ("Mn", "Mc", "Me"):
+            clusters[-1] += c
+        else:
+            clusters.append(c)
+    return clusters
+
+
 def remove_symbols(s: str) -> str:
     """Replace markers/symbols/punctuation with a space (keep diacritics)."""
     return "".join(
@@ -69,7 +84,7 @@ class BasicTextNormalizer:
         s = re.sub(r"\(([^)]+?)\)", "", s)  # parenthesised annotations
         s = self.clean(s).lower()
         if self.split_letters:
-            s = " ".join(re.findall(r"\X", s, re.U))
+            s = " ".join(graphemes(s))
         return re.sub(r"\s+", " ", s).strip()
 
 

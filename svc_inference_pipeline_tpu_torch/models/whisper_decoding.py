@@ -16,7 +16,9 @@ Counterpart of ``svc_inference_pipeline_tpu/models/whisper_decoding.py``:
 * :class:`WhisperDecoder`: greedy, beam (with patience) and temperature
   decoding, language detection, and :meth:`WhisperDecoder.transcribe`, 30 s
   windows with timestamp segmentation, the temperature-fallback ladder,
-  no-speech skipping and previous-text conditioning;
+  no-speech skipping and previous-text conditioning (a window whose last
+  timestamp pair sits at ``<|0.00|>`` moves on by the whole window, where
+  the JAX copy decodes it again without end);
 * :func:`format_timestamp` and the txt/vtt/srt writers.
 
 Each step's [B, vocab] logits come to the host, where the filters and the
@@ -948,7 +950,9 @@ class WhisperDecoder:
                     )
                     last_slice = int(current_slice)
                 last_pos = int(tokens[last_slice - 1]) - tokenizer.timestamp_begin
-                seek += last_pos * input_stride
+                # a last pair at <|0.00|> would leave seek where it was and
+                # decode the same window again, without end: take the window
+                seek += last_pos * input_stride if last_pos > 0 else segment_frames
                 all_tokens.extend(tokens[: last_slice + 1].tolist())
             else:
                 duration = segment_frames * frame_time

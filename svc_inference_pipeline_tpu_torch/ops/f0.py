@@ -1,10 +1,15 @@
 """F0 estimation on the host: Praat's autocorrelation pitch tracker
-(Boersma 1993) in numpy, plus the coarse mel-scale quantiser.
+(Boersma 1993) in numpy, the ``method=`` dispatch over the other trackers,
+and the coarse mel-scale quantiser.
 
 Counterpart of ``svc_inference_pipeline_tpu/ops/f0.py`` (``praat_pitch_ac``,
-``get_f0_features``, ``f0_to_coarse``). The JAX version is one jit region;
-here the framing, FFT autocorrelation and candidate search are vectorised
-numpy (float64 FFTs) and the Viterbi pass is a loop over frames.
+``get_f0_features``, ``f0_to_coarse``, ``get_log_f0``,
+``interpolate_unvoiced`` and the ``get_f0_features_using_*`` backends). The
+JAX Praat tracker is one jit region; here the framing, FFT autocorrelation
+and candidate search are vectorised numpy (float64 FFTs) and the Viterbi
+pass is a loop over frames. pYIN, DIO and Harvest are the numpy modules
+``ops/f0_{pyin,dio,harvest}.py``, CREPE is ``ops/f0_crepe.py`` (its net on a
+torch device).
 
 Candidate selection keeps the ``max_candidates - 1`` best-ranked maxima per
 frame by a stable descending sort, so ties go to the lower lag — the order
@@ -146,17 +151,38 @@ def praat_pitch_ac(
     return freqs_all[np.arange(n_frames), states].astype(np.float32)
 
 
-def get_f0_features(audio: np.ndarray, mel_len: int, cfg, speed: int = 1) -> Tuple[np.ndarray, np.ndarray]:
-    """(f0 [mel_len], coarse pitch [mel_len]) with voicing threshold 0.6 and
-    the centred padding onto the mel frame grid."""
+METHODS = ("parselmouth", "ac", "dio", "pyin", "harvest")
+
+
+def get_f0_features(audio: np.ndarray, mel_len: int, cfg, speed: int = 1,
+                    method: str = "parselmouth") -> Tuple[np.ndarray, np.ndarray]:
+    """(f0 [mel_len], coarse pitch [mel_len]). ``parselmouth``/``ac``: Praat's
+    tracker with voicing threshold 0.6 and the centred padding onto the mel
+    frame grid; ``dio``, ``pyin`` and ``harvest``: their tracks at the same
+    hop, zero-padded at the end (pYIN's also cut) to ``mel_len``. CREPE is
+    called through :func:`get_f0_features_using_crepe`."""
+    if method not in METHODS:
+        raise NotImplementedError(
+            f"F0 method {method!r}: 'parselmouth' (Praat ac), 'dio', 'pyin' and 'harvest' are "
+            "implemented natively; 'crepe' needs its trained checkpoint (see ops/f0_crepe.py) and is "
+            "called via get_f0_features_using_crepe."
+        )
     if mel_len < 1 or len(np.asarray(audio)) < 1:
         raise ValueError(
             f"clip too short for F0 extraction: {len(np.asarray(audio))} samples -> "
             f"{mel_len} mel frames (need at least one hop of {cfg.hop_length} samples)"
         )
     hop_size = int(np.round(cfg.hop_length * speed))
-    f0 = praat_pitch_ac(np.asarray(audio), cfg.fs, hop_size, float(cfg.f0_min), float(cfg.f0_max),
-                        voicing_threshold=0.6)
+    f0_min, f0_max = float(cfg.f0_min), float(cfg.f0_max)
+    if method in ("dio", "harvest", "pyin"):
+        if method == "pyin":
+            f0 = get_f0_features_using_pyin(audio, cfg.fs, cfg.win_length, hop_size, f0_min, f0_max)
+        else:
+            backend = get_f0_features_using_dio if method == "dio" else get_f0_features_using_harvest
+            f0 = backend(audio, mel_len, cfg.fs, hop_size, f0_min, f0_max)
+        f0 = np.pad(f0, (0, max(0, mel_len - len(f0))))[:mel_len]
+        return f0, f0_to_coarse(f0, cfg.pitch_bin, cfg.pitch_min, cfg.pitch_max)
+    f0 = praat_pitch_ac(np.asarray(audio), cfg.fs, hop_size, f0_min, f0_max, voicing_threshold=0.6)
     pad_size = (int(len(audio) // hop_size) - len(f0) + 1) // 2
     total = mel_len - len(f0) - pad_size
     if total < 0:
@@ -174,3 +200,73 @@ def f0_to_coarse(f0: np.ndarray, pitch_bin: int, pitch_min: float, pitch_max: fl
     f0_mel = np.where(f0_mel > 0, (f0_mel - f0_mel_min) * (pitch_bin - 2) / (f0_mel_max - f0_mel_min) + 1.0,
                       f0_mel)
     return np.rint(np.clip(f0_mel, 1.0, pitch_bin - 1)).astype(np.int64)
+
+
+def get_log_f0(f0: np.ndarray) -> np.ndarray:
+    """log-F0 with unvoiced frames mapped to log(1) = 0."""
+    f0 = np.array(f0, dtype=np.float64)
+    f0[f0 == 0] = 1.0
+    return np.log(f0)
+
+
+def get_f0_features_using_pyin(audio, fs, win_length, hop_length, f0_min, f0_max) -> np.ndarray:
+    """pYIN (``ops/f0_pyin.py``) with librosa.pyin's parameters; unvoiced
+    frames (nan in librosa) are 0."""
+    from svc_inference_pipeline_tpu_torch.ops.f0_pyin import pyin
+
+    f0, voiced, _ = pyin(np.asarray(audio, dtype=np.float64), fs=fs, fmin=float(f0_min), fmax=float(f0_max),
+                         win_length=int(win_length), hop_length=int(hop_length))
+    f0 = f0.astype(np.float64)
+    f0[~voiced] = 0.0
+    return f0
+
+
+def get_f0_features_using_dio(audio, mel_len, fs, hop_length, f0_min, f0_max) -> np.ndarray:
+    """DIO + StoneMask (``ops/f0_dio.py``): channels_in_octave 2, frame period
+    1000 hop / fs ms, cut to ``mel_len``."""
+    from svc_inference_pipeline_tpu_torch.ops.f0_dio import dio, stonemask
+
+    x = np.asarray(audio, dtype=np.float64)
+    raw, t = dio(x, fs, f0_floor=float(f0_min), f0_ceil=float(f0_max), channels_in_octave=2.0,
+                 frame_period=1000.0 * hop_length / fs)
+    return stonemask(x, raw, t, fs).astype(np.float64)[:mel_len]
+
+
+def get_f0_features_using_harvest(audio, mel_len, fs, hop_length, f0_min, f0_max) -> np.ndarray:
+    """Harvest (``ops/f0_harvest.py``): frame period 1000 hop / fs ms, cut to
+    ``mel_len``."""
+    from svc_inference_pipeline_tpu_torch.ops.f0_harvest import harvest
+
+    f0, _ = harvest(np.asarray(audio, dtype=np.float64), fs, f0_floor=float(f0_min), f0_ceil=float(f0_max),
+                    frame_period=1000.0 * hop_length / fs)
+    return f0.astype(np.float64)[:mel_len]
+
+
+def get_f0_features_using_crepe(audio, mel_len, fs, hop_length, hop_length_new, f0_min, f0_max,
+                                threshold=0.3, **kw) -> np.ndarray:
+    """CREPE (``ops/f0_crepe.py``): the net on a torch device (``device=``,
+    default the GPU), then Viterbi decode, periodicity median filter, -60 dB
+    silence gate, threshold, mean filter and interpolation of the voiced
+    frames onto the mel grid. The trained weights come from ``params=`` or
+    the torchcrepe file named by ``SVC_CREPE_WEIGHTS``."""
+    from svc_inference_pipeline_tpu_torch.ops.f0_crepe import get_f0_features_using_crepe as impl
+
+    return impl(audio, mel_len, fs, hop_length, hop_length_new, f0_min, f0_max, threshold, **kw)
+
+
+def get_f0_features_using_parselmouth(audio, mel_len, cfg, speed=1) -> Tuple[np.ndarray, np.ndarray]:
+    """The Praat tracker under the reference's name."""
+    return get_f0_features(np.asarray(audio), mel_len, cfg, speed=speed)
+
+
+def interpolate_unvoiced(f0: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Linear interpolation across unvoiced gaps; returns (f0, uv mask) with
+    the mask eroded by a 3-tap minimum."""
+    f0 = np.array(f0, dtype=np.float64)
+    uv = f0 == 0
+    if (~uv).any():
+        f0[uv] = np.interp(np.where(uv)[0], np.where(~uv)[0], f0[~uv])
+        uvf = uv.astype(np.float64)
+        uvf = np.min(np.array([uvf[:-2], uvf[1:-1], uvf[2:]]), axis=0)
+        return f0, np.pad(uvf, (1, 1))
+    return f0, uv.astype(np.float64)

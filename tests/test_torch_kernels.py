@@ -543,3 +543,50 @@ def test_whisper_decoder_incremental_equals_full_prefix_at_medium_width(dev):
         step, cache = inc.step(tokens[:, i: i + 1], feats, cache, offset)
         offset += 1
         np.testing.assert_allclose(step, full[:, i], rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("model,n_frames", [("tiny", 1), ("tiny", 1025), ("full", 3)])
+def test_crepe_net_on_the_card_equals_the_cpu(dev, model, n_frames):
+    """CREPE's net (f32, TF32 off) on the card against the same module on the
+    CPU within 1e-4, across the chunks of 512 frames that ``crepe_probs``
+    runs (1025 frames: three chunks, the last of one frame)."""
+    from svc_inference_pipeline_tpu_torch.ops import f0_crepe
+
+    net = f0_crepe.build_crepe(None, model, "cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in net.parameters():  # every vector drawn too, BN affine included
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    audio = synth_clip(16000, max(n_frames - 1, 1) * 160 / 16000 + 0.01)
+    frames = f0_crepe.frame_audio(audio, 160)[:n_frames]
+    want = f0_crepe.crepe_probs(net, frames)
+    got = f0_crepe.crepe_probs(net.to(dev), frames)
+    assert got.shape == want.shape == (n_frames, f0_crepe.N_BINS)
+    assert np.abs(got - want).max() <= 1e-4
+
+
+@pytest.mark.parametrize("n_samples", [16000, 24011])
+def test_hubert_on_the_card_equals_the_cpu(dev, n_samples):
+    """ContentVec's HuBERT (f32, TF32 off) at a reduced width, 3 layers, on
+    the card against the same module on the CPU within 1e-4 of max|cpu|, on
+    an even and an odd clip length (the conv stack's floors, the positional
+    conv's trimmed frame)."""
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.models.hubert import HubertConfig
+    from svc_inference_pipeline_tpu_torch.pipeline.content import ContentVecExtractor
+
+    cfg = HubertConfig(conv_layers=((64, 10, 5),) + ((64, 3, 2),) * 4 + ((64, 2, 2),) * 2, encoder_dim=192,
+                       encoder_layers=3, encoder_heads=4, encoder_ffn_dim=384, final_dim=64)
+    cpu = ContentVecExtractor.random_init(cfg, generator=torch.Generator().manual_seed(1), device="cpu",
+                                          output_layer=3)
+    with torch.no_grad():
+        for p in cpu.model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    audio = synth_clip(24000, n_samples / 24000)
+    mel_len = len(audio) // 256
+    want = cpu.extract(audio, mel_len)
+    card = ContentVecExtractor(cpu.model.to(dev), output_layer=3)
+    got = card.extract(audio, mel_len)
+    assert got.shape == want.shape == (mel_len, 64)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

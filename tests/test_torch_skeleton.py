@@ -36,10 +36,11 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-# every module of the port (checkpoint loading, the native codecs, eval and
-# Whisper decoding among them), then one tiny conversion and one tiny
-# transcription on CPU, in a fresh interpreter that must end without jax or
-# transformers loaded
+# every module of the port (checkpoint loading, the native codecs, eval,
+# Whisper decoding, the F0 trackers, CREPE and HuBERT among them), then one
+# tiny conversion, one tiny transcription, a tracker, a tiny CREPE, a
+# reduced ContentVec and a tiny Whisper ``extract`` on CPU, in a fresh
+# interpreter that must end without jax or transformers loaded
 _NO_JAX = """
 import importlib, pkgutil, sys
 import numpy as np, torch
@@ -48,7 +49,8 @@ names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in sorted(names):
     importlib.import_module(name)
 new = {"eval", "checkpoints.torch_convert", "checkpoints.native_io", "checkpoints.fetch", "native.wav_codec",
-       "models.whisper_decoding", "models.text_normalizers", "transcribe"}
+       "models.whisper_decoding", "models.text_normalizers", "transcribe", "ops.f0_dio", "ops.f0_pyin",
+       "ops.f0_harvest", "ops.f0_crepe", "models.hubert", "checkpoints.hubert_convert"}
 assert {pkg.__name__ + "." + m for m in new} <= names, names
 from svc_inference_pipeline_tpu_torch.config import HParams, load_config
 from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
@@ -77,6 +79,23 @@ with tempfile.TemporaryDirectory() as tmp:
     assert transcribe.main([os.path.join(tmp, "in.wav"), "--model", model, "--device", "cpu", "--beam_size", "2",
                             "--logprob_threshold=-inf", "--compression_ratio_threshold", "inf", "-o", tmp]) == 0
     assert open(os.path.join(tmp, "in.wav.vtt")).read().startswith("WEBVTT")
+from svc_inference_pipeline_tpu_torch.models.hubert import HubertConfig
+from svc_inference_pipeline_tpu_torch.ops import f0, f0_crepe
+from svc_inference_pipeline_tpu_torch.pipeline.content import ContentVecExtractor, WhisperPPGExtractor
+tone = (0.5 * np.sin(2 * np.pi * 220 * np.arange(12000) / 24000)).astype(np.float32)
+track, _ = f0.get_f0_features(tone, 46, HParams(**d), method="dio")
+assert track.shape == (46,) and (track > 0).mean() > 0.5, track
+net = f0_crepe.build_crepe(None, "tiny", "cpu")
+crepe = f0_crepe.get_f0_features_using_crepe(tone, 46, 24000, 256, 160, 50.0, 1100.0, threshold=0.0, model="tiny",
+                                             params=chip_smoke.module_tree(net), device="cpu")
+assert crepe.shape == (46,) and np.isfinite(crepe).all()
+cv = ContentVecExtractor.random_init(HubertConfig(conv_layers=((32, 10, 5),) + ((32, 3, 2),) * 4 + ((32, 2, 2),) * 2,
+                                                  encoder_dim=32, encoder_layers=2, encoder_heads=2,
+                                                  encoder_ffn_dim=64, final_dim=16),
+                                     device="cpu", output_layer=2)
+assert cv.extract(tone, 46).shape == (46, 16)
+ppg = WhisperPPGExtractor.random_init(dims, device="cpu", compute_dtype=torch.float32)
+assert ppg.extract(tone, 46).shape == (46, 64)
 bad = sorted(m for m in sys.modules if m in ("jax", "transformers")
              or m.startswith(("jax.", "transformers.", "svc_inference_pipeline_tpu.")))
 assert not bad, bad

@@ -61,3 +61,15 @@ def test_spelling_table_read_from_the_jax_assets():
     assert norm.standardize_spellings is not None
     assert norm("the colour of favour") == "the color of favor"
     assert P.EnglishSpellingNormalizer().mapping == J.EnglishSpellingNormalizer().mapping
+
+
+def test_split_letters_splits_grapheme_clusters():
+    """A cluster is a base character and the combining marks after it; the
+    JAX copy raises here (stdlib ``re`` has no ``\\X``)."""
+    assert P.BasicTextNormalizer(split_letters=True)("abc") == "a b c"
+    assert P.BasicTextNormalizer(split_letters=True)("Hi, yo") == "h i y o"
+    assert P.graphemes("a\u0307b\u0301c") == ["a\u0307", "b\u0301", "c"]
+    assert P.graphemes("e\u0301\u0323 x") == ["e\u0301\u0323", " ", "x"]
+    plain = P.BasicTextNormalizer()
+    for text in ALL:
+        assert plain(text) == J.BasicTextNormalizer()(text), repr(text)

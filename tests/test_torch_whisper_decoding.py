@@ -351,3 +351,27 @@ def test_pack_data_matches_jax():
     for k in data:
         assert got[k].device.type == "cpu"
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+def test_transcribe_moves_past_a_window_ending_at_zero():
+    """A decode whose only timestamp pair is <|0.00|><|0.00|> moves seek by
+    the whole window: 35 s (3500 frames) take ceil(3500 / 3000) = 2 windows.
+    The JAX copy adds 0 there and decodes the first window again forever."""
+    from unittest import mock
+
+    dims = WhisperDims(80, 1500, 64, 4, 1, 51865, 448, 64, 4, 1)
+    dec = P.WhisperDecoder.random_init(dims, device="cpu")
+    tok = P.get_tokenizer(True)
+    calls = []
+
+    def decode(feats, tokenizer, options, noise=None):
+        calls.append(options.prompt)
+        assert len(calls) <= 4, "seek stood still"
+        ts0 = tokenizer.timestamp_begin
+        return P.DecodingResult(tokens=[ts0, ts0, tokenizer.eot], text="", language="en", avg_logprob=0.0)
+
+    audio = np.zeros(16000 * 35, np.float32)
+    with mock.patch.object(dec, "decode", decode):
+        out = dec.transcribe(audio, tok, P.DecodingOptions(language="en"))
+    assert dec.windows == len(calls) == -(-3500 // 3000) == 2
+    assert out["segments"] == []
