@@ -112,6 +112,28 @@
       features [mel_len, 256],
       finite and within 1e-3 x max|cpu| of the same file on the CPU; prints
       the load seconds and the extract's ms;
+   v. ``train_diffusion`` at the mapper's full width (20 x 384, Whisper-medium
+      content 1024) on batches of eight synthetic 4 s clips in the 512-frame
+      bucket from ``BucketedLoader`` (content from ``WhisperPPGExtractor.extract``
+      on random medium weights, K4 x 24 a clip on the loader's first pass,
+      before the counters are set to 0): 20 steps unbroken, and 10 steps, a
+      checkpoint and a resumed run to 20, which must equal the unbroken run
+      within ``RESUME_REL_BOUND`` (parameters, EMA and losses); no launches.
+      Then one step on the card against the same step on the CPU from the
+      same weights, batch and draws (the CPU embedding the diffusion steps
+      with the card's timescales, whose f32 pow differs from the CPU's):
+      gradients per parameter within ``GRAD_CPU_REL_BOUND``. Prints ms a
+      step (warm median) and peak memory;
+   w. the GAN steps at the vocoder's full width (1536, six stages, MPD
+      periods [2, 3, 5, 7, 11], three MRD resolutions) on B = 2 segments of
+      32 frames: 3 discriminator and generator step pairs, the generator on
+      its training route (``use_kernels=False``): no launches, every loss
+      finite, every generator parameter a non-zero gradient. Prints ms per
+      discriminator and generator step (warm medians) and peak memory;
+   x. a fresh ``SVCPipeline`` from path v's EMA encoder and denoiser (its
+      kernel stacks made from them) converts a 4 s clip with PLMS@10 (K5 x
+      101, K4 x 24, K2 x 6, K3 x 1); its final mel must differ from the same
+      conversion's on the untrained weights;
    p. (last) the transcription CLI on the 4 s clip with Whisper-medium at
       full width (24 + 24 layers, 1024 wide, vocabulary 51865) on random
       weights, the whole fallback ladder (beam 5 at temperature 0, then
@@ -1904,6 +1926,309 @@ def feature_paths(cfg, counters, paths, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Paths v-x: training, then serving the trained weights
+# ---------------------------------------------------------------------------
+
+TRAIN_CLIPS = 8  # path v: the batch, B clips of CLIP_SECONDS in the 512-frame bucket
+TRAIN_STEPS = 20
+RESUME_AT = 10
+# path v: the run resumed from its step-10 checkpoint against the unbroken
+# run, relative L2 over every parameter and EMA tensor and relative per
+# step's loss (cuDNN's conv backward need not repeat its sums bit for bit)
+RESUME_REL_BOUND = 1e-4
+# path v: one step's gradients on the card against the CPU's from the same
+# weights, batch and draws, relative L2 per parameter (f32, TF32 off; the
+# CPU embeds the diffusion steps with the card's timescales)
+GRAD_CPU_REL_BOUND = 1e-4
+GAN_FRAMES = 32  # path w: segments of 32 frames (8192 samples), B = 2
+GAN_STEPS = 3
+
+
+def peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def diffusion_training_path(cfg, counters, paths, device, tmp: str) -> dict:
+    """Path v: ``train_diffusion`` at the mapper's full width (20 x 384,
+    Whisper-medium content 1024) on batches of TRAIN_CLIPS synthetic clips
+    from ``BucketedLoader`` (content from ``WhisperPPGExtractor.extract`` on
+    random medium weights, the features cached on the loader's first pass):
+    TRAIN_STEPS steps unbroken, and RESUME_AT steps, a checkpoint, and a
+    resumed run to TRAIN_STEPS, which must equal the unbroken one within
+    RESUME_REL_BOUND; no kernel launches. Then one step on the card against
+    the same step on the CPU (gradients per parameter within
+    GRAD_CPU_REL_BOUND). Returns the numbers and, for path x, the EMA
+    weights, the untrained weights, the Whisper extractor and a clip."""
+    import copy
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.models import diffsvc
+    from svc_inference_pipeline_tpu_torch.models.whisper import WHISPER_SIZES
+    from svc_inference_pipeline_tpu_torch.pipeline.content import WhisperPPGExtractor
+    from svc_inference_pipeline_tpu_torch.training.data import BucketedLoader, FeatureExtractor
+    from svc_inference_pipeline_tpu_torch.training.diffusion import (
+        init_diffusion_train_state, make_diffusion_train_step)
+    from svc_inference_pipeline_tpu_torch.training.loop import train_diffusion
+    from svc_inference_pipeline_tpu_torch.utils.audio_io import write_wav
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
+
+    singers = ("svcc_CDF1", "svcc_CDM1", "svcc_IDF1", "svcc_IDM1")
+    base = clip(cfg.fs, CLIP_SECONDS)
+    manifest = []
+    for i in range(TRAIN_CLIPS):
+        path = os.path.join(tmp, f"train{i}.wav")
+        write_wav(path, (0.5 + 0.05 * i) * np.roll(base, 2400 * i), cfg.fs)
+        manifest.append((path, singers[i % len(singers)]))
+    whisper = WhisperPPGExtractor.random_init(WHISPER_SIZE, torch.Generator(device=device).manual_seed(5), device,
+                                              compute_dtype=torch.bfloat16, fs=cfg.fs)
+    loader = BucketedLoader(manifest, cfg, FeatureExtractor(cfg, whisper, os.path.join(tmp, "features"), device),
+                            batch_size=TRAIN_CLIPS, seed=0)
+    t0 = time.perf_counter()
+    batches = list(loader)  # the first pass extracts and caches every clip's features (K4 x 24 a clip)
+    extract_s = time.perf_counter() - t0
+    for _ in range(TRAIN_STEPS - 1):  # one batch a pass, reshuffled, read from the cache
+        batches += list(loader)
+    shapes = {k: tuple(v.shape) for k, v in batches[0].items()}
+    if shapes["mel"] != (TRAIN_CLIPS, 512, cfg.mapper.n_mel) or \
+            shapes["content_whisper"][2] != WHISPER_SIZES[WHISPER_SIZE].n_audio_state:
+        raise AssertionError(f"path v: batch shapes {shapes}")
+
+    runs, step_s, losses = {}, {}, {}
+    ckpt = os.path.join(tmp, "ckpt")
+
+    def train(name, data, num_steps, checkpoint_dir=None):
+        Metrics.default().reset()
+        runs[name] = train_diffusion(cfg, data, num_steps, checkpoint_dir=checkpoint_dir,
+                                     checkpoint_every=RESUME_AT, device=device)
+        obs = Metrics.default().observations
+        step_s[name], losses[name] = list(obs["train/step_s"]), list(obs["train/loss"])
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        train("whole", batches, TRAIN_STEPS)
+        train("first", batches[:RESUME_AT], RESUME_AT, ckpt)
+        train("resumed", batches[RESUME_AT:], TRAIN_STEPS, ckpt)
+        return {"ms_per_step": 1e3 * statistics.median(step_s["whole"][2:]), "peak_gb": peak_gb()}
+
+    drive("train diffusion", counters, run, {}, paths)
+    whole, resumed = runs["whole"], runs["resumed"]
+    if whole.step != TRAIN_STEPS or resumed.step != TRAIN_STEPS or len(losses["resumed"]) != TRAIN_STEPS - RESUME_AT:
+        raise AssertionError(f"path v: steps {whole.step}, {resumed.step}")
+    if not all(np.isfinite(v) for vs in losses.values() for v in vs):
+        raise AssertionError(f"path v: losses {losses}")
+
+    def flat(state):
+        sd = {f"enc.{n}": p.detach() for n, p in state.encoder.named_parameters()}
+        sd.update({f"den.{n}": p.detach() for n, p in state.denoiser.named_parameters()})
+        sd.update({f"ema.{k}.{n}": v for k, tree in state.ema.items() for n, v in tree.items()})
+        return sd
+
+    a, b = flat(resumed), flat(whole)
+    diff = torch.sqrt(sum(((a[k].double() - b[k].double()) ** 2).sum() for k in b))
+    norm = torch.sqrt(sum((b[k].double() ** 2).sum() for k in b))
+    out = {"extract_s": extract_s, "ms_per_step": paths[-1]["ms_per_step"], "peak_gb": paths[-1]["peak_gb"],
+           "resume_rel_l2": float(diff / norm),
+           "resume_max_abs": max(float((a[k] - b[k]).abs().max()) for k in b),
+           "resume_loss_rel": max(abs(x - y) / abs(y) for x, y in zip(losses["resumed"], losses["whole"][RESUME_AT:])),
+           "losses": losses["whole"]}
+
+    # one step on the card and on the CPU from the same weights, batch and draws
+    state, opt = init_diffusion_train_state(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    untrained = {"enc": copy.deepcopy(state.encoder.state_dict()), "den": copy.deepcopy(state.denoiser.state_dict())}
+    cpu, cpu_opt = init_diffusion_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu.encoder.load_state_dict(untrained["enc"])
+    cpu.denoiser.load_state_dict(untrained["den"])
+    draws = torch.Generator().manual_seed(3)
+    t = torch.randint(0, int(cfg.mapper.noise_schedule_factors[2]), (TRAIN_CLIPS,), generator=draws)
+    noise = torch.randn(shapes["mel"], generator=draws)
+    # The step embedding's timescales 10^(4i/63) come from each device's f32
+    # pow, and the card's differs from the CPU's on some of them; t times the
+    # largest reaches 1e7, where one ulp moves the sine by most of a radian.
+    # The CPU step embeds the steps with the card's timescales, so both sides
+    # take the same operands.
+    card_ts = (10.0 ** (torch.arange(64, dtype=torch.float32, device=device) * 4.0 / 63)).cpu()
+    cpu_ts = 10.0 ** (torch.arange(64, dtype=torch.float32) * 4.0 / 63)
+
+    def card_embedding(steps, dim=128):
+        args = steps[..., None].float() * card_ts
+        return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+    t0 = time.perf_counter()
+    _, loss = make_diffusion_train_step(cfg, opt)(state, batches[0], t=t, noise=noise)
+    with mock.patch.object(diffsvc, "step_embedding", card_embedding):
+        _, cpu_loss = make_diffusion_train_step(cfg, cpu_opt)(cpu, batches[0], t=t, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    errs = {f"{k}.{n}": rel_l2(p.grad, q.grad)
+            for k, (m, c) in {"enc": (state.encoder, cpu.encoder), "den": (state.denoiser, cpu.denoiser)}.items()
+            for (n, p), (_, q) in zip(m.named_parameters(), c.named_parameters())}
+    worst = max(errs, key=errs.get)
+    out.update(grad_cpu_rel_l2=errs[worst], grad_cpu_worst=worst,
+               loss_cpu_rel=abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss)),
+               card_pow_differs=int((card_ts != cpu_ts).sum()))
+    print(f"path v ({card_line()}): {TRAIN_STEPS} steps at B={TRAIN_CLIPS}, T=512, "
+          f"{cfg.mapper.residual_layer_num} x {cfg.mapper.residual_channels}: "
+          f"{out['ms_per_step']:.2f} ms a step (warm median), peak {out['peak_gb']:.2f} GB, features of "
+          f"{TRAIN_CLIPS} clips {extract_s:.2f}s; loss {losses['whole'][0]:.4f} -> {losses['whole'][-1]:.4f}; "
+          f"resumed vs unbroken rel L2 {out['resume_rel_l2']:.3e} (max |d| {out['resume_max_abs']:.3e}, "
+          f"losses {out['resume_loss_rel']:.3e}; bound {RESUME_REL_BOUND}); card vs CPU gradients rel L2 "
+          f"{errs[worst]:.3e} at {worst}, loss {out['loss_cpu_rel']:.3e} (bound {GRAD_CPU_REL_BOUND}; "
+          f"both steps {cpu_s:.1f}s; the CPU step embeds the steps with the card's timescales, whose f32 "
+          f"pow differs from the CPU's on {out['card_pow_differs']} of 64)")
+    if not (out["resume_rel_l2"] <= RESUME_REL_BOUND and out["resume_loss_rel"] <= RESUME_REL_BOUND):
+        raise AssertionError(f"path v: resumed run off the unbroken one: {out}")
+    if not (errs[worst] <= GRAD_CPU_REL_BOUND and out["loss_cpu_rel"] <= GRAD_CPU_REL_BOUND):
+        raise AssertionError(f"path v: card vs CPU gradients {errs[worst]} at {worst}, loss {out['loss_cpu_rel']}")
+    trained = {"enc": dict(whole.ema["enc"]), "den": dict(whole.ema["den"])}
+    return out, {"trained": trained, "untrained": untrained, "whisper": whisper, "wav": manifest[0][0]}
+
+
+def gan_training_path(cfg, counters, paths, device) -> dict:
+    """Path w: the GAN steps at the vocoder's full width (1536, six stages,
+    MPD periods [2, 3, 5, 7, 11], the three MRD resolutions) on B = 2
+    segments of GAN_FRAMES frames of the synthetic clip and their log-mels:
+    GAN_STEPS discriminator and generator step pairs; every loss finite,
+    every generator parameter a non-zero gradient (the training route,
+    ``use_kernels=False``: no kernel launches)."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.ops.mel import mel_spectrogram
+    from svc_inference_pipeline_tpu_torch.training.gan import init_gan_train_state, make_gan_train_steps
+
+    n = GAN_FRAMES * cfg.hop_length
+    audio = clip(cfg.fs, CLIP_SECONDS)
+    wave = torch.as_tensor(np.stack([audio[:n], audio[cfg.fs: cfg.fs + n]]), device=device)
+    mel = mel_spectrogram(wave, cfg.n_fft, cfg.n_mels, cfg.fs, cfg.hop_length, cfg.win_length, cfg.fmin,
+                          cfg.fmax).transpose(1, 2)
+    batch = {"mel": mel, "wave": wave}
+    state, gopt, dopt = init_gan_train_state(cfg, torch.Generator(device=device).manual_seed(9), device=device)
+    disc_step, gen_step = make_gan_train_steps(cfg, gopt, dopt)
+    times, losses = {"disc": [], "gen": []}, []
+
+    def run():
+        nonlocal state
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(GAN_STEPS):
+            t0 = time.perf_counter()
+            state, d_loss = disc_step(state, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, g_loss, aux = gen_step(state, batch)
+            torch.cuda.synchronize()
+            times["disc"].append(t1 - t0)
+            times["gen"].append(time.perf_counter() - t1)
+            losses.append({"disc": float(d_loss), "gen": float(g_loss), **{k: float(v) for k, v in aux.items()}})
+        return {"ms_per_disc_step": 1e3 * statistics.median(times["disc"][1:]),
+                "ms_per_gen_step": 1e3 * statistics.median(times["gen"][1:]),
+                "ms_per_step": 1e3 * statistics.median([a + b for a, b in zip(times["disc"][1:], times["gen"][1:])]),
+                "peak_gb": peak_gb()}
+
+    drive("train gan", counters, run, {}, paths)
+    n_params = sum(1 for _ in state.generator.parameters())
+    nonfinite = [name for name, p in state.generator.named_parameters()
+                 if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    dead = [name for name, p in state.generator.named_parameters()
+            if p.grad is None or not bool(p.grad.abs().max() > 0)]
+    finite = all(np.isfinite(v) for row in losses for v in row.values())
+    with torch.no_grad():  # tanh saturated to exactly +-1 makes exactly zero MRD bins: NaN gradients
+        y_hat = state.generator(batch["mel"])
+    out = {k: paths[-1][k] for k in ("ms_per_disc_step", "ms_per_gen_step", "ms_per_step", "peak_gb")}
+    out.update(losses=losses, generator_params=n_params, zero_grad_params=len(dead),
+               nonfinite_grad_params=len(nonfinite), saturated_share=float((y_hat.abs() == 1).float().mean()),
+               max_abs_out=float(y_hat.abs().max()))
+    print(f"path w ({card_line()}): {GAN_STEPS} step pairs at B=2, {n} samples, "
+          f"{cfg.vocoder.upsample_initial_channel} wide: discriminator step "
+          f"{out['ms_per_disc_step']:.2f} ms, generator step {out['ms_per_gen_step']:.2f} ms (warm medians), "
+          f"peak {out['peak_gb']:.2f} GB; losses {losses[-1]}; {n_params - len(dead)} of {n_params} generator "
+          f"parameters with a non-zero gradient, {len(nonfinite)} with a non-finite one; output after the "
+          f"steps max |y| {out['max_abs_out']:.4f}, share at exactly +-1 {out['saturated_share']:.4f}")
+    if not finite or dead:
+        raise AssertionError(f"path w: losses finite {finite}, parameters without a gradient {dead[:5]} "
+                             f"({len(nonfinite)} non-finite)")
+    return out
+
+
+def train_then_serve_path(cfg, counters, paths, device, held: dict) -> dict:
+    """Path x: a fresh ``SVCPipeline`` from path v's EMA encoder and
+    denoiser (its kernel stacks made from them) converts the 4 s clip with
+    PLMS@10 (K5 x 101, K4 x 24, K2 x 6, K3 x 1); its final mel must differ
+    from the same conversion's on the untrained weights."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+    from svc_inference_pipeline_tpu_torch.models.encoder import ConditionEncoder
+    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import make_denoise_fn
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline, mel_frame_count
+
+    steps = int(cfg.mapper.noise_schedule_factors[2])
+    voc = random_vocoder(cfg.vocoder, torch.Generator(device=device).manual_seed(10), device)
+
+    def build(weights):
+        with torch.device(device):
+            enc, den = ConditionEncoder(cfg.mapper), DiffSVCDenoiser(cfg.mapper, compute_dtype=torch.bfloat16)
+        enc.load_state_dict(weights["enc"])
+        den.load_state_dict(weights["den"])
+        return SVCPipeline(cfg, enc, den, voc, held["whisper"], device)
+
+    def final_mel(pipe):
+        with torch.no_grad():
+            batch, n_frames = pipe.extract_features(held["wav"], SINGER)
+            cond = pipe.cond_encoder(batch)
+            fn = make_denoise_fn(pipe.denoiser, cond, steps, pipe.compute_dtype, None, 0, pipe._stacks)
+            x = pipe._run_sampler(fn, cond, (1, cond.shape[1], cfg.mapper.n_mel), "plms", 10,
+                                  torch.Generator(device=device).manual_seed(0), None)
+        return x[0, :n_frames].float().cpu().numpy()
+
+    t0 = time.perf_counter()
+    pipe = build(held["trained"])
+    build_s = time.perf_counter() - t0
+    n_expected = mel_frame_count(cfg, int(CLIP_SECONDS * cfg.fs)) * cfg.hop_length
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        audio = pipe.convert(held["wav"], SINGER, generator=torch.Generator(device=device).manual_seed(0),
+                             sampler="plms", speedup=10)
+        check_audio("train then serve", audio, n_expected)
+        return {**pipe.timings, "peak_gb": peak_gb()}
+
+    drive("train then serve plms@10", counters, run, {"K5 bf16": steps // 10 + 1, "K4": 24, "K2": 6, "K3": 1},
+          paths)
+    trained, untrained = final_mel(pipe), final_mel(build(held["untrained"]))
+    out = {"build_s": build_s, "conversion_s": paths[-1]["total_s"], "peak_gb": paths[-1]["peak_gb"],
+           "mel_max_abs_diff": float(np.abs(trained - untrained).max()), "mel_max": float(np.abs(untrained).max())}
+    print(f"path x ({card_line()}): pipeline from the trained EMA built in {build_s:.2f}s, PLMS@10 conversion "
+          f"{out['conversion_s']:.3f}s, peak {out['peak_gb']:.2f} GB; final mel vs untrained weights max |d| "
+          f"{out['mel_max_abs_diff']:.3e} (max|mel| {out['mel_max']:.3f})")
+    if not (np.isfinite(trained).all() and out["mel_max_abs_diff"] > 0):
+        raise AssertionError(f"path x: trained mel finite {bool(np.isfinite(trained).all())}, {out}")
+    return out
+
+
+def training_paths(cfg, counters, paths, device) -> dict:
+    """Paths v-x (the module docstring, step 4)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        diffusion, held = diffusion_training_path(cfg, counters, paths, device, tmp)
+        out = {"train_diffusion": diffusion, "train_gan": gan_training_path(cfg, counters, paths, device)}
+        out["train_then_serve"] = train_then_serve_path(cfg, counters, paths, device, held)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Paths p and q: transcription
 # ---------------------------------------------------------------------------
 
@@ -2165,6 +2490,7 @@ def main_paths(cfg, device, voc) -> tuple:
     checks.update(batch_paths(cfg, counters, paths, device))
     checks.update(checkpoint_paths(cfg, counters, paths, device))
     checks.update(feature_paths(cfg, counters, paths, device))
+    checks.update(training_paths(cfg, counters, paths, device))
     checks["transcribe"] = transcribe_paths(counters, paths, device)
     return paths, checks
 

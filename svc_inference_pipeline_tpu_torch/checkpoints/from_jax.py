@@ -12,6 +12,7 @@ submodule             JAX leaf    PyTorch parameter
 nn.Linear             kernel      weight = kernel.T  ([in,out] -> [out,in])
 nn.Conv1d             kernel      weight = [k,Cin,Cout] -> [Cout,Cin,k]
 nn.ConvTranspose1d    kernel      weight = [K,Cout,Cin] -> [Cin,Cout,K]
+nn.Conv2d             kernel      weight = [kh,kw,Cin,Cout] -> [Cout,Cin,kh,kw]
 nn.Embedding          embedding   weight
 nn.LayerNorm          scale       weight
 nn.GroupNorm          scale       weight
@@ -28,12 +29,16 @@ are ``nn.Conv1d`` with their own ``scale`` and ``shift``.
 
 Whisper encoders with a scanned layout (``blocks/block/...`` with a
 leading layer axis) are unstacked to ``block_i`` first.
+
+:func:`train_state_from_jax` carries a JAX training state (diffusion or
+GAN) into the port's: parameters, the EMA, and optax's Adam moments and
+count as AdamW's ``exp_avg``/``exp_avg_sq``/``step``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +76,8 @@ def _convert(module: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.n
         return "weight", value.T
     if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)) and leaf == "kernel":
         return "weight", np.transpose(value, (2, 1, 0))
+    if isinstance(module, nn.Conv2d) and leaf == "kernel":
+        return "weight", np.transpose(value, (3, 2, 0, 1))
     if isinstance(module, nn.Embedding) and leaf == "embedding":
         return "weight", value
     if isinstance(module, (nn.LayerNorm, nn.GroupNorm)) and leaf == "scale":
@@ -80,11 +87,13 @@ def _convert(module: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.n
     raise KeyError(f"no bridge rule for leaf {leaf!r} of {type(module).__name__}")
 
 
-def load_jax_params(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
-    """Copy a JAX parameter tree into ``module`` (in place, strict: every
-    parameter of the module must be covered, with matching shapes)."""
+def jax_tree_to_torch(module: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A tree shaped like ``module``'s JAX parameters (the parameters, or
+    optax moments of them) -> {parameter name: f32 CPU tensor in the
+    module's layout}. Strict: every parameter of the module must be covered,
+    with matching shapes."""
     state = {}
-    for path, value in _leaves(params):
+    for path, value in _leaves(tree):
         sub = module.get_submodule(".".join(path[:-1]))
         name, value = _convert(sub, path[-1], value)
         key = ".".join(path[:-1] + (name,))
@@ -94,12 +103,67 @@ def load_jax_params(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
     unknown = sorted(set(state) - set(own))
     if missing or unknown:
         raise KeyError(f"parameter tree mismatch: missing {missing[:5]}, unknown {unknown[:5]}")
+    for key, value in state.items():
+        if own[key].shape != value.shape:
+            raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(own[key].shape)}")
+    return state
+
+
+def load_jax_params(module: nn.Module, params: Dict[str, Any]) -> nn.Module:
+    """Copy a JAX parameter tree into ``module`` (in place, strict: every
+    parameter of the module must be covered, with matching shapes)."""
+    own = dict(module.named_parameters())
     with torch.no_grad():
-        for key, value in state.items():
-            if own[key].shape != value.shape:
-                raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(own[key].shape)}")
+        for key, value in jax_tree_to_torch(module, params).items():
             own[key].copy_(value)
     return module
+
+
+def _adam_state(opt_state) -> Any:
+    """optax's ScaleByAdamState (count, mu, nu) inside an adamw chain state."""
+    for part in opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,):
+        if all(hasattr(part, k) for k in ("count", "mu", "nu")):
+            return part
+    raise ValueError(f"no Adam state (count, mu, nu) in {type(opt_state).__name__}")
+
+
+def _load_adam(optimizer: torch.optim.Optimizer, opt_state, modules: Dict[Optional[str], nn.Module]) -> None:
+    """AdamW's per-parameter state from optax's: ``modules`` maps the keys of
+    the moment trees (None: the whole tree) to the modules whose parameters
+    the optimizer holds."""
+    adam = _adam_state(opt_state)
+    step = float(np.asarray(adam.count))
+    for key, module in modules.items():
+        mu, nu = ((adam.mu, adam.nu) if key is None else (adam.mu[key], adam.nu[key]))
+        mu, nu = jax_tree_to_torch(module, mu), jax_tree_to_torch(module, nu)
+        for name, p in module.named_parameters():
+            optimizer.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+                                  "exp_avg": mu[name].to(p.device), "exp_avg_sq": nu[name].to(p.device)}
+
+
+def train_state_from_jax(jax_state: Any, state: Any) -> Any:
+    """Carry a JAX ``DiffusionTrainState`` or ``GANTrainState`` (its leaves
+    as numpy, ``jax.device_get``) into the port's ``state`` of the same kind
+    and config, in place: step, parameters, the diffusion EMA (seeded from
+    the parameters where the JAX state has none), and optax's Adam ``mu``,
+    ``nu`` and ``count`` as AdamW's ``exp_avg``, ``exp_avg_sq`` and
+    ``step``. A JAX state after step k then takes step k + 1 in the port."""
+    state.step = int(np.asarray(jax_state.step))
+    if hasattr(jax_state, "den_params"):
+        modules = {"enc": state.encoder, "den": state.denoiser}
+        load_jax_params(state.encoder, jax_state.enc_params)
+        load_jax_params(state.denoiser, jax_state.den_params)
+        _load_adam(state.optimizer, jax_state.opt_state, modules)
+        ema = jax_state.ema_params or {"enc": jax_state.enc_params, "den": jax_state.den_params}
+        state.ema = {key: {name: v.to(next(m.parameters()).device) for name, v in
+                           jax_tree_to_torch(m, ema[key]).items()} for key, m in modules.items()}
+        return state
+    load_jax_params(state.generator, jax_state.gen_params)
+    load_jax_params(state.mpd, jax_state.mpd_params)
+    load_jax_params(state.mrd, jax_state.mrd_params)
+    _load_adam(state.gen_optimizer, jax_state.gen_opt, {None: state.generator})
+    _load_adam(state.disc_optimizer, jax_state.disc_opt, {"mpd": state.mpd, "mrd": state.mrd})
+    return state
 
 
 def _fan_in(module: nn.Module, p: torch.Tensor) -> int:
@@ -109,6 +173,8 @@ def _fan_in(module: nn.Module, p: torch.Tensor) -> int:
         return p.shape[1]
     if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)):
         return p.shape[1] * p.shape[2]  # [Cout,Cin,k] / [Cin,Cout,K]
+    if isinstance(module, nn.Conv2d):
+        return p.shape[1] * p.shape[2] * p.shape[3]  # [Cout,Cin,kh,kw]
     return p.shape[0]  # Embedding [n, d]
 
 

@@ -1,6 +1,6 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
-    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch | --decode]
+    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch | --decode | --train]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
@@ -12,7 +12,8 @@ the device's busy share of the conversion. ``--steps`` times K1 steps alone
 instead (:func:`step_times`), ``--k2`` the vocoder's AMP stages
 (:func:`k2_times`), ``--batch`` warm ``convert_batch`` calls on B copies of
 the 4 s clip (:func:`batch_times`), ``--decode`` the Whisper text
-decoder's steps at medium width (:func:`decode_times`). Every line names the
+decoder's steps at medium width (:func:`decode_times`), ``--train`` the
+training steps at full width (:func:`train_times`). Every line names the
 card (``nvidia-smi`` name and power limit). Needs a CUDA device.
 """
 
@@ -80,24 +81,39 @@ def profile_conversion(pipe, wav, sampler, speedup) -> dict:
     ``device_span_overlap_ms`` is the summed span time less the covered
     time, the part counted twice in the per-kernel times."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pipe.convert(wav, "svcc_CDF1", generator=torch.Generator(device=pipe.device).manual_seed(0),
                      sampler=sampler, speedup=speedup)
         torch.cuda.synchronize()
+    return device_breakdown(prof, pipe.timings["total_s"] * 1e3)
+
+
+def device_breakdown(prof, wall_ms: float, top_n: int = 12) -> dict:
+    """Device ms by kernel (the ``top_n`` largest, with their launch counts)
+    of a ``torch.profiler`` run whose wall time was ``wall_ms``, the device's
+    covered time and its share of the wall time. Kernels are the device-side
+    events (copies and fills count in the covered time only); the host-side
+    events that carry device time (operators, autograd nodes) and the
+    device-side ranges of ``record_function`` annotations (AdamW's step) are
+    left out, so nothing is counted twice."""
+    from torch.autograd import DeviceType
+
+    device_events = [ev for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
     by_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        if dev_us and ev.key and not ev.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "ProfilerStep")):
-            by_kernel[ev.key[:90]] = (round(dev_us / 1e3, 3), ev.count)
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
+    for ev in device_events:
+        if not ev.name.startswith(("Memcpy", "Memset")):
+            ms, n = by_kernel.get(ev.name[:90], (0.0, 0))
+            by_kernel[ev.name[:90]] = (ms + (ev.time_range.end - ev.time_range.start) / 1e3, n + 1)
+    by_kernel = {k: (round(ms, 3), n) for k, (ms, n) in by_kernel.items()}
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top_n])
     kernel_ms = sum(ms for ms, _ in by_kernel.values())
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in device_events]
     covered_ms = busy_ms(spans)
-    wall_ms = pipe.timings["total_s"] * 1e3
     return {"device_ms_by_kernel": top, "device_kernel_ms": round(kernel_ms, 3),
+            "device_launches": sum(n for _, n in by_kernel.values()),
             "device_busy_ms": round(covered_ms, 3),
             "device_span_overlap_ms": round(sum(e - s for s, e in spans) / 1e3 - covered_ms, 3),
             "profiled_total_ms": round(wall_ms, 3), "device_busy_share": round(covered_ms / wall_ms, 4)}
@@ -342,6 +358,86 @@ def decode_times(gpu: str) -> None:
             "device_spans_per_step": len(kernels) / (DECODE_STEPS + 1)}), flush=True)
 
 
+TRAIN_BATCH, TRAIN_FRAMES = 8, 512  # the diffusion step: chip_smoke path v's batch
+GAN_BATCH, GAN_FRAMES = 2, 32  # the GAN steps: chip_smoke path w's segments
+TRAIN_RUNS = 7  # the first two are warm-up
+
+
+def train_times(cfg, gpu: str) -> None:
+    """Warm training steps at the widths of ``config/config.json`` on
+    synthetic batches: the diffusion step (B = 8, 512 frames, random
+    features of the loader's shapes) and the GAN's discriminator and
+    generator steps (B = 2 segments of 32 frames of the synthetic clip and
+    their log-mels). One JSON line each: the median wall ms of runs 3-7 to
+    a synchronisation, the peak device memory, and one more step under
+    ``torch.profiler`` (:func:`device_breakdown`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from svc_inference_pipeline_tpu_torch.ops.mel import mel_spectrogram
+    from svc_inference_pipeline_tpu_torch.training.diffusion import (
+        init_diffusion_train_state, make_diffusion_train_step)
+    from svc_inference_pipeline_tpu_torch.training.gan import init_gan_train_state, make_gan_train_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    b, t = TRAIN_BATCH, TRAIN_FRAMES
+    batch = {"mel": np.clip(0.5 * rng.standard_normal((b, t, cfg.mapper.n_mel)), -1, 1).astype(np.float32),
+             "content_whisper": rng.standard_normal((b, t, cfg.mapper.input_content_dim["whisper"])).astype(np.float32),
+             "melody": rng.uniform(100, 500, (b, t)).astype(np.float32),
+             "loudness": rng.uniform(0, 1, (b, t)).astype(np.float32),
+             "singer": rng.integers(0, 4, (b, 1)).astype(np.int32)}
+    state, opt = init_diffusion_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    step = make_diffusion_train_step(cfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def diffusion():
+        nonlocal state
+        state, loss = step(state, batch, gen)
+        float(loss)
+
+    n = GAN_FRAMES * cfg.hop_length
+    audio = synth_clip(cfg.fs, 4.0)
+    wave = torch.as_tensor(np.stack([audio[i * cfg.fs: i * cfg.fs + n] for i in range(GAN_BATCH)]), device=dev)
+    mel = mel_spectrogram(wave, cfg.n_fft, cfg.n_mels, cfg.fs, cfg.hop_length, cfg.win_length, cfg.fmin,
+                          cfg.fmax).transpose(1, 2)
+    gan_batch = {"mel": mel, "wave": wave}
+    gstate, gopt, dopt = init_gan_train_state(cfg, torch.Generator(device=dev).manual_seed(2), device=dev)
+    disc_step, gen_step = make_gan_train_steps(cfg, gopt, dopt)
+
+    def disc():
+        nonlocal gstate
+        gstate, loss = disc_step(gstate, gan_batch)
+        float(loss)
+
+    def generator():
+        nonlocal gstate
+        gstate, loss, _ = gen_step(gstate, gan_batch)
+        float(loss)
+
+    for name, fn, shape in (("diffusion step", diffusion, f"B={b}, T={t}"),
+                            ("gan discriminator step", disc, f"B={GAN_BATCH}, {n} samples"),
+                            ("gan generator step", generator, f"B={GAN_BATCH}, {n} samples")):
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(TRAIN_RUNS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        line = {"card": gpu, "path": name, "shape": shape, "ms": 1e3 * statistics.median(runs[2:]),
+                "first_ms": 1e3 * runs[0], "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "profiled_ms": wall_ms, **device_breakdown(prof, wall_ms, top_n=10)}
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
@@ -349,6 +445,7 @@ def main(argv=None) -> int:
     p.add_argument("--k2", action="store_true")
     p.add_argument("--batch", action="store_true")
     p.add_argument("--decode", action="store_true")
+    p.add_argument("--train", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -370,6 +467,9 @@ def main(argv=None) -> int:
         return 0
     if args.decode:
         decode_times(gpu)
+        return 0
+    if args.train:
+        train_times(cfg, gpu)
         return 0
     root = os.path.dirname(os.path.dirname(DEFAULT_CONFIG))
     for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):

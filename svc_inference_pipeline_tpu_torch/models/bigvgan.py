@@ -15,6 +15,16 @@ Every kernel wrapper takes its plain PyTorch version on CPU tensors.
 ``upsample1d``/``downsample1d`` with
 ``snake``/``snake_beta`` are the composed anti-aliased activation, the
 reference those kernels are held to.
+
+Two routes, chosen when the generator is built, as the JAX generator's
+``use_pallas`` chooses them: ``use_kernels=True`` (serving, the default)
+runs the kernels above on kernel-form copies of the weights, made once by
+``prepare_kernel_params``; the kernels write through ctypes and their
+outputs carry no gradient. ``use_kernels=False`` (training) runs every
+activation composed on its own alpha/beta and every AMP block through its
+own act/conv modules, on any device, and makes or reads no kernel-form
+copy, so autograd reaches every parameter. Nothing switches routes on its
+own.
 """
 
 from __future__ import annotations
@@ -129,12 +139,15 @@ def activation1d_composed(x, alpha, beta, kind: str, logscale: bool) -> torch.Te
 
 class Activation1d(nn.Module):
     """Anti-aliased activation (2x up -> snake -> 2x down) with per-channel
-    alpha/beta parameters; forward runs K3 (plain version on CPU)."""
+    alpha/beta parameters; forward runs K3 (plain version on CPU), or with
+    ``use_kernels=False`` the composed activation."""
 
-    def __init__(self, channels: int, kind: str = "snakebeta", logscale: bool = True):
+    def __init__(self, channels: int, kind: str = "snakebeta", logscale: bool = True,
+                 use_kernels: bool = True):
         super().__init__()
         self.kind = kind
         self.logscale = logscale
+        self.use_kernels = use_kernels
         init = torch.zeros if logscale else torch.ones
         self.alpha = nn.Parameter(init(channels))
         self.beta = nn.Parameter(init(channels)) if kind == "snakebeta" else None
@@ -143,6 +156,8 @@ class Activation1d(nn.Module):
         return self.alpha, (self.beta if self.beta is not None else self.alpha)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.use_kernels:
+            return activation1d_composed(x, *self.params(), self.kind, self.logscale)
         from svc_inference_pipeline_tpu_torch.ops.pallas.snake import fused_activation1d
 
         # a conv's output is a transposed view; the kernel reads [B, T, C] rows
@@ -234,18 +249,21 @@ class AMPBlock1(nn.Module):
     four dependent launches), wider blocks compose the activations (K3) and
     the convs, each pair's output in x's dtype. The generator's default
     route runs whole stages of these blocks through K2 instead
-    (:meth:`pair_params`, :meth:`prepare_kernel_params`)."""
+    (:meth:`pair_params`, :meth:`prepare_kernel_params`). With
+    ``use_kernels=False`` every pair runs its act/conv modules, the
+    activations composed."""
 
     def __init__(self, cfg: Any, channels: int, kernel_size: int = 3,
-                 dilations: Sequence[int] = (1, 3, 5)):
+                 dilations: Sequence[int] = (1, 3, 5), use_kernels: bool = True):
         super().__init__()
         self.channels = channels
         self.kernel_size = kernel_size
         self.dilations = tuple(dilations)
+        self.use_kernels = use_kernels
         self.kind, self.logscale = cfg.activation, cfg.snake_logscale
         for j, d in enumerate(self.dilations):
-            self.add_module(f"act1_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale))
-            self.add_module(f"act2_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale))
+            for name in (f"act1_{j}", f"act2_{j}"):
+                self.add_module(name, Activation1d(channels, cfg.activation, cfg.snake_logscale, use_kernels))
             self.add_module(f"conv1_{j}", TorchConv1d(channels, channels, kernel_size, d))
             self.add_module(f"conv2_{j}", TorchConv1d(channels, channels, kernel_size, 1))
         self.kernel_pairs: Optional[tuple] = None
@@ -267,7 +285,12 @@ class AMPBlock1(nn.Module):
         the operands of K7 and, per stage, K2): each conv weight is stored
         contiguous as [k, Cin, Cout] and the module's [Cout, Cin, k] weight
         becomes a view of it, so nothing is duplicated and no launch copies a
-        weight. Call when the weights are final and on their device."""
+        weight. Call when the weights are final and on their device.
+
+        The copies are made from the weights as they are now: ``forward``
+        makes them anew on a change of dtype or device, never on a change
+        of values. After changing the weights (loading, training), call this
+        again before the kernel route runs."""
         from svc_inference_pipeline_tpu_torch.ops.pallas.amp_stage import kernel_params
 
         for j in range(len(self.dilations)):
@@ -279,7 +302,7 @@ class AMPBlock1(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from svc_inference_pipeline_tpu_torch.ops.pallas.amp_pair import MAX_CHANNELS, fused_amp_pair
 
-        if self.channels <= MAX_CHANNELS:
+        if self.use_kernels and self.channels <= MAX_CHANNELS:
             w = None if self.kernel_pairs is None else self.kernel_pairs[0][0]
             if w is None or w.dtype != x.dtype or w.device != x.device:
                 self.prepare_kernel_params(x.dtype)
@@ -301,11 +324,11 @@ class AMPBlock2(nn.Module):
     x's dtype (JAX ``AMPBlock2``)."""
 
     def __init__(self, cfg: Any, channels: int, kernel_size: int = 3,
-                 dilations: Sequence[int] = (1, 3)):
+                 dilations: Sequence[int] = (1, 3), use_kernels: bool = True):
         super().__init__()
         self.dilations = tuple(dilations)
         for j, d in enumerate(self.dilations):
-            self.add_module(f"act_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale))
+            self.add_module(f"act_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale, use_kernels))
             self.add_module(f"conv_{j}", TorchConv1d(channels, channels, kernel_size, d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -321,14 +344,20 @@ class BigVGANGenerator(nn.Module):
     generator's stage route, taken there for C <= 768, a VMEM budget of the
     TPU that does not apply here); :meth:`forward_per_block` runs the same
     weights block by block instead (K7 up to 384 channels). With resblock
-    "2" the stages always run block by block (AMPBlock2)."""
+    "2" the stages always run block by block (AMPBlock2).
 
-    def __init__(self, cfg: Any, compute_dtype: Optional[torch.dtype] = None):
+    ``use_kernels=False`` is the training route (the JAX generator with
+    ``use_pallas=False``): each stage runs :meth:`stage_blocks`, every block
+    and activation on its own modules, with no kernel and no kernel-form
+    copy, so every parameter gets its gradient."""
+
+    def __init__(self, cfg: Any, compute_dtype: Optional[torch.dtype] = None, use_kernels: bool = True):
         super().__init__()
         if cfg.resblock not in ("1", "2"):
             raise ValueError(f"resblock must be '1' or '2', got {cfg.resblock!r}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
+        self.use_kernels = use_kernels
         block_cls = AMPBlock1 if cfg.resblock == "1" else AMPBlock2
         ch0 = cfg.upsample_initial_channel
         self.conv_pre = TorchConv1d(cfg.input_dim, ch0, 7, dtype=compute_dtype)
@@ -337,8 +366,8 @@ class BigVGANGenerator(nn.Module):
             cin, ch = ch, ch0 // (2 ** (i + 1))
             self.add_module(f"up_{i}", TorchConvTranspose1d(cin, ch, k, u, dtype=compute_dtype))
             for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
-                self.add_module(f"resblock_{i}_{j}", block_cls(cfg, ch, rk, tuple(rd)))
-        self.activation_post = Activation1d(ch, cfg.activation, cfg.snake_logscale)
+                self.add_module(f"resblock_{i}_{j}", block_cls(cfg, ch, rk, tuple(rd), use_kernels))
+        self.activation_post = Activation1d(ch, cfg.activation, cfg.snake_logscale, use_kernels)
         self.conv_post = TorchConv1d(ch, 1, 7, dtype=compute_dtype)
         self.kernel_stages: Optional[tuple] = None
 
@@ -352,7 +381,10 @@ class BigVGANGenerator(nn.Module):
         """Put every AMPBlock1's parameters in kernel form once
         (:meth:`AMPBlock1.prepare_kernel_params`) and gather them per stage
         for K2 (``kernel_stages[i]``). Call when the weights are final and on
-        their device; nothing to do for resblock "2"."""
+        their device; nothing to do for resblock "2". The copies hold the
+        weights as they are now: after changing the weights, call this
+        again before the next forward (``SVCPipeline.refresh_kernel_params``
+        does it for a pipeline)."""
         if self.cfg.resblock != "1":
             return
         from svc_inference_pipeline_tpu_torch.ops.pallas.amp_stage import StageParams
@@ -398,13 +430,22 @@ class BigVGANGenerator(nn.Module):
         return torch.tanh(x.float())[..., 0]
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        return self._forward(mel, per_block=self.cfg.resblock != "1")
+        return self._forward(mel, per_block=self.cfg.resblock != "1" or not self.use_kernels)
 
     def forward_per_block(self, mel: torch.Tensor) -> torch.Tensor:
         """The generator block by block (resblock "1": each AMPBlock1's own
         forward, K7 up to 384 channels), as ``perf_vocoder_stages`` runs the
         JAX generator's layers."""
         return self._forward(mel, per_block=True)
+
+
+def vocoder_output_to_audio(wave: torch.Tensor, n_frames: int, hop_length: int) -> torch.Tensor:
+    """Trim to n_frames * hop and apply the reference's 20-frame linear
+    fade-out to the end (the JAX ``vocoder_output_to_audio``)."""
+    wave = wave[..., : n_frames * hop_length]
+    fade_len = 20 * hop_length
+    fade = torch.linspace(1.0, 0.0, fade_len, dtype=wave.dtype, device=wave.device)
+    return torch.cat([wave[..., :-fade_len], wave[..., -fade_len:] * fade], dim=-1)
 
 
 def vocoder_output_finalize(wave: torch.Tensor, n_true: torch.Tensor, hop_length: int,

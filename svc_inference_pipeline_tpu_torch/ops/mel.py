@@ -3,7 +3,13 @@
 Counterpart of ``svc_inference_pipeline_tpu/ops/mel.py``: reflect pad
 (n_fft - hop)/2, Hann-windowed STFT (center=False), magnitude
 sqrt(re^2 + im^2 + 1e-9), slaney mel filterbank, ln(clamp(., 1e-5)), and
-per-frame energy sqrt(sum exp(logmel)^2). Runs on the waveform's device.
+per-frame energy sqrt(sum exp(logmel)^2). Runs on the waveform's device,
+and every function is differentiable (the GAN's mel loss and the
+resolution discriminator's spectrogram take gradients through it).
+
+Also the training front-end: the :class:`STFT` mel extractor with key shift
+and speed, and :func:`acoustic_feature_extractor` (mel, F0 and energy of a
+file).
 """
 
 from __future__ import annotations
@@ -70,15 +76,27 @@ def hann(win_length: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float32)
 
 
-def reflect_pad(y: torch.Tensor, left: int, right: int) -> torch.Tensor:
+_PAD_MODES = {"reflect": "reflect", "constant": "constant", "edge": "replicate"}
+
+
+def pad_last(y: torch.Tensor, left: int, right: int, mode: str = "reflect") -> torch.Tensor:
+    """Pad the last axis of y [..., L] in ``mode`` ("reflect", "constant" or
+    "edge", ``jnp.pad``'s names)."""
     shape = y.shape
-    out = F.pad(y.reshape(-1, 1, shape[-1]), (left, right), mode="reflect")
+    out = F.pad(y.reshape(-1, 1, shape[-1]), (left, right), mode=_PAD_MODES[mode])
     return out.reshape(*shape[:-1], out.shape[-1])
 
 
 def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
+                   pad: Tuple[int, int] = (0, 0), pad_mode: str = "reflect",
                    magnitude_floor: float = 1e-9) -> torch.Tensor:
-    """|STFT| (center=False) of y [..., L] -> [..., F, T]."""
+    """|STFT| (center=False) of y [..., L] -> [..., F, T]:
+    sqrt(re^2 + im^2 + magnitude_floor), after padding the last axis by
+    ``pad`` (left, right) in ``pad_mode`` ("reflect", "constant" or "edge",
+    ``jnp.pad``'s names). With ``magnitude_floor=0`` the gradient is
+    infinite at a bin that is exactly zero, as in the JAX function."""
+    if tuple(pad) != (0, 0):
+        y = pad_last(y, *pad, pad_mode)
     frames = y.unfold(-1, n_fft, hop)
     window = torch.as_tensor(hann(win_length), device=y.device)
     if win_length < n_fft:
@@ -93,11 +111,50 @@ def mel_spectrogram(y: torch.Tensor, n_fft: int, num_mels: int, sampling_rate: i
                     hop_size: int, win_size: int, fmin: float, fmax: float) -> torch.Tensor:
     """Log-mel [..., n_mels, T] of y [..., L]."""
     pad = int((n_fft - hop_size) / 2)
-    mag = stft_magnitude(reflect_pad(y, pad, pad), n_fft, hop_size, win_size)
+    mag = stft_magnitude(y, n_fft, hop_size, win_size, pad=(pad, pad))
     basis = torch.as_tensor(
         mel_filterbank(sampling_rate, n_fft, num_mels, float(fmin), float(fmax)), device=y.device
     )
     return torch.log(torch.clamp(basis @ mag, min=1e-5))
+
+
+class STFT:
+    """Mel extractor with key shift and speed (the JAX ``ops/mel.py::STFT``):
+    ``keyshift`` scales n_fft and the window by 2^(keyshift/12) and puts the
+    spectrum back on the nominal bins (cut or zero-padded, times win /
+    win'), ``speed`` scales the hop."""
+
+    def __init__(self, fs, n_mels, n_fft, win_length, hop_length, fmin, fmax, clip_val=1e-5):
+        self.fs, self.n_mels, self.n_fft = fs, n_mels, n_fft
+        self.win_length, self.hop_length = win_length, hop_length
+        self.fmin, self.fmax, self.clip_val = fmin, fmax, clip_val
+
+    def get_mel(self, y: torch.Tensor, keyshift: float = 0, speed: float = 1) -> torch.Tensor:
+        """Log-mel [..., n_mels, T] of y [..., L]."""
+        factor = 2 ** (keyshift / 12)
+        n_fft_new = int(np.round(self.n_fft * factor))
+        win_new = int(np.round(self.win_length * factor))
+        hop_new = int(np.round(self.hop_length * speed))
+        pad = ((win_new - hop_new) // 2, (win_new - hop_new + 1) // 2)
+        mag = stft_magnitude(y, n_fft_new, hop_new, win_new, pad=pad)  # [..., F', T]
+        if keyshift != 0:
+            size = self.n_fft // 2 + 1
+            if mag.shape[-2] < size:
+                mag = F.pad(mag, (0, 0, 0, size - mag.shape[-2]))
+            mag = mag[..., :size, :] * (self.win_length / win_new)
+        basis = torch.as_tensor(
+            mel_filterbank(self.fs, self.n_fft, self.n_mels, float(self.fmin), float(self.fmax)), device=y.device
+        )
+        return torch.log(torch.clamp(basis @ mag, min=self.clip_val))
+
+    def __call__(self, wave_file: str, device=None) -> torch.Tensor:
+        """Log-mel [n_mels, T] of a file at ``self.fs``, on ``device`` (None:
+        the GPU, see ``resolve_device``)."""
+        from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio
+        from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
+
+        audio, _ = load_audio(wave_file, self.fs)
+        return self.get_mel(torch.as_tensor(audio, device=resolve_device(device))[None])[0]
 
 
 def extract_mel_features(audio: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,3 +163,18 @@ def extract_mel_features(audio: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.
                           cfg.win_length, cfg.fmin, cfg.fmax)
     energy = torch.sqrt(torch.sum(torch.exp(mel) ** 2, dim=-2))
     return mel, energy
+
+
+def acoustic_feature_extractor(wav_file: str, cfg, device=None) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(mel [T, n_mels], f0 [T], energy [T]) of a file, as numpy: the mel and
+    energy on ``device`` (None: the GPU), the F0 on the host."""
+    from svc_inference_pipeline_tpu_torch.ops.f0 import get_f0_features
+    from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio
+    from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
+
+    audio, _ = load_audio(wav_file, cfg.fs)
+    with torch.no_grad():
+        mel, energy = extract_mel_features(torch.as_tensor(audio, device=resolve_device(device)), cfg)
+    mel = mel.cpu().numpy()
+    f0, _ = get_f0_features(np.asarray(audio), mel.shape[-1], cfg)
+    return mel.T, f0, energy.cpu().numpy()

@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "cuda_kernels"
@@ -129,3 +131,26 @@ def check(status: int, name: str) -> None:
     """Raise if a kernel entry point reported a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status}")
+
+
+def _tensors(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (tuple, list)):  # stacks, stage and pair parameters
+            yield from _tensors(a)
+
+
+def refuse_autograd(name: str, *args) -> None:
+    """Raise if a kernel would be launched where autograd is recording: grad
+    mode on and any tensor among ``args`` (nested tuples included) requiring
+    grad. The kernels write their outputs through ctypes, so those outputs
+    would carry no gradient and training would silently skip the layers
+    behind them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in _tensors(args)):
+        raise RuntimeError(
+            f"{name}: a hand-written kernel has no backward, and an input requires grad under "
+            "autograd. Run inference under torch.no_grad() or torch.inference_mode(); to train, "
+            "build the model with use_kernels=False (BigVGANGenerator) or use the module's own "
+            "forward (DiffSVCDenoiser, the Whisper encoder)"
+        )

@@ -80,8 +80,10 @@ def fused_amp_pair(x: torch.Tensor, pair, k: int, d: int) -> torch.Tensor:
     ``fused_amp_pair.launches``."""
     if x.device.type == "cpu":
         return amp_pair_plain(x, pair, k, d)
-    check_args(x, pair, k, d)
     from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    _build.refuse_autograd("fused_amp_pair", x, pair)
+    check_args(x, pair, k, d)
 
     b, t, c = x.shape
     out = torch.empty_like(x)

@@ -208,12 +208,13 @@ def fused_amp_stage(x: torch.Tensor, block_params, ks: Tuple[int, ...],
     count per stage in ``fused_amp_stage.launches``."""
     if x.device.type == "cpu":
         return amp_stage_plain(x, block_params, ks, dils_per_block)
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    _build.refuse_autograd("fused_amp_stage", x, block_params)
     _check_x(x)
     b, t_len, c = x.shape
     params, kd, pairs_per_block = stage_table(block_params, ks, dils_per_block, c, x.device)
     plan = stage_plan(b, t_len, c, ks, dils_per_block)
-    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
-
     out = torch.empty_like(x)
     f32_bytes = 4 * b * t_len * c  # conv_out, carry and (past one block) total
     slab, ptrs = scratch([2 * b * (t_len + 2 * plan.halo) * c] + [f32_bytes] * (3 if len(block_params) > 1 else 2),

@@ -45,6 +45,9 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in ``encoder_attention.launches``."""
     if q.device.type == "cpu":
         return encoder_attention_plain(q, k, v, n_head)
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    _build.refuse_autograd("encoder_attention", q, k, v)
     b, t, d = q.shape
     if d != n_head * HEAD_DIM:
         raise ValueError(f"encoder_attention: width {d} is not {n_head} heads x {HEAD_DIM}")
@@ -56,8 +59,6 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             )
         if x.device != q.device:
             raise ValueError(f"encoder_attention: {name} is on {x.device}, q on {q.device}")
-    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
-
     out = torch.empty_like(q)
     status = _build.lib().svc_encoder_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, n_head,

@@ -334,10 +334,12 @@ def ddpm_step(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tenso
     """
     if x.device.type == "cpu":
         return ddpm_step_plain(st, condb, step_rows_t, x, z, srow)
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    _build.refuse_autograd("ddpm_step", st, condb, step_rows_t, x, z)
     _check_cuda_args("ddpm_step", st, condb, step_rows_t, x)
     for key, v in (("x", x), ("z", z)):
         _check_f32("ddpm_step", key, v, (x.shape[0], x.shape[1], st.wmel.shape[0]))
-    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
 
     out = torch.empty_like(x)
     _scratch, ptrs, dims = _forward_operands(st, condb, step_rows_t, x)  # alive until enqueued
@@ -357,13 +359,15 @@ def denoise(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
     counted in ``denoise.launches`` and ``denoise.launches_by_mode``."""
     if x.device.type == "cpu":
         return denoise_plain(st, condb, step_rows_t, x)
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    _build.refuse_autograd("denoise", st, condb, step_rows_t, x)
     _check_cuda_args("denoise", st, condb, step_rows_t, x)
     b, t_len, n_mel = x.shape
     m_pad = st.wmel.shape[0]
     if n_mel > m_pad:
         raise ValueError(f"denoise: x has {n_mel} mel channels, the stack {m_pad}")
     _check_f32("denoise", "x", x, (b, t_len, n_mel))
-    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
 
     xp = F.pad(x, (0, m_pad - n_mel))
     eps = torch.empty_like(x)
@@ -419,7 +423,9 @@ def denoiser_stacks(den: DiffSVCDenoiser, dtype=torch.bfloat16, quantize: Option
                     quantize_tail: int = 0) -> Tuple[StackedDenoiser, Optional[StackedDenoiser]]:
     """(st, st_fp): the stack of the ``quantize`` mode and, for an int8 mode
     with a DDPM tail, the unquantised stack the tail runs on (else None).
-    They depend on the weights only, so a pipeline makes them once."""
+    They depend on the weights only, so a pipeline makes them once. They are
+    copies of the weights as they are now: after changing the denoiser's
+    weights, make them anew."""
     st = stack_denoiser_params(den, dtype, quantize)
     st_fp = stack_denoiser_params(den, dtype) if quantize and quantize_tail > 0 else None
     return st, st_fp

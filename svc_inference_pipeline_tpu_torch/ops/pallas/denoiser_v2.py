@@ -42,6 +42,9 @@ def denoise_v2(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tens
         raise ValueError(f"denoise_v2: one clip only (x [1, T, n_mel]), got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return denoise_plain(st, condb, step_rows_t, x)
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    _build.refuse_autograd("denoise_v2", st, condb, step_rows_t, x)
     _check_cuda_args("denoise_v2", st, condb, step_rows_t, x)
     if st.w1s is not None or st.wouts is not None:
         raise ValueError(f"denoise_v2: bf16 stacks only, got an {st.mode} stack")
@@ -51,8 +54,6 @@ def denoise_v2(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tens
     if n_mel > m_pad:
         raise ValueError(f"denoise_v2: x has {n_mel} mel channels, the stack {m_pad}")
     _check_f32("denoise_v2", "x", x, (1, t_len, n_mel))
-    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
-
     xp = F.pad(x, (0, m_pad - n_mel))
     eps = torch.empty_like(x)
     h, g, s1 = (torch.empty((t_len, c), dtype=torch.bfloat16, device=x.device) for _ in range(3))

@@ -116,6 +116,9 @@ def fused_activation1d(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     alpha_eff, inv_beta = effective_params(alpha, beta, kind, logscale)
     if x.device.type == "cpu":
         return activation1d_plain(x, alpha_eff, inv_beta)
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+    _build.refuse_autograd("fused_activation1d", x, alpha, beta)
     alpha_eff, inv_beta = alpha_eff.contiguous(), inv_beta.contiguous()
     _check_cuda_args(x, alpha_eff, inv_beta)
     out = torch.empty_like(x)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from svc_inference_pipeline_tpu_torch.ops.mel import hann, mel_filterbank, reflect_pad
+from svc_inference_pipeline_tpu_torch.ops.mel import hann, mel_filterbank, pad_last
 from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
 
 SAMPLE_RATE = 16000
@@ -51,7 +51,7 @@ def pad_or_trim(array: Array, length: int = N_SAMPLES, axis: int = -1) -> Array:
 
 def log_mel_spectrogram(audio: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor:
     """Whisper log-mel of 16 kHz audio [..., L] -> [..., n_mels, L // 160]."""
-    y = reflect_pad(audio.float(), N_FFT // 2, N_FFT // 2)
+    y = pad_last(audio.float(), N_FFT // 2, N_FFT // 2)
     frames = y.unfold(-1, N_FFT, HOP_LENGTH)
     spec = torch.fft.rfft(frames * torch.as_tensor(hann(N_FFT), device=audio.device), n=N_FFT, dim=-1)
     magnitudes = (spec.real ** 2 + spec.imag ** 2)[..., :-1, :].transpose(-1, -2)  # [..., F, T]

@@ -87,7 +87,9 @@ def _sync(device: torch.device) -> None:
 
 
 class SVCPipeline:
-    """Holds the models on one device and runs conversions."""
+    """Holds the models on one device and runs conversions. The kernels'
+    copies of the weights are made when it is built (see
+    :meth:`refresh_kernel_params`)."""
 
     def __init__(self, cfg: HParams, cond_encoder: ConditionEncoder, denoiser: DiffSVCDenoiser,
                  vocoder: BigVGANGenerator, whisper: WhisperPPGExtractor,
@@ -391,6 +393,15 @@ class SVCPipeline:
         self.sampler = sampler
         if speedup is not None:
             self.plms_speedup = int(speedup)
+
+    def refresh_kernel_params(self) -> None:
+        """Make the kernels' copies of the weights anew from the modules as
+        they are now: the vocoder's kernel form (K2, K7) and the denoiser's
+        stacks (K1, K5, K6). The pipeline makes them once, when it is built;
+        they do not follow a later change of the weights' values. After
+        changing the weights in place (loading, training), call this."""
+        self.vocoder.prepare_kernel_params()
+        self.set_quantize(self.denoiser_quantize, self.denoiser_quantize_tail)
 
     def set_quantize(self, quantize: Optional[str], tail: int = 0) -> None:
         """Switch the denoiser's int8 mode: None, "int8" (conv and output

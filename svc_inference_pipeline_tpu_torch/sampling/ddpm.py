@@ -8,6 +8,9 @@ sampler is the module-level reference it is held to.
 Numeric contract: x_T ~ N(0, (1/1.2)^2), x0 clamped to [-1, 1], posterior
 mean c2 x0 + c3 x_t, noise scaled by exp(log sigma^2 / 2), no noise at t = 0.
 Step i runs t = steps-1-i with noise z[i].
+
+:func:`ddpm_training_loss` is the training objective: the eps-prediction MSE
+at a step drawn uniformly for each clip.
 """
 
 from __future__ import annotations
@@ -70,3 +73,26 @@ def ddpm_sample(denoise_fn: DenoiseFn, cond: torch.Tensor, shape: Sequence[int],
             z = noise[1][i].to(device=device, dtype=torch.float32)
         x = p_sample_step(denoise_fn, schedule, x, num_steps - 1 - i, cond, z)
     return x
+
+
+def ddpm_training_loss(denoise_fn: DenoiseFn, x0: torch.Tensor, cond: torch.Tensor,
+                       schedule: DiffusionSchedule, generator: Optional[torch.Generator] = None,
+                       t: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(eps-prediction MSE, t [B]) at steps ``t`` with the standard-normal
+    ``noise`` of x0's shape; either one not given is drawn from ``generator``
+    (required then) on x0's device (t uniform in [0, steps)). The JAX objective draws both
+    from one key (``t_key, n_key = split(key)``); passing its ``t`` and
+    ``noise`` reproduces it."""
+    b = x0.shape[0]
+    if generator is None and (t is None or noise is None):
+        raise ValueError("ddpm_training_loss: draws come from an explicit generator (or pass t and noise)")
+    if t is None:
+        t = torch.randint(0, schedule.num_steps, (b,), generator=generator, device=x0.device)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    t = t.to(x0.device)
+    noise = noise.to(device=x0.device, dtype=x0.dtype)
+    x_t = schedule.q_sample(x0, t, noise)
+    eps = denoise_fn(x_t, cond, t[:, None])
+    return torch.mean(torch.square(eps - noise)), t

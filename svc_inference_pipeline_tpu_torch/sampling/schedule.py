@@ -2,7 +2,9 @@
 
 Counterpart of ``svc_inference_pipeline_tpu/sampling/schedule.py``: computed
 once in float64 and stored as float32 numpy arrays (host side; the samplers
-read per-step scalars from them).
+read per-step scalars from them). The training functions :meth:`q_sample`
+and :meth:`predict_start_from_noise` gather their rows by ``t`` on the
+tensor's device, in f32.
 
     betas = linspace(start, end, steps); alphas = 1 - betas
     a_cum = cumprod(alphas); a_prev = [1, a_cum[:-1]]
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 
 class DiffusionSchedule:
@@ -60,3 +63,21 @@ class DiffusionSchedule:
     @property
     def num_steps(self) -> int:
         return int(self.betas.shape[0])
+
+    def _rows(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """f32 entries ``t`` of the array ``name``, on ``t``'s device."""
+        return torch.as_tensor(getattr(self, name), device=t.device)[t.long()]
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """Forward process x_t = sqrt(a_cum_t) x0 + sqrt(1 - a_cum_t) eps;
+        ``t`` is [B], x0 and noise [B, T, M]."""
+        a = self._rows("sqrt_alphas_cumprod", t)[:, None, None]
+        b = self._rows("sqrt_one_minus_alphas_cumprod", t)[:, None, None]
+        return a * x0 + b * noise
+
+    def predict_start_from_noise(self, x_t: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """x0 = sqrt(1/a_cum_t) x_t - sqrt(1/a_cum_t - 1) eps, the rows of
+        ``t`` broadcast against x_t as they come (a scalar ``t`` for one step)."""
+        t = torch.as_tensor(t, device=x_t.device)
+        return (self._rows("sqrt_recip_alphas_cumprod", t) * x_t
+                - self._rows("sqrt_recipm1_alphas_cumprod", t) * noise)

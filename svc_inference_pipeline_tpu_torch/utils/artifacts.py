@@ -1,4 +1,5 @@
-"""Dataset statistics artifacts: per-channel mel min/max and target-singer F0.
+"""Dataset statistics artifacts: per-channel mel min/max and target-singer F0,
+and the per-channel mel normalisation of the training targets.
 
 Counterpart of ``svc_inference_pipeline_tpu/utils/artifacts.py`` (npz, or
 the reference's pickles).
@@ -51,3 +52,11 @@ def pitch_shift(raw_f0: np.ndarray, cfg) -> np.ndarray:
     if voiced.size == 0:
         return raw_f0
     return raw_f0 * (get_target_f0_median(cfg.target_f0_file) / float(np.median(voiced)))
+
+
+def normalize_mel_channel(mel: np.ndarray, mel_min: np.ndarray, mel_max: np.ndarray) -> np.ndarray:
+    """Affine per-channel normalisation to [-1, 1]: ``mel`` is [n_mels, T],
+    min/max are (n_mels,)."""
+    lo = mel_min[:, None]
+    hi = mel_max[:, None]
+    return (mel - lo) / (hi - lo + 1e-12) * 2.0 - 1.0

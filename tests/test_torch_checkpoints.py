@@ -500,3 +500,26 @@ def test_server_builds_from_checkpoint_files(files, tmp_path, monkeypatch):
     _, den = tc.load_mapper_params(files["paths"]["mapper"], HParams(**files["dict"]).mapper)
     np.testing.assert_array_equal(seen["pipeline"].denoiser.residual_1.dilated_conv.bias.detach().numpy(),
                                   den["residual_1"]["dilated_conv"]["bias"])
+
+
+def test_conv2d_bridge_rule():
+    """A flax Conv's kernel [kh, kw, Cin, Cout] -> nn.Conv2d's [Cout, Cin, kh,
+    kw]: the same outputs on an NHWC / NCHW input (strided, padded as the
+    period discriminator's); random_init_ draws it with fan-in Cin kh kw."""
+    import flax.linen as fnn
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params, random_init_
+
+    rng = np.random.default_rng(2)
+    params = {"kernel": rng.standard_normal((5, 3, 4, 8)).astype(np.float32),
+              "bias": rng.standard_normal(8).astype(np.float32)}
+    x = rng.standard_normal((2, 4, 17, 6)).astype(np.float32)  # NCHW
+    want = fnn.Conv(8, (5, 3), strides=(3, 2), padding=[(2, 2), (1, 1)]).apply(
+        {"params": params}, jnp.asarray(x.transpose(0, 2, 3, 1)))
+    conv = torch.nn.Conv2d(4, 8, (5, 3), stride=(3, 2), padding=(2, 1))
+    load_jax_params(conv, params)
+    np.testing.assert_array_equal(conv.weight.detach().numpy(), params["kernel"].transpose(3, 2, 0, 1))
+    got = conv(torch.from_numpy(x)).detach().numpy().transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+    random_init_(conv, torch.Generator().manual_seed(0))
+    assert abs(float(conv.weight.detach().std()) - (4 * 5 * 3) ** -0.5) < 0.03 and not conv.bias.any()

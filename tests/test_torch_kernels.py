@@ -516,6 +516,63 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         amp_pair.fused_amp_pair(torch.zeros((1, 8, 392), dtype=BF, device=dev), pair, 3, 1)
 
 
+def test_wrappers_refuse_autograd(dev):
+    """Every kernel wrapper raises on the card when autograd would record
+    its call (grad mode on and an input that requires grad): the kernels
+    write through ctypes, so their outputs would carry no gradient. Under
+    no_grad the same call runs. No refused call is counted as a launch. The
+    vocoder's kernel route refuses a training forward; its training route
+    (use_kernels=False) runs and reaches every parameter."""
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.models.bigvgan import BigVGANGenerator
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x3 = torch.randn((1, 64, 24), generator=g, device=dev).to(BF)
+    alpha, beta = (0.3 * torch.randn(24, generator=g, device=dev) for _ in range(2))
+    q = torch.randn((1, 64, 128), generator=g, device=dev).to(BF)
+    stage = _stage_params(48, g, dev)
+    x2 = (0.5 * torch.randn((1, 100, 48), generator=g, device=dev)).to(BF)
+    pair = _pair(48, 3, g, dev)
+    st, condb, rows, x, _ = _denoiser_operands(dev, 1, 64, 128, 4, None)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    srow = (1.2, 0.3, 0.5, 0.4, 0.1)
+    calls = {
+        "fused_activation1d": (snake.fused_activation1d, lambda a: (a, alpha, beta), x3),
+        "fused_amp_stage": (amp_stage.fused_amp_stage, lambda a: (a, stage, KS, DILS), x2),
+        "fused_amp_pair": (amp_pair.fused_amp_pair, lambda a: (a, pair, 3, 1), x2),
+        "encoder_attention": (attention.encoder_attention, lambda a: (a, q, q, 2), q),
+        "ddpm_step": (denoiser_step.ddpm_step, lambda a: (st, condb, rows[3], a, xp, srow), xp),
+        "denoise": (denoiser_step.denoise, lambda a: (st, condb, rows[3], a), x),
+        "denoise_v2": (denoiser_v2.denoise_v2, lambda a: (st, condb, rows[3], a), x),
+    }
+    for name, (fn, args, a) in calls.items():
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="use_kernels=False"):
+            fn(*args(a.detach().requires_grad_()))
+        assert fn.launches == before, name
+        with torch.no_grad():
+            fn(*args(a.detach().requires_grad_()))
+        with torch.inference_mode():
+            fn(*args(a))
+        assert fn.launches == before + 2, name
+    with pytest.raises(RuntimeError, match="use_kernels=False"):  # a parameter that requires grad
+        snake.fused_activation1d(x3, alpha.requires_grad_(), beta)
+
+    vcfg = load_config(os.path.join(REPO, "config", "config.json")).vocoder
+    vcfg = HParams(**dict(vcfg.to_dict(), upsample_initial_channel=64, upsample_rates=[4, 4],
+                          upsample_kernel_sizes=[8, 8]))
+    mel = torch.randn((1, 16, 100), generator=g, device=dev)
+    with torch.device(dev):
+        serve, train = BigVGANGenerator(vcfg, BF), BigVGANGenerator(vcfg, use_kernels=False)
+    for m in (serve, train):
+        random_init_(m, torch.Generator(device=dev).manual_seed(8))
+    serve.prepare_kernel_params()
+    with pytest.raises(RuntimeError, match="use_kernels=False"):
+        serve(mel)
+    train(mel).square().mean().backward()
+    assert all(p.grad is not None and bool(p.grad.abs().max() > 0) for p in train.parameters())
+
+
 def test_whisper_decoder_incremental_equals_full_prefix_at_medium_width(dev):
     """The text decoder at Whisper-medium's width (24 layers, 1024, 16 heads,
     vocabulary 51865) on random weights: prime + one-token steps over the

@@ -44,13 +44,16 @@ def one_torch_thread():
 _NO_JAX = """
 import importlib, pkgutil, sys
 import numpy as np, torch
+torch.set_num_threads(1)  # beside the suite's other workers, as their one_torch_thread fixtures do
 import svc_inference_pipeline_tpu_torch as pkg
 names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
 for name in sorted(names):
     importlib.import_module(name)
 new = {"eval", "checkpoints.torch_convert", "checkpoints.native_io", "checkpoints.fetch", "native.wav_codec",
        "models.whisper_decoding", "models.text_normalizers", "transcribe", "ops.f0_dio", "ops.f0_pyin",
-       "ops.f0_harvest", "ops.f0_crepe", "models.hubert", "checkpoints.hubert_convert"}
+       "ops.f0_harvest", "ops.f0_crepe", "models.hubert", "checkpoints.hubert_convert", "training",
+       "training.diffusion", "training.loop", "training.gan", "training.data", "training.elastic",
+       "models.discriminators"}
 assert {pkg.__name__ + "." + m for m in new} <= names, names
 from svc_inference_pipeline_tpu_torch.config import HParams, load_config
 from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
@@ -96,6 +99,26 @@ cv = ContentVecExtractor.random_init(HubertConfig(conv_layers=((32, 10, 5),) + (
 assert cv.extract(tone, 46).shape == (46, 16)
 ppg = WhisperPPGExtractor.random_init(dims, device="cpu", compute_dtype=torch.float32)
 assert ppg.extract(tone, 46).shape == (46, 64)
+from svc_inference_pipeline_tpu_torch.ops import mel
+from svc_inference_pipeline_tpu_torch.training import gan
+from svc_inference_pipeline_tpu_torch.training.loop import train_diffusion
+stft = mel.STFT(24000, 100, 1024, 1024, 256, 0, 12000)
+assert stft.get_mel(torch.from_numpy(tone)[None], keyshift=12).shape == (1, 100, 46)
+d2 = dict(d, mapper=dict(d["mapper"], input_content_dim={"whisper": 16}))
+rng = np.random.default_rng(0)
+batch = {"mel": rng.standard_normal((2, 8, 100)).astype(np.float32), "singer": np.zeros((2, 1), np.int32),
+         "content_whisper": rng.standard_normal((2, 8, 16)).astype(np.float32),
+         "melody": np.full((2, 8), 220.0, np.float32), "loudness": np.full((2, 8), 0.5, np.float32)}
+assert train_diffusion(HParams(**d2), [batch], num_steps=2, device="cpu").step == 2
+d3 = dict(d, vocoder=dict(d["vocoder"], upsample_initial_channel=32, upsample_rates=[4, 4, 4, 4],
+                          upsample_kernel_sizes=[8, 8, 8, 8], resblock_kernel_sizes=[3],
+                          resblock_dilation_sizes=[[1, 3, 5]], discriminator_channel_mult=0.125))
+state, gopt, dopt = gan.init_gan_train_state(HParams(**d3), torch.Generator().manual_seed(0), device="cpu")
+disc_step, gen_step = gan.make_gan_train_steps(HParams(**d3), gopt, dopt)
+wave_batch = {"mel": batch["mel"][:, :4], "wave": 0.1 * rng.standard_normal((2, 4 * 256)).astype(np.float32)}
+state, d_loss = disc_step(state, wave_batch)
+state, g_loss, _ = gen_step(state, wave_batch)
+assert np.isfinite(float(d_loss)) and np.isfinite(float(g_loss)) and state.step == 1
 bad = sorted(m for m in sys.modules if m in ("jax", "transformers")
              or m.startswith(("jax.", "transformers.", "svc_inference_pipeline_tpu.")))
 assert not bad, bad
