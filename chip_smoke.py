@@ -120,8 +120,8 @@
       checkpoint and a resumed run to 20, which must equal the unbroken run
       within ``RESUME_REL_BOUND`` (parameters, EMA and losses); no launches.
       Then one step on the card against the same step on the CPU from the
-      same weights, batch and draws (the CPU embedding the diffusion steps
-      with the card's timescales, whose f32 pow differs from the CPU's):
+      same weights, batch and draws (both embedding the diffusion steps
+      with the host table of timescales, ``diffsvc.step_timescales``):
       gradients per parameter within ``GRAD_CPU_REL_BOUND``. Prints ms a
       step (warm median) and peak memory;
    w. the GAN steps at the vocoder's full width (1536, six stages, MPD
@@ -134,6 +134,35 @@
       kernel stacks made from them) converts a 4 s clip with PLMS@10 (K5 x
       101, K4 x 24, K2 x 6, K3 x 1); its final mel must differ from the same
       conversion's on the untrained weights;
+   aa. (after the int8-w1 mel check) the vocoder in 4 overlap-save chunks
+      folded into one batch on the card (``parallel/tp_vocoder.py``, halo the
+      receptive radius, 69 frames) on path e's final mel (384 frames), K2 x 6
+      and K3 x 1, against the unchunked generator: SNR >= 12 dB and
+      correlation >= 0.97 (the bf16 bounds of tests/test_bf16_drift.py); prints
+      the max abs error;
+   y-ab and the train step on a mesh (after x): first which of the port's
+      collectives gloo takes on CUDA tensors (``gloo_cuda_probe``: 2 ranks on
+      cuda:0; NCCL refuses two ranks on one card). Then one spawn of 2 ranks on
+      cuda:0 over gloo, each computing on the card with its kernels:
+      y. DP (data 2): ``convert_batch`` of 4 clips, DDPM-1000 bf16 (K1 x 1000,
+         K4 x 24, K2 x 6, K3 x 1 a rank), then PLMS@10 int8-w1 (K5 int8-w1 x
+         101 a rank); each rank's waves equal, bit for bit, a single-process
+         ``convert_batch`` of its two clips with that rank's generator;
+      z. TP (model 2): one PLMS@10 conversion, K4 on 8 heads a rank, the
+         mapper and denoiser TP (no denoiser kernel), the vocoder in 2 chunks
+         (K2 x 6, K3 x 1 a rank); final mel correlation >= 0.999 and waveform
+         SNR >= 12 dB, correlation >= 0.97 against the single-device pipeline
+         on the same weights and noise;
+      ab. SP (model 2): one 30 s window through ``encode_sequence_parallel``
+         against the K4 encoder, within ``CONTENT_BF16_BOUND``, relative L2
+         printed;
+      the train step on a mesh (data 2, then model 2): one step on path v's
+         first batch (B = 8, 512 frames) from the same state and global draws
+         as one rank's step: loss and parameters within 1e-5 relative L2.
+      Then ab's GPipe route at world size 1 over NCCL (gloo refuses its ring's
+      send/recv on CUDA tensors): PLMS@10 through ``make_pp_denoise_fn`` on a
+      one-stage pipe axis, f32, final mel correlation >= 0.9999 with the
+      composed f32 denoiser. Each rank's launches go into the kernels' line;
    p. (last) the transcription CLI on the 4 s clip with Whisper-medium at
       full width (24 + 24 layers, 1024 wide, vocabulary 51865) on random
       weights, the whole fallback ladder (beam 5 at temperature 0, then
@@ -250,12 +279,14 @@ def bf16_ulp(v: float) -> float:
 #   held per batch element): measured 3.7e-3 of max|eps| for K1 on an H100;
 #   the bound is 1e-2, 2.7x that.
 # - eps of the int8 forms (K6): the int8 products are exact on both sides;
-#   they differ where a bf16 h summed in another order, or a gate whose
-#   sigmoid and tanh differ by ulps, crosses a rounding tie of a quantiser,
-#   which moves that operand by a whole int8 step (1/127 of its range).
-#   Measured on an H100 at L=20: 6.7e-3 to 7.3e-3 of max|eps| for int8-w1,
-#   1.27e-2 for "int8" (its gate is quantised too); each mode's bound is
-#   about 2x its readings.
+#   a bf16 h summed in another order, or a gate whose sigmoid and tanh
+#   differ by ulps, can cross a rounding tie of a quantiser, which moves
+#   that operand by a whole int8 step (1/127 of its range). The bounds were
+#   set at about 2x the readings of a plain version summing its bf16
+#   products in f32 (6.7e-3 to 7.3e-3 of max|eps| for int8-w1, 1.27e-2 for
+#   "int8", L=20, an H100). Since the plain version sums them in the wgmma
+#   tile's order (denoiser_step.wgmma_matmul) the two agree exactly on an
+#   H100; the bounds stay.
 # - the int8 forms on the stack's first two layers (B=2, the scales 8x
 #   apart): there a tie flip is rare, and it reaches the few frames of its
 #   conv taps, while a wrong scale or a wrongly rounded conv input moves
@@ -1937,8 +1968,8 @@ RESUME_AT = 10
 # step's loss (cuDNN's conv backward need not repeat its sums bit for bit)
 RESUME_REL_BOUND = 1e-4
 # path v: one step's gradients on the card against the CPU's from the same
-# weights, batch and draws, relative L2 per parameter (f32, TF32 off; the
-# CPU embeds the diffusion steps with the card's timescales)
+# weights, batch and draws, relative L2 per parameter (f32, TF32 off; both
+# embed the diffusion steps with the host table of timescales)
 GRAD_CPU_REL_BOUND = 1e-4
 GAN_FRAMES = 32  # path w: segments of 32 frames (8192 samples), B = 2
 GAN_STEPS = 3
@@ -1969,7 +2000,6 @@ def diffusion_training_path(cfg, counters, paths, device, tmp: str) -> dict:
     GRAD_CPU_REL_BOUND). Returns the numbers and, for path x, the EMA
     weights, the untrained weights, the Whisper extractor and a clip."""
     import copy
-    from unittest import mock
 
     import numpy as np
     import torch
@@ -2054,22 +2084,15 @@ def diffusion_training_path(cfg, counters, paths, device, tmp: str) -> dict:
     draws = torch.Generator().manual_seed(3)
     t = torch.randint(0, int(cfg.mapper.noise_schedule_factors[2]), (TRAIN_CLIPS,), generator=draws)
     noise = torch.randn(shapes["mel"], generator=draws)
-    # The step embedding's timescales 10^(4i/63) come from each device's f32
-    # pow, and the card's differs from the CPU's on some of them; t times the
-    # largest reaches 1e7, where one ulp moves the sine by most of a radian.
-    # The CPU step embeds the steps with the card's timescales, so both sides
-    # take the same operands.
-    card_ts = (10.0 ** (torch.arange(64, dtype=torch.float32, device=device) * 4.0 / 63)).cpu()
-    cpu_ts = 10.0 ** (torch.arange(64, dtype=torch.float32) * 4.0 / 63)
-
-    def card_embedding(steps, dim=128):
-        args = steps[..., None].float() * card_ts
-        return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    # Both sides embed the steps with the host table of timescales
+    # (diffsvc.step_timescales); the card's own f32 pow would differ from it
+    # on some entries, which is counted here
+    card_pow = (10.0 ** (torch.arange(64, dtype=torch.float32, device=device) * 4.0 / 63)).cpu()
+    pow_differs = int((card_pow != torch.tensor(diffsvc.step_timescales(64))).sum())
 
     t0 = time.perf_counter()
     _, loss = make_diffusion_train_step(cfg, opt)(state, batches[0], t=t, noise=noise)
-    with mock.patch.object(diffsvc, "step_embedding", card_embedding):
-        _, cpu_loss = make_diffusion_train_step(cfg, cpu_opt)(cpu, batches[0], t=t, noise=noise)
+    _, cpu_loss = make_diffusion_train_step(cfg, cpu_opt)(cpu, batches[0], t=t, noise=noise)
     cpu_s = time.perf_counter() - t0
     errs = {f"{k}.{n}": rel_l2(p.grad, q.grad)
             for k, (m, c) in {"enc": (state.encoder, cpu.encoder), "den": (state.denoiser, cpu.denoiser)}.items()
@@ -2077,7 +2100,7 @@ def diffusion_training_path(cfg, counters, paths, device, tmp: str) -> dict:
     worst = max(errs, key=errs.get)
     out.update(grad_cpu_rel_l2=errs[worst], grad_cpu_worst=worst,
                loss_cpu_rel=abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss)),
-               card_pow_differs=int((card_ts != cpu_ts).sum()))
+               card_pow_differs=pow_differs)
     print(f"path v ({card_line()}): {TRAIN_STEPS} steps at B={TRAIN_CLIPS}, T=512, "
           f"{cfg.mapper.residual_layer_num} x {cfg.mapper.residual_channels}: "
           f"{out['ms_per_step']:.2f} ms a step (warm median), peak {out['peak_gb']:.2f} GB, features of "
@@ -2085,14 +2108,15 @@ def diffusion_training_path(cfg, counters, paths, device, tmp: str) -> dict:
           f"resumed vs unbroken rel L2 {out['resume_rel_l2']:.3e} (max |d| {out['resume_max_abs']:.3e}, "
           f"losses {out['resume_loss_rel']:.3e}; bound {RESUME_REL_BOUND}); card vs CPU gradients rel L2 "
           f"{errs[worst]:.3e} at {worst}, loss {out['loss_cpu_rel']:.3e} (bound {GRAD_CPU_REL_BOUND}; "
-          f"both steps {cpu_s:.1f}s; the CPU step embeds the steps with the card's timescales, whose f32 "
-          f"pow differs from the CPU's on {out['card_pow_differs']} of 64)")
+          f"both steps {cpu_s:.1f}s; both embed the steps with the host table of timescales, from which the "
+          f"card's own f32 pow differs on {out['card_pow_differs']} of 64)")
     if not (out["resume_rel_l2"] <= RESUME_REL_BOUND and out["resume_loss_rel"] <= RESUME_REL_BOUND):
         raise AssertionError(f"path v: resumed run off the unbroken one: {out}")
     if not (errs[worst] <= GRAD_CPU_REL_BOUND and out["loss_cpu_rel"] <= GRAD_CPU_REL_BOUND):
         raise AssertionError(f"path v: card vs CPU gradients {errs[worst]} at {worst}, loss {out['loss_cpu_rel']}")
     trained = {"enc": dict(whole.ema["enc"]), "den": dict(whole.ema["den"])}
-    return out, {"trained": trained, "untrained": untrained, "whisper": whisper, "wav": manifest[0][0]}
+    return out, {"trained": trained, "untrained": untrained, "whisper": whisper, "wav": manifest[0][0],
+                 "batch": batches[0]}
 
 
 def gan_training_path(cfg, counters, paths, device) -> dict:
@@ -2219,13 +2243,14 @@ def train_then_serve_path(cfg, counters, paths, device, held: dict) -> dict:
     return out
 
 
-def training_paths(cfg, counters, paths, device) -> dict:
-    """Paths v-x (the module docstring, step 4)."""
+def training_paths(cfg, counters, paths, device) -> tuple:
+    """Paths v-x (the module docstring, step 4); returns their numbers and
+    path v's first batch (the train step on a mesh takes it)."""
     with tempfile.TemporaryDirectory() as tmp:
         diffusion, held = diffusion_training_path(cfg, counters, paths, device, tmp)
         out = {"train_diffusion": diffusion, "train_gan": gan_training_path(cfg, counters, paths, device)}
         out["train_then_serve"] = train_then_serve_path(cfg, counters, paths, device, held)
-    return out
+    return out, held["batch"]
 
 
 # ---------------------------------------------------------------------------
@@ -2398,6 +2423,366 @@ def transcribe_file_path(counters, paths, device, whisper_path: str, ckpt: dict,
     return dict(stats, incremental_max_abs=inc_err, feature_bf16_max_abs=feat_err, logprob_bf16_max_abs=lp_err)
 
 
+# ---------------------------------------------------------------------------
+# multi-rank paths (y-ab and the train step on a mesh): the machine has one
+# card and NCCL refuses two ranks on one GPU, so these run 2 ranks on cuda:0
+# over gloo, each computing on the card with its kernels
+# ---------------------------------------------------------------------------
+
+GLOO_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor", "batch_isend_irecv")
+
+
+def _gloo_probe_rank(rank: int, world: int, ops: tuple, out_dir: str) -> None:
+    """Each collective in ``ops`` on a CUDA tensor over gloo, in order; rank
+    0 writes "ok" (a correct result), "wrong result" or the refusal's first
+    line to ``out_dir/<op>`` before the next. gloo may abort the process on
+    a device pointer it cannot take: the op left without a file is that one."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.full((8,), float(rank + 1), device=dev)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == sum(range(1, world + 1))).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, 0)
+        return bool((y == 1).all())
+
+    def all_gather():
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x)
+        return all(bool((o == r + 1).all()) for r, o in enumerate(out))
+
+    def all_gather_into_tensor():
+        out = torch.empty(world * 8, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        return bool((out.view(world, 8) == torch.arange(1, world + 1, device=dev)[:, None]).all())
+
+    def batch_isend_irecv():
+        got = torch.empty_like(x)
+        ops_ = [dist.P2POp(dist.isend, x, (rank + 1) % world), dist.P2POp(dist.irecv, got, (rank - 1) % world)]
+        for w in dist.batch_isend_irecv(ops_):
+            w.wait()
+        torch.cuda.synchronize()
+        return bool((got == (rank - 1) % world + 1).all())
+
+    fns = {f.__name__: f for f in (all_reduce, broadcast, all_gather, all_gather_into_tensor, batch_isend_irecv)}
+    for name in ops:
+        try:
+            res = "ok" if fns[name]() else "wrong result"
+        except Exception as e:  # the refusal is the probe's result
+            res = f"refused: {str(e).strip().splitlines()[0][:160]}"
+        if rank == 0:
+            with open(os.path.join(out_dir, name), "w") as f:
+                f.write(res)
+        dist.barrier()
+
+
+def gloo_cuda_probe() -> dict:
+    """Which of the port's collectives gloo takes on CUDA tensors (2 ranks on
+    cuda:0): {op: "ok" | "wrong result" | "refused: ..."}. An op that aborts
+    its processes is "refused" with that, and the probe goes on with the
+    ops after it in new processes."""
+    from svc_inference_pipeline_tpu_torch.parallel.distributed import spawn
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        while len(out) < len(GLOO_OPS):
+            rest = tuple(op for op in GLOO_OPS if op not in out)
+            try:
+                spawn(_gloo_probe_rank, 2, args=(rest, tmp), backend="gloo", device="cuda:0", timeout=30,
+                      join_timeout=90)
+                aborted = None
+            except (RuntimeError, TimeoutError) as e:
+                aborted = str(e).strip().splitlines()[-1][:160]
+            for op in rest:
+                path = os.path.join(tmp, op)
+                if os.path.exists(path):
+                    with open(path) as f:
+                        out[op] = f.read()
+                else:
+                    out[op] = f"refused: the ranks aborted ({aborted})"
+                    break
+    return out
+
+
+MESH_RANKS = 2  # ranks of the multi-rank paths, all on cuda:0 over gloo
+DP_CLIPS = 4  # path y: two clips a data rank
+TP_MIN_MEL_CORR = 0.999  # path z: final mel, TP (bf16) vs one device (bf16)
+WAVE_MIN_SNR_DB, WAVE_MIN_CORR = 12.0, 0.97  # paths z and aa: the bf16 bounds of tests/test_bf16_drift.py:71-72
+PP_MIN_MEL_CORR = 0.9999  # path ab: the GPipe final mel (f32) vs one device (f32)
+TRAIN_MESH_REL_BOUND = 1e-5  # the train step on a mesh vs one rank: loss and parameters, relative L2
+
+
+def _host64(x):
+    """A tensor (on any device) or array as a flat float64 numpy array."""
+    import numpy as np
+
+    if hasattr(x, "detach"):
+        x = x.detach().double().cpu().numpy()
+    return np.ravel(np.asarray(x, np.float64))
+
+
+def snr_db(ref, got) -> float:
+    import numpy as np
+
+    ref, got = _host64(ref), _host64(got)
+    return float(10 * np.log10((ref ** 2).sum() / max(((ref - got) ** 2).sum(), 1e-30)))
+
+
+def correlation(a, b) -> float:
+    import numpy as np
+
+    return float(np.corrcoef(_host64(a), _host64(b))[0, 1])
+
+
+def _timed(counters, fn):
+    """(result, wall seconds, launch counts) of fn() with the counters set to 0 just before."""
+    import torch
+
+    counters.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, counters.read()
+
+
+def _mesh_rank(rank: int, world: int, cfg, wavs: list, singers: list, batch: dict) -> dict:
+    """Paths y, z, SP of ab and the train step on a mesh, on this rank (2
+    ranks on cuda:0 over gloo, each computing on the card with its kernels).
+    Returns each phase's launches, wall time and numbers; the checks run in
+    the parent."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.ops.whisper_mel import N_SAMPLES, log_mel_spectrogram
+    from svc_inference_pipeline_tpu_torch.ops.resample import resample_host
+    from svc_inference_pipeline_tpu_torch.parallel.mesh import make_mesh
+    from svc_inference_pipeline_tpu_torch.parallel.sp_whisper import encode_sequence_parallel
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
+
+    from svc_inference_pipeline_tpu_torch.parallel.distributed import current_device
+
+    device = current_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = Counters()
+    out = {}
+
+    def build(mesh=None):
+        return SVCPipeline.from_config(cfg, random_weights=True, whisper_size=WHISPER_SIZE, seed=0, device=device,
+                                       mesh=mesh)
+
+    # y: DP over a data axis of 2, against this rank's clips on one device
+    dp, alone = build(make_mesh(data=world, model=1)), build()
+    mine = np.array_split(np.arange(len(wavs)), world)[rank]
+    for name, sampler, quantize in (("ddpm bf16", "ddpm", None), ("plms@10 int8-w1", "plms", "int8-w1")):
+        dp.set_quantize(quantize)
+        alone.set_quantize(quantize)
+        gen = torch.Generator(device=device).manual_seed(0)
+        waves, wall, counts = _timed(counters, lambda: dp.convert_batch(wavs, singers, generator=gen,
+                                                                        sampler=sampler, speedup=10))
+        ref = alone.convert_batch([wavs[i] for i in mine], [singers[i] for i in mine],
+                                  generator=dp.rank_generator(gen), sampler=sampler, speedup=10)
+        out[f"y {name}"] = {"launches": counts, "wall_s": wall, "timings": dict(dp.timings),
+                            "bit_equal": all(np.array_equal(waves[i], r) for i, r in zip(mine, ref)),
+                            "clips": [len(w) for w in waves], "finite": all(np.isfinite(w).all() for w in waves)}
+    dp.set_quantize(None)
+    alone.set_quantize(None)
+
+    # z: TP over a model axis of 2 (K4 on 8 heads a rank, the vocoder in 2 chunks)
+    tp = build(make_mesh(data=1, model=world))
+    wave, wall, counts = _timed(counters, lambda: tp.convert(
+        wavs[0], singers[0], generator=torch.Generator(device=device).manual_seed(0), sampler="plms", speedup=10))
+    ref = alone.convert(wavs[0], singers[0], generator=torch.Generator(device=device).manual_seed(0),
+                        sampler="plms", speedup=10)
+    out["z tp plms@10"] = {"launches": counts, "wall_s": wall, "timings": dict(tp.timings),
+                           "mel_corr": correlation(tp.last_mel, alone.last_mel), "wave_snr_db": snr_db(ref, wave),
+                           "wave_corr": correlation(ref, wave), "chunks": tp._voc_chunks, "halo": tp._voc_halo,
+                           "finite": bool(np.isfinite(wave).all())}
+    del tp
+
+    # ab, SP: one 30 s window through the sequence-parallel encoder, against the K4 encoder
+    audio16 = resample_host(np.asarray(wavs[0]), cfg.fs, 16000)
+    window = np.zeros((1, N_SAMPLES), np.float32)
+    window[0, : len(audio16)] = audio16[:N_SAMPLES]
+    wmel = log_mel_spectrogram(torch.from_numpy(window).to(device))
+    sp_mesh = make_mesh(data=1, model=world)
+    enc = alone.whisper.encoder
+    with torch.no_grad():
+        feats, wall, counts = _timed(counters, lambda: encode_sequence_parallel(
+            enc, wmel, sp_mesh, compute_dtype=enc.conv1.weight.dtype))
+        full = alone.whisper.embed_audio(wmel)
+    out["ab sp whisper"] = {"launches": counts, "wall_s": wall,
+                            "rel_l2": float((feats - full).norm() / full.norm()),
+                            "max_abs": float((feats - full).abs().max()), "shape": tuple(feats.shape),
+                            "finite": bool(torch.isfinite(feats).all())}
+    del dp, alone
+
+    # the train step on a mesh (data 2, then model 2) against one rank's step from the same state and draws
+    from svc_inference_pipeline_tpu_torch.training.diffusion import (
+        gathered_state_dict, init_diffusion_train_state, make_diffusion_train_step)
+
+    draws = torch.Generator(device=device).manual_seed(3)
+    t = torch.randint(0, int(cfg.mapper.noise_schedule_factors[2]), (TRAIN_CLIPS,), generator=draws, device=device)
+    noise = torch.randn(batch["mel"].shape, generator=draws, device=device)
+    ref_state, ref_opt = init_diffusion_train_state(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    _, ref_loss = make_diffusion_train_step(cfg, ref_opt)(ref_state, batch, t=t, noise=noise)
+    ref_sd = {f"{k}.{n}": p.detach() for k, m in ref_state.modules().items() for n, p in m.named_parameters()}
+    for data, model in ((world, 1), (1, world)):
+        mesh = make_mesh(data=data, model=model)
+        state, opt = init_diffusion_train_state(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+        step = make_diffusion_train_step(cfg, opt, mesh=mesh)
+        state = step.shard_state(state)
+        (state, loss), wall, counts = _timed(counters, lambda: step(state, batch, t=t, noise=noise))
+        sd = gathered_state_dict(state, mesh)
+        got = {f"{k}.{n}": sd[k][n] for k in ("enc", "den") for n in sd[k]}
+        num = sum(((got[k].double() - v.double()) ** 2).sum() for k, v in ref_sd.items())
+        den = sum((v.double() ** 2).sum() for v in ref_sd.values())
+        out[f"train mesh data {data} model {model}"] = {
+            "launches": counts, "wall_s": wall, "loss_rel": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
+            "params_rel_l2": float(torch.sqrt(num / den))}
+    return out
+
+
+def _pp_rank(rank: int, world: int, cfg, wav) -> dict:
+    """Path ab's GPipe route at world size 1 over NCCL (gloo refuses the
+    ring's send/recv on CUDA tensors, and NCCL two ranks on one card): a
+    PLMS@10 sampling of the clip's conditioning through make_pp_denoise_fn on
+    a one-stage pipe axis, f32, against the composed denoiser in f32 on the
+    same noise."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import make_composed_denoise_fn
+    from svc_inference_pipeline_tpu_torch.parallel.mesh import PIPE_AXIS, mesh_over
+    from svc_inference_pipeline_tpu_torch.parallel.pp import make_pp_denoise_fn
+    from svc_inference_pipeline_tpu_torch.parallel.distributed import current_device
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
+
+    device = current_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = SVCPipeline.from_config(cfg, random_weights=True, whisper_size=WHISPER_SIZE, seed=0, device=device)
+    mesh = mesh_over([0], (1,), (PIPE_AXIS,))
+    steps = pipe.schedule.num_steps
+    with torch.no_grad():
+        batch, n_frames = pipe.extract_features(wav, SINGER)
+        cond = pipe.cond_encoder(batch)
+        shape = (1, cond.shape[1], cfg.mapper.n_mel)
+        mels = {}
+        t0 = time.perf_counter()
+        for name, fn in (("pp", make_pp_denoise_fn(pipe.denoiser, cond, steps, cfg.mapper, mesh)),
+                         ("single", make_composed_denoise_fn(pipe.denoiser, cond, steps, torch.float32))):
+            mels[name] = pipe._run_sampler(fn, cond, shape, "plms", 10, torch.Generator(device=device).manual_seed(0),
+                                           None)[0, :n_frames]
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            if name == "pp":
+                wall = time.perf_counter() - t0
+    return {"mel_corr": correlation(mels["pp"].cpu(), mels["single"].cpu()), "wall_s": wall,
+            "backend": torch.distributed.get_backend(), "finite": bool(torch.isfinite(mels["pp"]).all())}
+
+
+def chunked_vocoder_path(cfg, counters, paths, pipe) -> dict:
+    """Path aa: the last conversion's mel (384 frames) through the vocoder in
+    4 overlap-save chunks folded into the batch on one card (K2 x 6 and K3 x
+    1 on the batch of 4), against the unchunked generator."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.parallel.tp_vocoder import chunked_vocoder_apply, vocoder_receptive_radius
+
+    mel = pipe.last_mel[:1]
+    halo = vocoder_receptive_radius(cfg.vocoder)
+    with torch.no_grad():
+        whole = pipe.vocoder(mel)
+        out = {}
+
+        def run():
+            out["wave"] = chunked_vocoder_apply(pipe.vocoder, mel, 4, halo, cfg.hop_length)
+            return {}
+
+        drive("aa chunked vocoder x4", counters, run, {"K2": 6, "K3": 1}, paths)
+    a, b = whole.float().cpu().numpy(), out["wave"].float().cpu().numpy()
+    res = {"snr_db": snr_db(a, b), "corr": correlation(a, b), "max_abs_err": float(abs(a - b).max()),
+           "peak": float(abs(a).max()), "frames": int(mel.shape[1]), "halo": halo}
+    print(f"path aa ({card_line()}): 4 chunks of {mel.shape[1] // 4} frames + halo {halo}: SNR "
+          f"{res['snr_db']:.2f} dB, corr {res['corr']:.6f}, max abs err {res['max_abs_err']:.3e} (peak "
+          f"{res['peak']:.3f}); bounds SNR >= {WAVE_MIN_SNR_DB} dB, corr >= {WAVE_MIN_CORR}")
+    if not (res["snr_db"] >= WAVE_MIN_SNR_DB and res["corr"] >= WAVE_MIN_CORR):
+        raise AssertionError(f"path aa: chunked vocoder off the whole call: {res}")
+    return res
+
+
+def mesh_paths(cfg, counters, paths, batch) -> dict:
+    """Paths y, z and ab and the train step on a mesh (the module docstring,
+    step 4): the gloo probe, one spawn of MESH_RANKS ranks on cuda:0 over
+    gloo for y, z, SP and the train step, one rank over NCCL for PP; every
+    check in the order of the docstring. Each rank's launches are added to
+    the paths."""
+    import numpy as np
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    probe = gloo_cuda_probe()
+    print(f"gloo on CUDA tensors (2 ranks on cuda:0): {json.dumps(probe)} ({time.perf_counter() - t0:.1f}s)")
+    if any(probe[op] != "ok" for op in ("all_reduce", "broadcast", "all_gather")):
+        raise AssertionError(f"gloo refused a collective paths y, z and the SP encoder need: {probe}")
+    base = clip(cfg.fs, CLIP_SECONDS)
+    wavs = [(0.5 + 0.1 * i) * np.roll(base, 2400 * i) for i in range(DP_CLIPS)]
+    singers = ["svcc_CDF1", "svcc_CDM1", "svcc_IDF1", "svcc_IDM1"][:DP_CLIPS]
+    batch = {k: np.asarray(v) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    ranks = spawn(_mesh_rank, MESH_RANKS, args=(cfg, wavs, singers, batch), backend="gloo", device="cuda:0",
+                  timeout=120, join_timeout=600)
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pp = spawn(_pp_rank, 1, args=(cfg, wavs[0]), backend="nccl", device="cuda:0", timeout=120, join_timeout=300)[0]
+    pp_s = time.perf_counter() - t0
+    steps = int(cfg.mapper.noise_schedule_factors[2])
+    want = {"y ddpm bf16": {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1},
+            "y plms@10 int8-w1": {"K5 int8-w1": steps // 10 + 1, "K4": 24, "K2": 6, "K3": 1},
+            "z tp plms@10": {"K4": 24, "K2": 6, "K3": 1}, "ab sp whisper": {},
+            f"train mesh data {MESH_RANKS} model 1": {}, f"train mesh data 1 model {MESH_RANKS}": {}}
+    card = card_line()
+    print(f"multi-rank paths ({card}): one spawn of {MESH_RANKS} ranks {mesh_s:.1f}s, the PP rank {pp_s:.1f}s")
+    failures = []
+    for name, expected in want.items():
+        for r, res in enumerate(ranks):
+            got = res[name]
+            counts = {k: n for k, n in got["launches"].items() if n}
+            print(f"path {name} rank {r}: launches {counts}, wall {got['wall_s']:.3f}s, "
+                  + ", ".join(f"{k} {v}" for k, v in got.items() if k not in ("launches", "wall_s", "timings")))
+            if counts != expected:
+                failures.append(f"{name} rank {r}: launches {counts} != {expected}")
+            paths.append({"path": f"{name} rank {r}", "launches": got["launches"], "wall_s": got["wall_s"]})
+            if name.startswith("y") and not (got["bit_equal"] and got["finite"]):
+                failures.append(f"{name} rank {r}: the rank's waves differ from its clips converted alone")
+            if name.startswith("z") and not (got["mel_corr"] >= TP_MIN_MEL_CORR and got["finite"] and
+                                              got["wave_snr_db"] >= WAVE_MIN_SNR_DB and
+                                              got["wave_corr"] >= WAVE_MIN_CORR and got["chunks"] == MESH_RANKS):
+                failures.append(f"{name} rank {r}: {got}")
+            if name.startswith("ab") and not (got["finite"] and got["max_abs"] <= CONTENT_BF16_BOUND):
+                failures.append(f"{name} rank {r}: {got}")
+            if name.startswith("train") and not (got["loss_rel"] <= TRAIN_MESH_REL_BOUND and
+                                                 got["params_rel_l2"] <= TRAIN_MESH_REL_BOUND):
+                failures.append(f"{name} rank {r}: {got}")
+    print(f"path ab pp (world size 1, {pp['backend']}): PLMS@10 final mel corr {pp['mel_corr']:.7f} with one "
+          f"device f32 (bound {PP_MIN_MEL_CORR}), sampling {pp['wall_s']:.3f}s; the 2-stage ring waits for two cards")
+    if not (pp["finite"] and pp["mel_corr"] >= PP_MIN_MEL_CORR):
+        failures.append(f"path ab pp: {pp}")
+    if failures:
+        raise AssertionError("multi-rank paths: " + "; ".join(failures))
+    return {"gloo_cuda": probe, "mesh_spawn_s": mesh_s, "pp_spawn_s": pp_s, "ranks": ranks, "pp": pp}
+
+
 def main_paths(cfg, device, voc) -> tuple:
     """The main paths (module docstring, step 4); returns their records and
     the checks' numbers (int8-w1 mel correlation, per-block vocoder, harness)."""
@@ -2473,6 +2858,7 @@ def main_paths(cfg, device, voc) -> tuple:
               f"(gate {INT8_W1_MIN_CORR})")
         if not corr >= INT8_W1_MIN_CORR:
             raise AssertionError(f"int8-w1 final mel correlation {corr} < {INT8_W1_MIN_CORR}")
+        chunked = chunked_vocoder_path(cfg, counters, paths, pipe)
 
         # f. resblock "2": the generator's block route (AMPBlock2, K3 + conv per dilation)
         d = cfg.to_dict()
@@ -2484,13 +2870,15 @@ def main_paths(cfg, device, voc) -> tuple:
         drive("cli plms@10 bf16 resblock 2", counters,
               lambda: run_cli("plms_rb2", "--config", cfg2, "--sampler", "plms", "--speedup", "10"),
               {"K5 bf16": steps // 10 + 1, "K4": 24, "K3": len(cfg.vocoder.upsample_rates) * n_act + 1}, paths)
-    checks = {"int8_w1_mel_corr": corr,
+    checks = {"int8_w1_mel_corr": corr, "chunked_vocoder": chunked,
               "vocoder_per_block": vocoder_paths(cfg, voc, counters, paths, device, clip(cfg.fs, CLIP_SECONDS)),
               "harness": harness_paths(cfg, counters, paths, device)}
     checks.update(batch_paths(cfg, counters, paths, device))
     checks.update(checkpoint_paths(cfg, counters, paths, device))
     checks.update(feature_paths(cfg, counters, paths, device))
-    checks.update(training_paths(cfg, counters, paths, device))
+    training, batch = training_paths(cfg, counters, paths, device)
+    checks.update(training)
+    checks["mesh"] = mesh_paths(cfg, counters, paths, batch)
     checks["transcribe"] = transcribe_paths(counters, paths, device)
     return paths, checks
 

@@ -69,22 +69,45 @@ def unstack_blocks(params: Dict[str, Any], n_layers: int) -> Dict[str, Any]:
     return out
 
 
-def _convert(module: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+def _layout(module: nn.Module, leaf: str) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """(PyTorch parameter name, axis permutation from the JAX layout or None
+    for none) of the JAX ``leaf`` of ``module``: the table above."""
     if leaf == "bias":
-        return "bias", value
+        return "bias", None
     if isinstance(module, nn.Linear) and leaf == "kernel":
-        return "weight", value.T
+        return "weight", (1, 0)
     if isinstance(module, (nn.Conv1d, nn.ConvTranspose1d)) and leaf == "kernel":
-        return "weight", np.transpose(value, (2, 1, 0))
+        return "weight", (2, 1, 0)
     if isinstance(module, nn.Conv2d) and leaf == "kernel":
-        return "weight", np.transpose(value, (3, 2, 0, 1))
+        return "weight", (3, 2, 0, 1)
     if isinstance(module, nn.Embedding) and leaf == "embedding":
-        return "weight", value
+        return "weight", None
     if isinstance(module, (nn.LayerNorm, nn.GroupNorm)) and leaf == "scale":
-        return "weight", value
+        return "weight", None
     if leaf in ("alpha", "beta") or leaf in module._parameters:
-        return leaf, value
+        return leaf, None
     raise KeyError(f"no bridge rule for leaf {leaf!r} of {type(module).__name__}")
+
+
+def _convert(module: nn.Module, leaf: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    name, perm = _layout(module, leaf)
+    return name, (value if perm is None else np.transpose(value, perm))
+
+
+def jax_path_of(module: nn.Module, name: str) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """The bridge read backwards: a parameter ``name`` of ``module``
+    (``a.b.weight``) -> (its JAX leaf path ``a/b/kernel``, the permutation
+    whose axis i is the JAX axis of PyTorch axis i, or None)."""
+    *parts, leaf = name.split(".")
+    sub = module.get_submodule(".".join(parts))
+    for cand in {"weight": ("kernel", "embedding", "scale")}.get(leaf, (leaf,)):
+        try:
+            got, perm = _layout(sub, cand)
+        except KeyError:
+            continue
+        if got == leaf:
+            return "/".join(parts + [cand]), perm
+    raise KeyError(f"no bridge rule gives {name!r} ({type(sub).__name__})")
 
 
 def jax_tree_to_torch(module: nn.Module, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,7 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
-    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch | --decode | --train]
+    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch | --decode | --train |
+                                                       --k6-ties]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
@@ -13,7 +14,9 @@ instead (:func:`step_times`), ``--k2`` the vocoder's AMP stages
 (:func:`k2_times`), ``--batch`` warm ``convert_batch`` calls on B copies of
 the 4 s clip (:func:`batch_times`), ``--decode`` the Whisper text
 decoder's steps at medium width (:func:`decode_times`), ``--train`` the
-training steps at full width (:func:`train_times`). Every line names the
+training steps at full width (:func:`train_times`), ``--k6-ties`` where
+K6 int8-w1 parts from its plain version on a card test's operands
+(:func:`k6_ties`). Every line names the
 card (``nvidia-smi`` name and power limit). Needs a CUDA device.
 """
 
@@ -438,6 +441,138 @@ def train_times(cfg, gpu: str) -> None:
         print(json.dumps(line), flush=True)
 
 
+def k6_ties(gpu: str) -> None:
+    """``--k6-ties``: where K6 int8-w1 parts from its plain version on the
+    operands of ``tests/test_torch_kernels.py::
+    test_k6_tiles_and_halos_at_clip_boundaries[100-384-int8-w1]`` (seed 0,
+    B = 2 clips of T = 100 whose x differ 8x, C = 384, L = 5, weights
+    N(0, 1/n) with n the last axis), with the step rows embedded by the host
+    table of timescales and by the card's own f32 pow. For each, per layer:
+    the kernel's h (read from its scratch after a stack cut to that many
+    layers) against the plain chain's and against one plain layer from the
+    kernel's own input h; the conv input's scale s_y of each clip (the
+    kernel's [L, B] abs-max buffer against the plain one's); and the int8
+    codes of the conv input that differ (the kernel's rebuilt from its h and
+    s_y with its formula), with the first (layer, clip, row, column) where
+    h parts, for the plain version summing its bf16 products in f32. Then
+    eps per clip against the plain version summing in f32 and in the
+    kernel's order (``wgmma_matmul``), over max|eps|, and the h of each
+    layer that the kernel-order plain version does not reproduce. One
+    JSON line per embedding."""
+    from unittest import mock
+
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.config import HParams
+    from svc_inference_pipeline_tpu_torch.models import diffsvc
+    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+    from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step as ds
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    b, t_len, c, n_layers = 2, 100, 384, 5
+
+    def device_pow(half):
+        return (10.0 ** (torch.arange(half, dtype=torch.float32, device=dev) * 4.0 / (half - 1))).cpu().numpy()
+
+    def operands():
+        g = torch.Generator(device=dev).manual_seed(0)
+        cfg = HParams(residual_channels=c, residual_layer_num=n_layers, n_mel=100, conditioner_size=c,
+                      diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
+        with torch.device(dev):
+            den = diffsvc.DiffSVCDenoiser(cfg, bf)
+        with torch.no_grad():
+            for p in den.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) / (p.shape[-1] ** 0.5 if p.dim() > 1 else 10))
+            den = den.to(bf)
+            cond = torch.randn((b, t_len, c), generator=g, device=dev)
+            cp, rows = den.precompute(cond, 10, bf)
+            st = ds.stack_denoiser_params(den, bf, "int8-w1")
+            condb = ds.fold_conditioner(den, cp, bf)
+        x = (8.0 ** torch.arange(b, device=dev)).view(b, 1, 1) * torch.randn((b, t_len, 100), generator=g, device=dev)
+        return st, condb, rows[3].contiguous(), x
+
+    def cut(st, condb, row, k):
+        part = st._replace(w1=st.w1[:k].contiguous(), wout=st.wout[:k].contiguous(), bout=st.bout[:k].contiguous(),
+                           w1s=st.w1s[:k].contiguous(), w1_kmajor=st.w1_kmajor[:k].contiguous())
+        return part, condb[:k].contiguous(), row[:k].contiguous()
+
+    def kernel_h(st, condb, row, x):
+        """The kernel's h after the stack's last layer and its [L, B] abs-max buffer."""
+        xp = torch.nn.functional.pad(x, (0, st.wmel.shape[0] - x.shape[-1]))
+        eps = torch.empty_like(x)
+        scratch, ptrs, dims = ds._forward_operands(st, condb, row, x)
+        _build.check(_build.lib().svc_denoise(xp.data_ptr(), eps.data_ptr(), *ptrs, *dims, x.shape[-1],
+                                              torch.cuda.current_stream().cuda_stream), "svc_denoise")
+        torch.cuda.synchronize()
+        h, _g, _s1, _skip, amax, _y = scratch
+        return h.float().view(b, t_len, c), amax.clone()
+
+    def codes(h, row, s_y):  # the kernel's quantiser: f32 add, times the f32 1/s_y, rint, clip
+        inv = (1.0 / s_y).float()
+        return torch.clamp(torch.round((h + row.float()) * inv), -127, 127)
+
+    for embedding in ("host table", "card pow"):
+        patch = mock.patch.object(diffsvc, "step_timescales", device_pow) if embedding == "card pow" else None
+        with torch.no_grad(), (patch or mock.patch.object(diffsvc, "step_timescales", diffsvc.step_timescales)):
+            st, condb, row, x = operands()
+            xp = torch.nn.functional.pad(x, (0, st.wmel.shape[0] - x.shape[-1]))
+            trace = []
+            ds.forward_plain(st, condb, row, xp, trace, kernel_order=False)
+            layers, first = [], None
+            k_in = trace[0]["h"]  # the mel preprocess: a bf16 GEMM on both sides
+            for k in range(1, n_layers + 1):
+                h_k, amax = kernel_h(*cut(st, condb, row, k), x)
+                s_kernel = torch.clamp(amax[k - 1], min=1e-12) * ds.INV_127
+                s_plain = trace[k - 1]["s_y"].view(b)
+                q_kernel = codes(k_in, row[k - 1], s_kernel.view(b, 1, 1))
+                q_plain = trace[k - 1]["yq"]
+                h_plain = trace[k]["h"] if k < n_layers else None
+                row_k = {"layer": k - 1,
+                         "s_y_equal": [bool(a == p) for a, p in zip(s_kernel.tolist(), s_plain.tolist())],
+                         "codes_differ": int((q_kernel != q_plain).sum()),
+                         "codes_differ_by_clip": [int((q_kernel[i] != q_plain[i]).sum()) for i in range(b)],
+                         # layer 0's input is the plain prologue's h on both sides
+                         "input_h_differs": int((k_in != trace[k - 1]["h"]).sum())}
+                if h_plain is not None:
+                    diff = (h_k != h_plain).nonzero()
+                    row_k["output_h_differs"] = int(diff.shape[0])
+                    if first is None and diff.shape[0]:
+                        first = {"layer": k - 1, **dict(zip(("clip", "row", "col"), diff[0].tolist()))}
+                layers.append(row_k)
+                k_in = h_k
+            # one layer of the plain version on the kernel's own input, layer by layer
+            one_layer = []
+            for k in range(1, n_layers):  # layer k's input is the kernel's h after k layers
+                h_prev = kernel_h(*cut(st, condb, row, k), x)[0]
+                part, cb, rw = cut(st, condb, row, k + 1)
+                h_next = kernel_h(part, cb, rw, x)[0]
+                y = h_prev + rw[k].float()
+                s = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-12) * ds.INV_127
+                q = torch.clamp(torch.round(y * (1.0 / s)), -127.0, 127.0)
+                acc = ds._int8_matmul(ds._taps(q, 2 ** (k % st.cycle)), st.w1[k]) * (s * st.w1s[k]) + cb[k].float()
+                gt = torch.sigmoid(acc[..., :c]) * torch.tanh(acc[..., c:])
+                yo = gt.to(bf).float() @ st.wout[k].float() + st.bout[k].float()
+                h_one = ((h_prev + yo[..., :c]) * diffsvc.INV_SQRT2).to(bf).float()
+                one_layer.append(int((h_one != h_next).sum()))
+            eps = ds.denoise(st, condb, row, x)
+            err = {}
+            for order in (False, True):  # the plain version summing in f32, and in the kernel's order
+                ref = ds.forward_plain(st, condb, row, xp, kernel_order=order)[..., :100]
+                err["kernel order" if order else "f32"] = [
+                    float((eps[i] - ref[i]).abs().max() / ref[i].abs().max()) for i in range(b)]
+            kt = []
+            ds.forward_plain(st, condb, row, xp, kt, kernel_order=True)
+            kernel_order_h = [int((kernel_h(*cut(st, condb, row, k), x)[0] != kt[k]["h"]).sum())
+                              for k in range(1, n_layers)]
+            print(json.dumps({"card": gpu, "k6_ties": embedding, "eps_err_over_max": err,
+                              "kernel_order_h_differs": kernel_order_h, "eps_bitwise_kernel_order":
+                              bool(torch.equal(eps, ds.denoise_plain(st, condb, row, x))),
+                              "tolerance": 1.5e-2, "first_h_part": first, "layers": layers,
+                              "one_plain_layer_h_differs": one_layer,
+                              "card_pow_differs": int((device_pow(64) != diffsvc.step_timescales(64)).sum())}),
+                  flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
@@ -446,6 +581,7 @@ def main(argv=None) -> int:
     p.add_argument("--batch", action="store_true")
     p.add_argument("--decode", action="store_true")
     p.add_argument("--train", action="store_true")
+    p.add_argument("--k6-ties", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -470,6 +606,9 @@ def main(argv=None) -> int:
         return 0
     if args.train:
         train_times(cfg, gpu)
+        return 0
+    if args.k6_ties:
+        k6_ties(gpu)
         return 0
     root = os.path.dirname(os.path.dirname(DEFAULT_CONFIG))
     for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):

@@ -17,17 +17,28 @@ from __future__ import annotations
 import math
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from svc_inference_pipeline_tpu_torch.parallel.sharding import copy_to, gather_from, row_parallel
+
 INV_SQRT2 = float(torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32))
+
+
+def step_timescales(half: int) -> np.ndarray:
+    """The embedding's timescales 10^(4i/(half-1)), f32, computed on the host
+    as JAX's CPU computes them (the f32 exponent, the power in float64, then
+    rounded to f32). A device's own f32 pow can differ by an ulp, and t times
+    the largest timescale reaches 1e7, where one ulp moves the sine by most
+    of a radian; so every device takes this table."""
+    return (10.0 ** (np.arange(half, dtype=np.float32) * 4.0 / (half - 1)).astype(np.float64)).astype(np.float32)
 
 
 def step_embedding(t: torch.Tensor, dim: int = 128) -> torch.Tensor:
     """Sinusoidal diffusion-step embedding [..., dim] (sin || cos)."""
-    half = dim // 2
-    timescales = 10.0 ** (torch.arange(half, dtype=torch.float32, device=t.device) * 4.0 / (half - 1))
+    timescales = torch.tensor(step_timescales(dim // 2), device=t.device)
     args = t[..., None].float() * timescales
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
@@ -68,23 +79,38 @@ class ResidualBlock(nn.Module):
         self.conditioner_projection = nn.Linear(cond_dim, 2 * channels)
         self.output_projection = nn.Linear(channels, 2 * channels)
 
-    def forward(self, x, step, cond, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-        y = x + linear(self.diffusion_projection, step, dtype)
+    def forward(self, x, step_row, cond_proj, dtype, tp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The block given its projected step row (whole C) and conditioner
+        (2C, or with ``tp_group`` this rank's gate and filter channels of a
+        block sharded by ``MAPPER_TP_RULES``: the conv then computes those
+        channels, the output projection its share of the sum, all-reduced)."""
+        y = copy_to(x + step_row, tp_group)
         pad = self.dilation * (self.kernel_size - 1) // 2
         y = F.conv1d(
             F.pad(y.transpose(1, 2), (pad, pad)),
             self.dilated_conv.weight.to(dtype), self.dilated_conv.bias.to(dtype),
             dilation=self.dilation,
         ).transpose(1, 2)
-        y = y + linear(self.conditioner_projection, cond, dtype)
+        y = y + cond_proj
         gate, filt = y.chunk(2, dim=-1)
-        y = linear(self.output_projection, torch.sigmoid(gate) * torch.tanh(filt), dtype)
+        g = torch.sigmoid(gate) * torch.tanh(filt)
+        if tp_group is None:
+            y = linear(self.output_projection, g, dtype)
+        else:
+            y = row_parallel(g, self.output_projection, tp_group, dtype)
         residual, skip = y.chunk(2, dim=-1)
         return (x + residual) * INV_SQRT2, skip
 
 
 class DiffSVCDenoiser(nn.Module):
-    """eps(x_t, cond, t): noisy mel [B,T,M] -> predicted noise [B,T,M] (f32)."""
+    """eps(x_t, cond, t): noisy mel [B,T,M] -> predicted noise [B,T,M] (f32).
+
+    Every entry point takes ``tp_group``: the model-axis group of a denoiser
+    sharded by ``MAPPER_TP_RULES`` (``parallel/sharding.py``), the Megatron
+    pattern of JAX's GSPMD placement: the blocks' step projections are
+    column shards, all-gathered once a forward; each block's conv and
+    conditioner projection are column shards and its output projection a
+    row shard, joined by one all-reduce."""
 
     def __init__(self, cfg: Any, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -106,32 +132,57 @@ class DiffSVCDenoiser(nn.Module):
         return getattr(self, f"residual_{i}")
 
     def forward(self, mel_spec: torch.Tensor, conditioner: torch.Tensor,
-                diffusion_step: torch.Tensor) -> torch.Tensor:
+                diffusion_step: torch.Tensor, tp_group=None) -> torch.Tensor:
         dtype = self.compute_dtype or mel_spec.dtype
-        x = torch.relu(linear(self.mel_preprocess, mel_spec, dtype))
         t = diffusion_step.reshape(mel_spec.shape[0], -1).to(mel_spec.device)
         step = self.diffusion_embedding(t).to(dtype)
-        cond = conditioner.to(dtype)
+        cond = copy_to(conditioner.to(dtype), tp_group)
+        cond_projs = [linear(self.block(i).conditioner_projection, cond) for i in range(self.n_layers)]
+        return self.layers(mel_spec, self.step_rows(step, tp_group), cond_projs, dtype, tp_group)
+
+    def step_rows(self, h: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """The blocks' step projections of the step encoder's output h
+        [..., fc] -> [L, ..., C] (gathered whole under TP)."""
+        h = copy_to(h, tp_group)
+        rows = torch.stack([linear(self.block(i).diffusion_projection, h) for i in range(self.n_layers)])
+        return gather_from(rows, -1, tp_group)
+
+    def layers(self, mel_spec: torch.Tensor, step_rows, cond_projs, dtype, tp_group=None) -> torch.Tensor:
+        """The x-dependent part: mel preprocess, the blocks over their step
+        rows and conditioner projections, skip and output projections."""
+        x = torch.relu(linear(self.mel_preprocess, mel_spec, dtype))
         skip_sum = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
         for i in range(self.n_layers):
-            x, skip = self.block(i)(x, step, cond, dtype)
+            x, skip = self.block(i)(x, step_rows[i], cond_projs[i], dtype, tp_group)
             skip_sum = skip_sum + skip.float()
         x = skip_sum * float(torch.tensor(1.0 / math.sqrt(self.n_layers), dtype=torch.float32))
         x = torch.relu(linear(self.skip_projection, x, dtype))
         return linear(self.output_projection, x, dtype).float()
 
     def precompute(self, cond: torch.Tensor, num_steps: int,
-                   dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+                   dtype=torch.bfloat16, tp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Hoist all (cond, t)-only work out of the sampling loop
         (``diffsvc_fast.precompute``): (cond_projs [L, B, T, 2C], step_rows
-        [S, L, C]), both in ``dtype``."""
+        [S, L, C]), both in ``dtype`` (cond_projs on this rank's channels
+        under TP)."""
         cond = cond.to(dtype)
         cond_projs = torch.stack(
             [linear(self.block(i).conditioner_projection, cond) for i in range(self.n_layers)]
         )
         ts = torch.arange(num_steps, dtype=torch.float32, device=cond.device)
         h = self.diffusion_embedding(ts).to(dtype)
-        step_rows = torch.stack(
-            [linear(self.block(i).diffusion_projection, h) for i in range(self.n_layers)], dim=1
-        )
-        return cond_projs, step_rows
+        return cond_projs, self.step_rows(h, tp_group).transpose(0, 1).contiguous()
+
+
+def make_composed_denoise_fn(den: DiffSVCDenoiser, cond: torch.Tensor, num_steps: int,
+                             dtype=torch.bfloat16, tp_group=None):
+    """Sampler-compatible ``fn(x, cond, t) -> eps`` of the denoiser's own
+    layers over hoisted conditioning (``diffsvc_fast.make_fast_denoise_fn``):
+    no kernel, the route of a TP denoiser and of a data-parallel batch that
+    does not divide by the data axis. Reads ``t[0, 0]`` (one shared step)."""
+    cond_projs, step_rows = den.precompute(cond, num_steps, dtype, tp_group)
+
+    def fn(x, _cond_unused, t):
+        return den.layers(x, step_rows[int(t[0, 0])], cond_projs, dtype, tp_group)
+
+    return fn

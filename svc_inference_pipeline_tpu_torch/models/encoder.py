@@ -20,7 +20,10 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from svc_inference_pipeline_tpu_torch.parallel.sharding import gather_from, group_rank, reduce_from
 
 _C1_HZ = 440.0 * 2.0 ** ((24 - 69) / 12.0)
 _C7_HZ = 440.0 * 2.0 ** ((96 - 69) / 12.0)
@@ -34,6 +37,20 @@ def melody_bins(n_bins: int) -> np.ndarray:
 
 def loudness_bins(n_bins: int) -> np.ndarray:
     return np.exp(np.linspace(np.log(_LOUDNESS_MIN), np.log(_LOUDNESS_MAX), n_bins - 1)).astype(np.float32)
+
+
+def _lookup(table: nn.Embedding, ids: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """Embedding lookup; with ``tp_group`` the table holds rows [r n, (r+1) n)
+    of the vocabulary, other ids look up zeros, and the ranks' rows are
+    summed (all-reduce)."""
+    if tp_group is None:
+        return table(ids)
+    rank, _ = group_rank(tp_group)
+    n = table.weight.shape[0]
+    local = ids - rank * n
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(torch.where(mine, local, 0), table.weight) * mine[..., None]
+    return reduce_from(rows, tp_group)
 
 
 class ConditionEncoder(nn.Module):
@@ -61,23 +78,34 @@ class ConditionEncoder(nn.Module):
                                  persistent=False)
         self.singer = nn.Embedding(cfg.singer_table_size, cfg.encoder_singer_dim)
 
-    def _binned(self, layer, values, boundaries, n_bins):
+    def _binned(self, layer, values, boundaries, n_bins, tp_group=None):
         if n_bins == 0:
             return layer(values.float()[..., None])
-        return layer(torch.bucketize(values.float(), boundaries, right=False))
+        return _lookup(layer, torch.bucketize(values.float(), boundaries, right=False), tp_group)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _content(self, t: str, x: torch.Tensor, tp_group) -> torch.Tensor:
+        layer = getattr(self, f"content_{t}")
+        if tp_group is None:
+            return layer(x)
+        # column-parallel: this rank's output columns, all-gathered, then the
+        # whole (replicated) bias
+        return gather_from(F.linear(x, layer.weight), -1, tp_group) + layer.bias
+
+    def forward(self, batch: Dict[str, torch.Tensor], tp_group=None) -> torch.Tensor:
+        """``tp_group``: the model-axis group of a module sharded by
+        ``MAPPER_TP_RULES`` (``parallel/sharding.py``): the tables hold a
+        slice of their vocabulary and the content projections a slice of
+        their output columns."""
         cfg = self.cfg
-        outputs = [getattr(self, f"content_{t}")(batch[f"content_{t}"].float())
-                   for t in self.content_types]
+        outputs = [self._content(t, batch[f"content_{t}"].float(), tp_group) for t in self.content_types]
         if cfg.input_melody_dim != 0:
             outputs.append(self._binned(self.melody, batch["melody"], self.melody_boundaries,
-                                        cfg.n_bins_melody))
+                                        cfg.n_bins_melody, tp_group))
         if cfg.input_loudness_dim != 0:
             outputs.append(self._binned(self.loudness, batch["loudness"], self.loudness_boundaries,
-                                        cfg.n_bins_loudness))
+                                        cfg.n_bins_loudness, tp_group))
         seq_len = outputs[0].shape[1]
-        singer = self.singer(batch["singer"].long())  # [B, 1, D]
+        singer = _lookup(self.singer, batch["singer"].long(), tp_group)  # [B, 1, D]
         outputs.append(singer.expand(singer.shape[0], seq_len, singer.shape[-1]))
         if cfg.merge_mode == "concat":
             return torch.cat(outputs, dim=-1)

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from svc_inference_pipeline_tpu_torch.parallel.sharding import copy_to, group_rank, row_parallel
+
 
 @dataclasses.dataclass(frozen=True)
 class WhisperDims:
@@ -95,12 +97,18 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(n_state, n_state)
         self.out = nn.Linear(n_state, n_state)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The encoder's self-attention, through K4."""
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """The encoder's self-attention, through K4. With ``tp_group`` (a
+        block sharded by ``WHISPER_TP_RULES``) q/k/v are this rank's heads,
+        K4 runs on those ``n_head / model`` heads, and the out projection's
+        share of the sum is all-reduced."""
         from svc_inference_pipeline_tpu_torch.ops.pallas.attention import encoder_attention
 
+        x = copy_to(x, tp_group)
         q, k, v = self.query(x), self.key(x), self.value(x)
-        return self.out(encoder_attention(q.contiguous(), k.contiguous(), v.contiguous(), self.n_head))
+        heads = self.n_head // group_rank(tp_group)[1]
+        o = encoder_attention(q.contiguous(), k.contiguous(), v.contiguous(), heads)
+        return self.out(o) if tp_group is None else row_parallel(o, self.out, tp_group)
 
     def attend(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None, kv: Optional[Tuple] = None,
@@ -133,12 +141,13 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp_0 = nn.Linear(n_state, 4 * n_state)
         self.mlp_2 = nn.Linear(4 * n_state, n_state)
 
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp_2(F.gelu(self.mlp_0(layer_norm_f32(self.mlp_ln, x))))
+    def mlp(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        h = F.gelu(self.mlp_0(copy_to(layer_norm_f32(self.mlp_ln, x), tp_group)))
+        return self.mlp_2(h) if tp_group is None else row_parallel(h, self.mlp_2, tp_group)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(layer_norm_f32(self.attn_ln, x))
-        return x + self.mlp(x)
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        x = x + self.attn(layer_norm_f32(self.attn_ln, x), tp_group)
+        return x + self.mlp(x, tp_group)
 
 
 class TextResidualAttentionBlock(ResidualAttentionBlock):
@@ -178,7 +187,9 @@ class WhisperAudioEncoder(nn.Module):
             self.add_module(f"block_{i}", ResidualAttentionBlock(d, dims.n_audio_head))
         self.ln_post = nn.LayerNorm(d)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """``tp_group``: the model-axis group of an encoder sharded by
+        ``WHISPER_TP_RULES`` (the stem and the LayerNorms stay whole)."""
         dtype = self.conv1.weight.dtype
         x = F.gelu(self.conv1(mel.to(dtype)))
         x = F.gelu(self.conv2(x)).transpose(1, 2)  # [B, 1500, D]
@@ -186,7 +197,7 @@ class WhisperAudioEncoder(nn.Module):
             raise ValueError(f"whisper encoder: unexpected stem output {tuple(x.shape)}")
         x = x + self.positional_embedding.to(x.dtype)
         for i in range(self.dims.n_audio_layer):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, tp_group)
         return layer_norm_f32(self.ln_post, x).float()
 
 

@@ -35,10 +35,11 @@ scale 127 and the output projection runs in int8 too (wouts[col]/127);
 
 The plain versions compute the int8 products exactly, in float64 (a sum
 is at most 3C * 127^2, about 1.9e7 at C = 384, far inside float64's 2^53)
-and round it to f32 as the kernel's int32 -> f32 conversion does. For the
-same int8 operands kernel and plain version therefore agree exactly; they
-differ only where a bf16 h of an earlier layer, summed in another order,
-moves a value across a rounding tie of the quantiser.
+and round it to f32 as the kernel's int32 -> f32 conversion does. On an
+int8 stack in bf16 they also sum the bf16 products as the kernel's wgmma
+tile does (:func:`wgmma_matmul`): a bf16 h summed in another order moves
+a value across a rounding tie of the quantiser, and where that value is a
+clip's abs max, the clip's scale and with it most of its codes.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels (bf16
 compute only) or raise.
@@ -197,18 +198,67 @@ def _int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (a.double() @ w.double()).float()
 
 
+WG_K = 16        # K of one wgmma.m64n64k16 instruction
+WG_ALIGN_BITS = 25  # the aligned terms keep 2 bits below the f32 mantissa
+
+
+def _exponent(v: torch.Tensor) -> torch.Tensor:
+    """floor(log2|v|), and -1e4 for 0."""
+    return torch.where(v != 0, torch.floor(torch.log2(v.abs())), torch.full_like(v, -1e4))
+
+
+def wgmma_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [..., K] @ w [K, N] of bf16 values, summed as the bf16 tile of
+    ``csrc/gemm_wg.cuh`` sums them (wgmma m64n64k16, f32 accumulators): K
+    in chunks of 16 in order; in each, the accumulator and the 16 exact
+    products are aligned to the largest of the accumulator's exponent and
+    the products' exponent sums (floor(log2|a|) + floor(log2|w|)), each
+    truncated toward zero at 2^(that - 25), summed exactly, and the sum
+    truncated to f32. This model reproduced every element of 40,200 tile
+    results on an H100 (three stacks: K = 384 and 128, bf16, int8-w1 and
+    int8). f32 result; computed in float64 on a's device."""
+    lead, k = a.shape[:-1], a.shape[-1]
+    a2, w2 = a.reshape(-1, k).double(), w.double()
+    ea, ew = _exponent(a2), _exponent(w2)
+    acc = torch.zeros((a2.shape[0], w2.shape[1]), dtype=torch.float64, device=a.device)
+    for k0 in range(0, k, WG_K):
+        p = a2[:, k0:k0 + WG_K, None] * w2[None, k0:k0 + WG_K, :]
+        e = torch.maximum((ea[:, k0:k0 + WG_K, None] + ew[None, k0:k0 + WG_K, :]).amax(1), _exponent(acc))
+        q = torch.exp2(e.clamp(min=-900) - WG_ALIGN_BITS)  # all-zero terms: any q
+        s = (torch.trunc(acc / q) + torch.trunc(p / q[:, None]).sum(1)) * q  # exact: |terms| < 2^27 q
+        f = s.float()
+        acc = torch.where(f.double().abs() > s.abs(), torch.nextafter(f, torch.zeros_like(f)), f).double()
+    return acc.float().reshape(*lead, w2.shape[1])
+
+
 def forward_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, trace: Optional[list] = None,
+                  kernel_order: Optional[bool] = None) -> torch.Tensor:
     """Plain PyTorch version of the shared forward: x [B, T, M_pad] f32 ->
-    eps [B, T, M_pad] f32."""
+    eps [B, T, M_pad] f32. ``trace``, a list, receives one dict per layer:
+    its input ``h`` (bf16 values in f32) and, on an int8 stack, the conv
+    input's scale ``s_y`` [B, 1, 1] and codes ``yq``. ``kernel_order``
+    sums the bf16 products as the kernel's tile does (default: on an int8
+    stack in bf16)."""
     cd = st.wmel.dtype
 
     def r(a):  # round to the compute dtype, keep computing in f32
         return a.to(cd).float()
 
+    # the int8 forms quantise, so an ulp of h can move a code, and one at a
+    # clip's abs max its scale: their bf16 products are summed in the
+    # kernel's order (wgmma_matmul); the bf16 forms sum in f32
+    if kernel_order is None:
+        kernel_order = st.w1s is not None and cd == torch.bfloat16
+    if kernel_order:
+        mm = wgmma_matmul
+    else:
+        def mm(a, w):
+            return a @ w.float()
+
     n_layers = st.w1.shape[0]
     c = st.wskip.shape[0]
-    h = r(torch.relu(r(x) @ st.wmel.float() + st.bmel.float()))
+    h = r(torch.relu(mm(r(x), st.wmel) + st.bmel.float()))
     skip = torch.zeros(x.shape[:-1] + (c,), dtype=torch.float32, device=x.device)
     for i in range(n_layers):
         d = 2 ** (i % st.cycle)
@@ -217,21 +267,25 @@ def forward_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.T
             s_y = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-12) * INV_127
             yq = torch.clamp(torch.round(y * (1.0 / s_y)), -127.0, 127.0)
             acc = _int8_matmul(_taps(yq, d), st.w1[i]) * (s_y * st.w1s[i])
+            if trace is not None:
+                trace.append({"h": h, "s_y": s_y, "yq": yq})
         else:
             acc = _taps(r(y), d) @ st.w1[i].float()
+            if trace is not None:
+                trace.append({"h": h})
         acc = acc + condb[i].float()
         g = torch.sigmoid(acc[..., :c]) * torch.tanh(acc[..., c:])
         if st.wouts is not None:
             gq = torch.clamp(torch.round(g * 127.0), -127.0, 127.0)
             yo = _int8_matmul(gq, st.wout[i]) * (st.wouts[i] * INV_127)
         else:
-            yo = r(g) @ st.wout[i].float()
+            yo = mm(r(g), st.wout[i])
         yo = yo + st.bout[i].float()
         h = r((h + yo[..., :c]) * INV_SQRT2)
         skip = skip + yo[..., c:]
     inv_sqrt_l = float(np.float32(1.0 / math.sqrt(n_layers)))
-    s1 = torch.relu(r(skip * inv_sqrt_l) @ st.wskip.float() + st.bskip.float())
-    return r(s1) @ st.wo.float() + st.bo.float()
+    s1 = torch.relu(mm(r(skip * inv_sqrt_l), st.wskip) + st.bskip.float())
+    return mm(r(s1), st.wo) + st.bo.float()
 
 
 def ddpm_step_plain(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,

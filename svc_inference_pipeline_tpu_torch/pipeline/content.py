@@ -9,8 +9,8 @@ the LayerNorms stay f32. Its ``extract`` is the per-clip API: resample to
 16 kHz on the host, 30 s windows, log-mel and the encoder (whose attention
 is K4) on the device, the 480 -> 256 hop remap on the host.
 ``ContentVecExtractor`` runs ``models/hubert.py`` in f32 on its device.
-JAX's ``shard`` (tensor-parallel placement) belongs to the multi-device code
-and is not here; ``ensure_unstacked`` undoes a stacking the port never does.
+``shard`` keeps this rank's tensor-parallel slice of the encoder;
+``ensure_unstacked`` undoes a stacking the port never does.
 """
 
 from __future__ import annotations
@@ -55,6 +55,19 @@ class WhisperPPGExtractor:
         self.encoder = encoder
         self.dims = encoder.dims
         self.fs = fs
+        self.tp_group = None
+
+    def shard(self, mesh, rules, axis: str = "model") -> None:
+        """Keep this rank's slice of the encoder under the tensor-parallel
+        ``rules`` (``parallel/sharding.py``) over ``axis`` of ``mesh``; the
+        encoder then runs its TP forward. JAX turns its Pallas attention off
+        here because GSPMD cannot partition a ``pallas_call``; an explicit
+        head shard has no such limit, so K4 stays on, on this rank's heads."""
+        from svc_inference_pipeline_tpu_torch.parallel.mesh import axis_group
+        from svc_inference_pipeline_tpu_torch.parallel.sharding import shard_params
+
+        shard_params(self.encoder, mesh, rules, axis)
+        self.tp_group = axis_group(mesh, axis)
 
     @classmethod
     def random_init(cls, size_or_dims: Union[str, WhisperDims] = "tiny",
@@ -91,7 +104,7 @@ class WhisperPPGExtractor:
 
     @torch.no_grad()
     def embed_audio(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.encoder(mel)
+        return self.encoder(mel, self.tp_group)
 
     def extract(self, audio: np.ndarray, mel_len: int, chunked: bool = True) -> np.ndarray:
         """Waveform at ``self.fs`` -> mel-rate features [T', D] (f32, host).

@@ -39,12 +39,13 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params, random_init_
 from svc_inference_pipeline_tpu_torch.config import HParams
 from svc_inference_pipeline_tpu_torch.models.bigvgan import BigVGANGenerator, vocoder_output_finalize
-from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser, make_composed_denoise_fn
 from svc_inference_pipeline_tpu_torch.models.encoder import ConditionEncoder
 from svc_inference_pipeline_tpu_torch.models.whisper import WhisperDims
 from svc_inference_pipeline_tpu_torch.ops.f0 import get_f0_features
@@ -53,14 +54,23 @@ from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import QUANTIZE_M
 from svc_inference_pipeline_tpu_torch.ops.remap import remap_features_device
 from svc_inference_pipeline_tpu_torch.ops.resample import _out_len, _resample_conv
 from svc_inference_pipeline_tpu_torch.ops.whisper_mel import N_SAMPLES, log_mel_spectrogram
+from svc_inference_pipeline_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, PIPE_AXIS, axis_group, axis_rank, axis_size, mesh_over)
+from svc_inference_pipeline_tpu_torch.parallel.pp import make_pp_denoise_fn
+from svc_inference_pipeline_tpu_torch.parallel.sharding import (
+    MAPPER_TP_RULES, WHISPER_TP_RULES, all_gather_dim, batch_shard, fold_generator, shard_params)
+from svc_inference_pipeline_tpu_torch.parallel.sp_whisper import encode_sequence_parallel
+from svc_inference_pipeline_tpu_torch.parallel.tp_vocoder import chunked_vocoder_apply, vocoder_receptive_radius
 from svc_inference_pipeline_tpu_torch.pipeline.content import WhisperPPGExtractor
 from svc_inference_pipeline_tpu_torch.sampling.ddim import ddim_sample
+from svc_inference_pipeline_tpu_torch.sampling.ddpm import ddpm_sample
 from svc_inference_pipeline_tpu_torch.sampling.dpmpp import dpmpp_sample
 from svc_inference_pipeline_tpu_torch.sampling.plms import plms_sample
 from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 from svc_inference_pipeline_tpu_torch.utils.artifacts import load_mel_min_max, pitch_shift
 from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio, save_audio
 from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
+from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
 from svc_inference_pipeline_tpu_torch.utils.registry import get_singer_id
 
 DEFAULT_BUCKET = 64  # frame-count padding granularity
@@ -89,17 +99,20 @@ def _sync(device: torch.device) -> None:
 class SVCPipeline:
     """Holds the models on one device and runs conversions. The kernels'
     copies of the weights are made when it is built (see
-    :meth:`refresh_kernel_params`)."""
+    :meth:`refresh_kernel_params`). With ``mesh`` it is one rank's part of a
+    multi-device pipeline (:meth:`_setup_mesh`). ``last_mel`` holds the
+    denormalised mel [B, T, M] of this rank's last conversion."""
 
     def __init__(self, cfg: HParams, cond_encoder: ConditionEncoder, denoiser: DiffSVCDenoiser,
                  vocoder: BigVGANGenerator, whisper: WhisperPPGExtractor,
-                 device: Union[str, torch.device], bucket: int = DEFAULT_BUCKET):
+                 device: Union[str, torch.device], bucket: int = DEFAULT_BUCKET, mesh=None):
         if int(bucket) < 1:
             raise ValueError(f"bucket must be >= 1 frame, got {bucket}")
         self.cfg = cfg
         self.bucket = int(bucket)
         self.device = torch.device(device)
         self.compute_dtype = cd = compute_dtype(cfg)
+        self._setup_mesh(mesh, whisper)
         # cast policy of the JAX pipeline: the denoiser is stored entirely at
         # the compute dtype; vocoder leaves of 2+ dimensions too, its 1-D
         # leaves (biases, snake alpha/beta) stay f32; the condition encoder
@@ -112,6 +125,11 @@ class SVCPipeline:
                 p.data = p.data.to(cd)
         self.vocoder.prepare_kernel_params()
         self.whisper = whisper
+        if self.tp:
+            shard_params(self.cond_encoder, self.mesh, MAPPER_TP_RULES, self._model_axis)
+            shard_params(self.denoiser, self.mesh, MAPPER_TP_RULES, self._model_axis)
+            if not self._sp:  # SP keeps Whisper whole and shards its frames instead
+                whisper.shard(self.mesh, WHISPER_TP_RULES, self._model_axis)
         self.schedule = DiffusionSchedule.from_config(cfg.mapper)
         mel_min, mel_max = load_mel_min_max(cfg.min_mel_file, cfg.max_mel_file)
         self._mel_min = torch.as_tensor(mel_min, device=self.device)
@@ -120,6 +138,57 @@ class SVCPipeline:
         self.sampler = cfg.mapper.get("sampler", "ddpm")
         self.plms_speedup = int(cfg.mapper.get("plms_speedup", 10))
         self.set_quantize(cfg.get("denoiser_quantize", None), int(cfg.get("denoiser_quantize_tail", 0)))
+
+    def _setup_mesh(self, mesh, whisper: WhisperPPGExtractor) -> None:
+        """The multi-device routes of ``cfg.parallel`` over ``mesh`` (one rank
+        a device, ``parallel/mesh.py``), checked in JAX's order:
+        ``pipeline_stages`` > 1 splits the denoiser into GPipe stages over a
+        ``pipe`` axis of that size (from the first S ranks when no mesh is
+        given); ``sequence_parallel`` shards the Whisper encoder's frames
+        over a model axis of at least 2; a model axis > 1 is tensor
+        parallelism (the mapper and Whisper sharded, the vocoder
+        time-chunked over it); a data axis > 1 splits batches."""
+        cfg = self.cfg
+        par = cfg.parallel if "parallel" in cfg else HParams()
+        self._model_axis = par.get("model_axis", MODEL_AXIS)
+        self._data_axis = par.get("data_axis", DATA_AXIS)
+        self._pp_axis = par.get("pipe_axis", PIPE_AXIS)
+        self._pp_stages = int(par.get("pipeline_stages", 1))
+        self._pp_microbatch = int(par.get("pp_microbatch", 0))
+        self._sp = bool(par.get("sequence_parallel", False))
+        if self._pp_stages > 1:
+            if cfg.mapper.residual_layer_num % self._pp_stages:
+                raise ValueError(f"pipeline_stages={self._pp_stages} must divide "
+                                 f"residual_layer_num={cfg.mapper.residual_layer_num}")
+            if mesh is None:
+                world = dist.get_world_size() if dist.is_initialized() else 1
+                if world < self._pp_stages:
+                    raise ValueError(f"pipeline_stages={self._pp_stages} needs at least that many "
+                                     f"devices; found {world}")
+                mesh = mesh_over(range(self._pp_stages), (self._pp_stages,), (self._pp_axis,))
+            elif axis_size(mesh, self._pp_axis) != self._pp_stages or self._pp_axis not in mesh.mesh_dim_names:
+                raise ValueError(f"pipeline_stages={self._pp_stages} needs a '{self._pp_axis}' mesh axis "
+                                 f"of that size; got {mesh}")
+        if self._sp:
+            sp_size = axis_size(mesh, self._model_axis)
+            if sp_size < 2:
+                raise ValueError(f"sequence_parallel needs a mesh with a >1 '{self._model_axis}' axis")
+            if whisper.dims.n_audio_ctx % sp_size:
+                raise ValueError(f"whisper n_audio_ctx={whisper.dims.n_audio_ctx} must divide by the "
+                                 f"{sp_size}-way sequence shard")
+        self.mesh = mesh
+        self.tp = axis_size(mesh, self._model_axis) > 1
+        self._tp_group = axis_group(mesh, self._model_axis) if self.tp else None
+        self._dp_size = axis_size(mesh, self._data_axis)
+        # the kernel denoiser (K1/K5/K6) runs on one device, and on each data
+        # rank of a data-only mesh; TP and PP run their own denoisers
+        self._kernel_denoiser = not self.tp and self._pp_stages == 1
+        if self.tp:
+            self._voc_chunks = axis_size(mesh, self._model_axis)
+            self._voc_halo = int(cfg.vocoder.get("tp_halo_frames", vocoder_receptive_radius(cfg.vocoder)))
+        else:
+            self._voc_chunks, self._voc_halo = 1, 0
+        self._logged_composed = False
 
     # ------------------------------------------------------------------
     # Builders
@@ -141,7 +210,7 @@ class SVCPipeline:
     @classmethod
     def from_config(cls, cfg: HParams, random_weights: bool = False, whisper_size: str = "tiny",
                     seed: int = 0, device: Optional[str] = None,
-                    bucket: int = DEFAULT_BUCKET) -> "SVCPipeline":
+                    bucket: int = DEFAULT_BUCKET, mesh=None) -> "SVCPipeline":
         """Build from the config's checkpoint files, as the JAX pipeline does:
         ``cfg.whisper_model`` (a ``.pt`` path, or a registry name resolved
         through ``checkpoints/fetch.py``), ``cfg.svc_model_path`` and
@@ -153,7 +222,9 @@ class SVCPipeline:
         ``SVC_ALLOW_RANDOM_WHISPER=1`` opts into random Whisper weights at the
         configured size. ``random_weights=True`` draws every model from one
         ``torch.Generator`` seeded with ``seed`` (Whisper at
-        ``whisper_size``)."""
+        ``whisper_size``). ``mesh``: the multi-device routes (see
+        :meth:`_setup_mesh`); every rank builds the same weights and keeps
+        its shards."""
         import os
 
         dev = resolve_device(device or cfg.get("device"))
@@ -176,8 +247,6 @@ class SVCPipeline:
                             "local .pt, or opt into random weights for smoke runs with "
                             "cfg.allow_random_whisper / SVC_ALLOW_RANDOM_WHISPER=1"
                         ) from e
-                    from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
-
                     get_logger("svc_tpu.pipeline").warning(
                         "whisper checkpoint unavailable — falling back to RANDOM weights at the "
                         "configured size (%s)", e)
@@ -193,8 +262,6 @@ class SVCPipeline:
             models = cls._models(cfg, cd)
 
         def missing(what: str, path) -> None:
-            from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
-
             get_logger("svc_tpu.pipeline").warning(
                 "%s checkpoint %s not found — falling back to RANDOM weights", what, path)
 
@@ -216,12 +283,12 @@ class SVCPipeline:
             if not random_weights:
                 missing("vocoder", cfg.vocoder_model_path)
             random_init_(models[2], g)
-        return cls(cfg, *models, whisper, dev, bucket)
+        return cls(cfg, *models, whisper, dev, bucket, mesh)
 
     @classmethod
     def from_jax_params(cls, cfg: HParams, cond_params, den_params, voc_params,
                         whisper_dims: WhisperDims, whisper_params, device=None,
-                        bucket: int = DEFAULT_BUCKET) -> "SVCPipeline":
+                        bucket: int = DEFAULT_BUCKET, mesh=None) -> "SVCPipeline":
         """Build from JAX parameter trees (numpy), through the weights bridge,
         on ``device`` (None: the GPU, see ``resolve_device``)."""
         device = resolve_device(device)
@@ -231,7 +298,7 @@ class SVCPipeline:
         cond, den, voc = cls._models(cfg, cd)
         for m, p in ((cond, cond_params), (den, den_params), (voc, voc_params)):
             load_jax_params(m, p)
-        return cls(cfg, cond, den, voc, whisper, device, bucket)
+        return cls(cfg, cond, den, voc, whisper, device, bucket, mesh)
 
     # ------------------------------------------------------------------
     # Front-end
@@ -251,6 +318,14 @@ class SVCPipeline:
     def _load(self, wav: Union[str, np.ndarray]) -> np.ndarray:
         return load_audio(wav, self.cfg.fs)[0] if isinstance(wav, str) else np.asarray(wav, np.float32)
 
+    def _whisper_encode(self, wmel: torch.Tensor) -> torch.Tensor:
+        """The encoder (K4; its TP form on a model axis), or with
+        ``sequence_parallel`` its frames sharded over the model axis."""
+        if self._sp:
+            return encode_sequence_parallel(self.whisper.encoder, wmel, self.mesh, self._model_axis,
+                                            self.whisper.encoder.conv1.weight.dtype)
+        return self.whisper.embed_audio(wmel)
+
     @torch.no_grad()
     def _frontend_device(self, audio24: torch.Tensor, n_windows: int, n_frames: int,
                          padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -263,7 +338,7 @@ class SVCPipeline:
         audio16 = _resample_conv(audio24, self.cfg.fs, 16000, "kaiser_best")
         audio16 = F.pad(audio16, (0, n_windows * N_SAMPLES - audio16.shape[-1]))
         wmel = log_mel_spectrogram(audio16.reshape(n_windows, N_SAMPLES))
-        feats = self.whisper.embed_audio(wmel)
+        feats = self._whisper_encode(wmel)
         feats = feats.reshape(-1, feats.shape[-1])
         content = remap_features_device(feats.float(), n_frames)
         energy = F.pad(energy[:n_frames], (0, padded - n_frames))
@@ -283,7 +358,7 @@ class SVCPipeline:
         audio16 = _resample_conv(audios24, self.cfg.fs, 16000, "kaiser_best")
         audio16 = F.pad(audio16, (0, n_windows * N_SAMPLES - audio16.shape[-1]))
         wmel = log_mel_spectrogram(audio16.reshape(b * n_windows, N_SAMPLES))
-        feats = self.whisper.embed_audio(wmel)
+        feats = self._whisper_encode(wmel)
         content = remap_features_device(feats.reshape(b, -1, feats.shape[-1]).float(), padded)
         mask = torch.arange(padded, device=audios24.device)[None, :] < n_true[:, None]
         energy = F.pad(energy[:, :padded], (0, max(0, padded - energy.shape[-1])))
@@ -412,10 +487,32 @@ class SVCPipeline:
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"denoiser_quantize={quantize!r}: use 'int8', "
                              "'int8-w1' (output projection stays at compute dtype) or unset")
+        if quantize and not self._kernel_denoiser:
+            # TP and PP run the composed and GPipe denoisers at the compute
+            # dtype: an int8 mode would be silently ignored
+            raise ValueError(
+                "denoiser_quantize is set but the selected denoiser path cannot honor it: TP "
+                "(model-axis) meshes and pipeline_stages>1 use the composed/GPipe denoisers. Unset "
+                "denoiser_quantize, or run single-device / data-only-mesh.")
         self.denoiser_quantize = quantize
         self.denoiser_quantize_tail = tail = int(tail)
-        with torch.no_grad():
-            self._stacks = denoiser_stacks(self.denoiser, self.compute_dtype, quantize, tail)
+        self._stacks = None
+        if self._kernel_denoiser:
+            with torch.no_grad():
+                self._stacks = denoiser_stacks(self.denoiser, self.compute_dtype, quantize, tail)
+
+    def _denoise_fn(self, cond: torch.Tensor, composed: bool = False):
+        """The sampler's denoiser: the GPipe stages with ``pipeline_stages``
+        > 1, the composed layers (no kernel, compute dtype) under TP or for a
+        batch that does not divide by the data axis, else K1/K5/K6."""
+        steps = self.schedule.num_steps
+        if self._pp_stages > 1:
+            return make_pp_denoise_fn(self.denoiser, cond, steps, self.cfg.mapper, self.mesh, self._pp_axis,
+                                      self._pp_microbatch or None)
+        if composed or self.tp:
+            return make_composed_denoise_fn(self.denoiser, cond, steps, self.compute_dtype, self._tp_group)
+        return make_denoise_fn(self.denoiser, cond, steps, self.compute_dtype, self.denoiser_quantize,
+                               self.denoiser_quantize_tail, self._stacks)
 
     def _run_sampler(self, denoise_fn, cond, shape, sampler, speedup, generator, noise):
         if sampler == "plms":
@@ -426,7 +523,18 @@ class SVCPipeline:
         if sampler == "dpmpp":
             return dpmpp_sample(denoise_fn, cond, shape, self.schedule, speedup,
                                 generator=generator, noise=noise)
-        return denoise_fn.fused_ddpm(self.schedule, shape, generator, noise)
+        fused = getattr(denoise_fn, "fused_ddpm", None)
+        if fused is not None:
+            return fused(self.schedule, shape, generator, noise)
+        return ddpm_sample(denoise_fn, cond, shape, self.schedule, generator, noise)
+
+    def _data_split(self, b: int) -> bool:
+        """Whether a batch of ``b`` clips splits over the data axis."""
+        return self._dp_size > 1 and b % self._dp_size == 0
+
+    def rank_generator(self, generator: Optional[torch.Generator]) -> torch.Generator:
+        """This data rank's generator: the caller's seed folded with the rank."""
+        return fold_generator(generator, axis_rank(self.mesh, self._data_axis), self.device)
 
     @torch.no_grad()
     def _convert_core(self, batch: Dict[str, torch.Tensor], n_true: torch.Tensor, n_frames: int,
@@ -436,19 +544,53 @@ class SVCPipeline:
         """Waveform [B, n_frames * hop] of a padded feature batch: f32, or
         with ``pcm16`` peak-normalised int16 finalised on the device.
         ``noise`` injects the sampler's draws: (x_T, z [steps, B, T, M]) for
-        DDPM and DDIM, x_T for PLMS and DPM++ (x_T scaled by INIT_NOISE_STD)."""
+        DDPM and DDIM, x_T for PLMS and DPM++ (x_T scaled by INIT_NOISE_STD).
+
+        On a data axis a batch that divides by it is split: each data rank
+        converts its slice with :meth:`rank_generator` (or its slice of
+        ``noise``), and the waves are gathered to every rank. One that does
+        not divide runs whole on every rank through the composed denoiser
+        at the compute dtype, as JAX routes it."""
+        b = batch["melody"].shape[0]
+        if self._data_split(b):
+            local = {k: batch_shard(v, self.mesh, self._data_axis) for k, v in batch.items()}
+            if noise is not None:
+                noise = (batch_shard(noise, self.mesh, self._data_axis) if torch.is_tensor(noise) else
+                         (batch_shard(noise[0], self.mesh, self._data_axis),
+                          batch_shard(noise[1].transpose(0, 1), self.mesh, self._data_axis).transpose(0, 1)))
+            wave = self._core(local, batch_shard(n_true, self.mesh, self._data_axis), n_frames,
+                              self.rank_generator(generator), noise, sampler, speedup, pcm16)
+            return all_gather_dim(wave, 0, axis_group(self.mesh, self._data_axis))
+        composed = self._dp_size > 1 and self._kernel_denoiser
+        if composed and not self._logged_composed:
+            get_logger("svc_tpu.pipeline").info(
+                "batch of %d does not divide by the %d-way data axis: the whole batch runs on every "
+                "rank through the composed denoiser at the compute dtype", b, self._dp_size)
+            self._logged_composed = True
+        return self._core(batch, n_true, n_frames, generator, noise, sampler, speedup, pcm16, composed)
+
+    @torch.no_grad()
+    def _core(self, batch, n_true, n_frames, generator, noise, sampler, speedup, pcm16,
+              composed: bool = False) -> torch.Tensor:
+        """This rank's conversion of a padded feature batch (see
+        :meth:`_convert_core`)."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
         t0 = time.perf_counter()
-        cond = self.cond_encoder(batch)
+        cond = self.cond_encoder(batch, self._tp_group)
         shape = (cond.shape[0], n_frames, self.cfg.mapper.n_mel)
-        denoise_fn = make_denoise_fn(self.denoiser, cond, self.schedule.num_steps, self.compute_dtype,
-                                     self.denoiser_quantize, self.denoiser_quantize_tail, self._stacks)
+        denoise_fn = self._denoise_fn(cond, composed)
         mel_norm = self._run_sampler(denoise_fn, cond, shape, sampler, speedup, generator, noise)
         _sync(self.device)
         t1 = time.perf_counter()
         lo, hi = self._mel_min, self._mel_max
         mel = (mel_norm + 1.0) / 2.0 * (hi - lo + 1e-12) + lo
-        wave = self.vocoder(mel)
+        self.last_mel = mel
+        if self._voc_chunks > 1:
+            # TP: overlap-save time chunks over the model axis, K2/K3 on every rank
+            wave = chunked_vocoder_apply(self.vocoder, mel, self._voc_chunks, self._voc_halo,
+                                         self.cfg.hop_length, self.mesh, self._model_axis)
+        else:
+            wave = self.vocoder(mel)
         hop = self.cfg.hop_length
         wave = vocoder_output_finalize(wave[..., : n_frames * hop], n_true, hop, pcm16=pcm16)
         _sync(self.device)
@@ -487,14 +629,34 @@ class SVCPipeline:
         :meth:`convert`."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
         t0 = time.perf_counter()
+        split = self._data_split(len(wavs))
+        if split:  # this data rank converts its slice, as one device would
+            mine = np.array_split(np.arange(len(wavs)), self._dp_size)[axis_rank(self.mesh, self._data_axis)]
+            wavs, singer_names = [wavs[i] for i in mine], [singer_names[i] for i in mine]
         batch, frame_counts = self.extract_features_batch(wavs, singer_names)
         _sync(self.device)
         self.timings = {"frontend_s": time.perf_counter() - t0}
         n_true = torch.tensor(frame_counts, device=self.device)
-        waves = self._convert_core(batch, n_true, batch["melody"].shape[1], generator, sampler=sampler,
-                                   speedup=speedup).cpu().numpy()
+        if split:
+            waves = self._core(batch, n_true, batch["melody"].shape[1], self.rank_generator(generator), None,
+                               sampler, speedup, False)
+            waves, n_true = self._gather_waves(waves, n_true)
+            frame_counts = n_true.tolist()
+        else:
+            waves = self._convert_core(batch, n_true, batch["melody"].shape[1], generator, sampler=sampler,
+                                       speedup=speedup)
+        waves = waves.cpu().numpy()
         self.timings["total_s"] = time.perf_counter() - t0
         return [waves[i, : n * self.cfg.hop_length].copy() for i, n in enumerate(frame_counts)]
+
+    def _gather_waves(self, waves: torch.Tensor, n_true: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The data ranks' waves [b, n] (n may differ by rank) and true frame
+        counts, gathered in rank order to every rank."""
+        group = axis_group(self.mesh, self._data_axis)
+        longest = torch.tensor([waves.shape[1]], device=waves.device)
+        dist.all_reduce(longest, op=dist.ReduceOp.MAX, group=group)
+        waves = F.pad(waves, (0, int(longest) - waves.shape[1]))
+        return all_gather_dim(waves, 0, group), all_gather_dim(n_true, 0, group)
 
     def convert_multi_singer(self, wav: Union[str, np.ndarray], singer_names: Sequence[str],
                              generator: Optional[torch.Generator] = None) -> List[np.ndarray]:

@@ -1,7 +1,7 @@
 """Diffusion (mapper) training: the condition encoder and the DiffSVC denoiser.
 
-Counterpart of ``svc_inference_pipeline_tpu/training/diffusion.py`` on one
-device (its ``mesh=`` branch, data and tensor parallelism, is not ported).
+Counterpart of ``svc_inference_pipeline_tpu/training/diffusion.py``, with
+its ``mesh=`` branch (data and tensor parallelism, one rank a device).
 The objective is the eps-prediction MSE of ``sampling/ddpm.py::
 ddpm_training_loss`` through the plain ``DiffSVCDenoiser.forward``, which is
 differentiable; the kernel stacks of sampling (K1, K5) are not used, as the
@@ -20,10 +20,14 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
 from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
 from svc_inference_pipeline_tpu_torch.models.encoder import ConditionEncoder
+from svc_inference_pipeline_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group, axis_rank, axis_size
+from svc_inference_pipeline_tpu_torch.parallel.sharding import (
+    MAPPER_TP_RULES, batch_shard, is_gated, param_specs, shard_slice, unshard)
 from svc_inference_pipeline_tpu_torch.sampling.ddpm import ddpm_training_loss
 from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
@@ -98,7 +102,8 @@ def update_ema(ema: Ema, modules: Dict[str, torch.nn.Module], d: float) -> None:
         torch._foreach_add_(shadow, torch._foreach_mul([p.detach() for p in params], keep))
 
 
-def make_diffusion_train_step(cfg, optimizer: torch.optim.Optimizer, ema_decay: float = 0.999) -> Callable:
+def make_diffusion_train_step(cfg, optimizer: torch.optim.Optimizer, mesh=None,
+                              ema_decay: float = 0.999) -> Callable:
     """The train step ``step(state, batch, generator=None, t=None, noise=None)
     -> (state, loss)``: loss and gradients under autograd (whatever the
     caller's grad mode), one ``optimizer`` step, the EMA update with the
@@ -110,8 +115,24 @@ def make_diffusion_train_step(cfg, optimizer: torch.optim.Optimizer, ema_decay: 
     A step whose loss is not finite changes nothing: no update, no EMA,
     neither ``state.step`` nor AdamW's step advances. The JAX loop drops
     such a step's new state; ``torch.optim`` updates in place, so the step
-    tests the loss before it updates."""
+    tests the loss before it updates.
+
+    With ``mesh`` (JAX's mesh branch, data and tensor parallelism): every
+    rank takes the global batch and the global draws (the same generator on
+    every rank), and keeps its data rank's slice of them; the modules,
+    sharded by ``MAPPER_TP_RULES`` over the model axis (``step.shard_state``),
+    run their TP forwards; the loss and the gradients are averaged over the
+    data group. AdamW and the EMA are elementwise, so they run on each
+    rank's shards as they are. ``step.batch_shard`` slices a batch by data
+    rank. A DP x TP step equals the single-device step up to the order of
+    f32 sums."""
     schedule = DiffusionSchedule.from_config(cfg.mapper)
+    data_group = axis_group(mesh, DATA_AXIS)
+    tp_group = axis_group(mesh, MODEL_AXIS)
+    n_data = axis_size(mesh, DATA_AXIS)
+
+    def shard(x):
+        return x if x is None or mesh is None else batch_shard(x, mesh, DATA_AXIS)
 
     def train_step(state: DiffusionTrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None, t: Optional[torch.Tensor] = None,
@@ -120,12 +141,29 @@ def make_diffusion_train_step(cfg, optimizer: torch.optim.Optimizer, ema_decay: 
             raise ValueError("the state's optimizer is not the one this step was made for")
         device = next(state.denoiser.parameters()).device
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items() if k != "wave"}
+        if mesh is not None:
+            # the global draws on every rank, in the single-device order, then this rank's slice
+            x0 = batch["mel"]
+            if t is None:
+                t = torch.randint(0, schedule.num_steps, (x0.shape[0],), generator=generator, device=device)
+            if noise is None:
+                noise = torch.randn(x0.shape, generator=generator, device=device, dtype=torch.float32)
+            batch = {k: shard(v) for k, v in batch.items()}
+            t, noise = shard(t), shard(noise)
         optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():
-            cond = state.encoder(batch)
-            loss, _ = ddpm_training_loss(state.denoiser, batch["mel"].float(), cond, schedule,
-                                         generator, t, noise)
+            cond = state.encoder(batch, tp_group)
+            loss, _ = ddpm_training_loss(lambda x, c, s: state.denoiser(x, c, s, tp_group), batch["mel"].float(),
+                                         cond, schedule, generator, t, noise)
             loss.backward()
+        if data_group is not None:
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=data_group)
+            loss /= n_data
+            grads = [p.grad for m in state.modules().values() for p in m.parameters() if p.grad is not None]
+            for g in grads:
+                dist.all_reduce(g, group=data_group)
+            torch._foreach_div_(grads, float(n_data))
         if not torch.isfinite(loss):
             optimizer.zero_grad(set_to_none=True)
             return state, loss.detach()
@@ -134,4 +172,64 @@ def make_diffusion_train_step(cfg, optimizer: torch.optim.Optimizer, ema_decay: 
         state.step += 1
         return state, loss.detach()
 
+    if mesh is not None:
+        train_step.shard_state = lambda state: shard_state(state, mesh)
+        train_step.batch_shard = lambda batch: {k: shard(torch.as_tensor(v)) for k, v in batch.items()}
     return train_step
+
+
+def _module_specs(state: DiffusionTrainState) -> Dict[str, Dict[str, Tuple[Optional[int], bool]]]:
+    """{module key: {parameter name: (the dim MAPPER_TP_RULES shards, gated)}}."""
+    return {k: {n: (dim, is_gated(m, n)) for n, dim in param_specs(m, MAPPER_TP_RULES).items()}
+            for k, m in state.modules().items()}
+
+
+def _named_state(state: DiffusionTrainState):
+    """(module key, parameter name, parameter) in the optimizer's order."""
+    return [(k, n, p) for k, m in state.modules().items() for n, p in m.named_parameters()]
+
+
+@torch.no_grad()
+def shard_state(state: DiffusionTrainState, mesh) -> DiffusionTrainState:
+    """Keep this rank's model-axis slice of the parameters, the EMA and
+    AdamW's moments (a state from ``init_diffusion_train_state`` or a
+    checkpoint, whole on every rank), in place."""
+    size, rank = axis_size(mesh, MODEL_AXIS), axis_rank(mesh, MODEL_AXIS)
+    if size == 1:
+        return state
+    specs = _module_specs(state)
+    for key, name, p in _named_state(state):
+        dim, gated = specs[key][name]
+        if dim is None:
+            continue
+        p.data = shard_slice(p.data, dim, rank, size, gated)
+        state.ema[key][name] = shard_slice(state.ema[key][name], dim, rank, size, gated)
+        for k, v in state.optimizer.state.get(p, {}).items():
+            if torch.is_tensor(v) and v.dim() > 0:
+                state.optimizer.state[p][k] = shard_slice(v, dim, rank, size, gated)
+    return state
+
+
+@torch.no_grad()
+def gathered_state_dict(state: DiffusionTrainState, mesh) -> dict:
+    """The checkpoint dict of a sharded state in the single-device layout
+    (``loop.state_dict_of``'s), the shards all-gathered over the model
+    axis: every rank of the group must call it."""
+    group = axis_group(mesh, MODEL_AXIS)
+    specs = _module_specs(state)
+
+    def whole(key, name, v):
+        dim, gated = specs[key][name]
+        return v if dim is None or group is None else unshard(v, dim, group, gated)
+
+    out = {"step": state.step,
+           "enc": {n: whole("enc", n, v) for n, v in state.encoder.state_dict().items()},
+           "den": {n: whole("den", n, v) for n, v in state.denoiser.state_dict().items()},
+           "ema": {k: {n: whole(k, n, v) for n, v in tree.items()} for k, tree in state.ema.items()}}
+    opt = state.optimizer.state_dict()
+    for i, (key, name, _) in enumerate(_named_state(state)):
+        if i in opt["state"]:
+            opt["state"][i] = {k: whole(key, name, v) if torch.is_tensor(v) and v.dim() > 0 else v
+                               for k, v in opt["state"][i].items()}
+    out["optimizer"] = opt
+    return out

@@ -1,7 +1,8 @@
 """Training orchestration: checkpoint and resume, the non-finite-loss guard,
 fault hooks and logging.
 
-Counterpart of ``svc_inference_pipeline_tpu/training/loop.py`` on one device:
+Counterpart of ``svc_inference_pipeline_tpu/training/loop.py`` (its
+``mesh=`` too, see :func:`train_diffusion`):
 
 * a periodic checkpoint of the whole train state to ``<dir>/latest`` (one
   ``torch.save`` of a nested dict: step, enc, den, the optimizer's
@@ -25,11 +26,13 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from svc_inference_pipeline_tpu_torch.checkpoints.native_io import load_checkpoint, save_checkpoint
 from svc_inference_pipeline_tpu_torch.training.diffusion import (
     DiffusionTrainState,
     ema_of,
+    gathered_state_dict,
     init_diffusion_train_state,
     make_diffusion_train_step,
 )
@@ -69,26 +72,34 @@ def restore(state: DiffusionTrainState, ckpt: dict) -> DiffusionTrainState:
 
 
 def train_diffusion(cfg, loader: Iterable, num_steps: int, checkpoint_dir: Optional[str] = None,
-                    checkpoint_every: int = 1000, seed: int = 0, max_bad_steps: int = 25,
+                    checkpoint_every: int = 1000, mesh=None, seed: int = 0, max_bad_steps: int = 25,
                     device=None) -> DiffusionTrainState:
     """Run the diffusion objective over ``loader`` (restarted when it ends)
     up to ``num_steps`` applied steps on ``device`` (None: the GPU, see
     ``resolve_device``), resuming from ``<checkpoint_dir>/latest`` when it
     exists. A resumed run reads the loader from its start, as the JAX loop
-    does."""
+    does.
+
+    With ``mesh`` (data and model axes, one rank a device, every rank
+    reading the same loader): the state is sharded after the resume
+    (``make_diffusion_train_step``'s mesh branch), and a checkpoint gathers
+    the shards and rank 0 writes the single-device layout, so a run resumes
+    on any mesh shape, or on one device."""
     log = get_logger("svc_tpu.train")
     metrics = Metrics.default()
     device = resolve_device(device)
 
     state, optimizer = init_diffusion_train_state(cfg, torch.Generator(device=device).manual_seed(seed),
                                                   device=device)
-    step_fn = make_diffusion_train_step(cfg, optimizer)
+    step_fn = make_diffusion_train_step(cfg, optimizer, mesh=mesh)
     path = os.path.join(checkpoint_dir, "latest") if checkpoint_dir else None
     start_step = 0
     if path and os.path.exists(path):
         restore(state, load_checkpoint(path))
         start_step = state.step
         log.info("resumed from step %d", start_step)
+    if mesh is not None:
+        state = step_fn.shard_state(state)
 
     bad_streak = 0
     it = iter(loader)
@@ -123,7 +134,11 @@ def train_diffusion(cfg, loader: Iterable, num_steps: int, checkpoint_dir: Optio
         if step % 100 == 0:
             log.info("step %d loss %.4f", step, loss_val)
         if path and (step + 1) % checkpoint_every == 0:
-            save_checkpoint(path + ".tmp", state_dict_of(state))
-            os.replace(path + ".tmp", path)
-            log.info("checkpointed step %d → %s", step + 1, path)
+            ckpt = state_dict_of(state) if mesh is None else gathered_state_dict(state, mesh)
+            if not dist.is_initialized() or dist.get_rank() == 0:
+                save_checkpoint(path + ".tmp", ckpt)
+                os.replace(path + ".tmp", path)
+                log.info("checkpointed step %d → %s", step + 1, path)
+            if mesh is not None:
+                dist.barrier()  # the file is whole before any rank reads it
     return state

@@ -204,3 +204,69 @@ def test_condition_encoder_matches_jax(cfg):
     with torch.no_grad():
         got = port({k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_step_timescales_equal_jax_bit_for_bit():
+    """The step embedding's timescales come from a host table equal to JAX's
+    f32 pow on the CPU bit for bit, whatever the device, so the sines'
+    arguments t * timescale of every DDPM step are JAX's bit for bit (the
+    sines themselves are two libraries' f32 sin, within 2 ulps)."""
+    from svc_inference_pipeline_tpu.models.diffsvc import step_embedding as jax_step_embedding
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import step_embedding, step_timescales
+
+    half = 64
+    want = np.asarray(10.0 ** (jnp.arange(half, dtype=jnp.float32) * 4.0 / (half - 1)))
+    np.testing.assert_array_equal(step_timescales(half), want)
+    ts = np.arange(1000, dtype=np.float32)
+    np.testing.assert_array_equal(ts[:, None] * step_timescales(half), np.asarray(jnp.asarray(ts)[:, None] * want))
+    np.testing.assert_allclose(step_embedding(torch.from_numpy(ts)).numpy(),
+                               np.asarray(jax_step_embedding(jnp.asarray(ts), 128)), rtol=0, atol=2.4e-7)
+
+
+def test_wgmma_matmul_models_the_tiles_sums():
+    """``wgmma_matmul`` (the int8 plain version's bf16 products, summed as
+    the kernel's wgmma tile sums them): exact where every term is exact,
+    within f32 rounding of the exact product, and its truncation shows: an
+    accumulator of 1 plus a later chunk's 3 * 2^-25 stays 1, where a sum
+    rounded to nearest gives 1 + 2^-23."""
+    ints = torch.randint(-8, 9, (5, 48)).float()
+    w = torch.randint(-8, 9, (48, 7)).float()
+    np.testing.assert_array_equal(denoiser_step.wgmma_matmul(ints, w).numpy(), (ints @ w).numpy())
+    a = torch.randn(64, 384, generator=torch.Generator().manual_seed(0)).bfloat16().float()
+    b = torch.randn(384, 96, generator=torch.Generator().manual_seed(1)).bfloat16().float()
+    exact = a.double() @ b.double()
+    got = denoiser_step.wgmma_matmul(a, b).double()
+    assert ((got - exact).abs() <= 1e-5 * exact.abs().max()).all()
+    a1 = torch.zeros(1, 32)
+    a1[0, 0], a1[0, 16] = 1.0, 3 * 2.0 ** -13
+    w1 = torch.zeros(32, 1)
+    w1[0, 0], w1[16, 0] = 1.0, 2.0 ** -12
+    assert float(denoiser_step.wgmma_matmul(a1, w1)) == 1.0
+    assert float((a1.double() @ w1.double()).float()) == 1.0 + 2.0 ** -23
+
+
+def test_forward_plain_traces_the_int8_codes():
+    """``forward_plain``'s trace: each layer's input h, and on an int8 stack
+    the conv input's scale and codes, the codes within [-127, 127] and one
+    of them at +-127 in each clip (the clip's abs max)."""
+    g = torch.Generator().manual_seed(2)
+    cfg = HParams(residual_channels=64, residual_layer_num=3, n_mel=100, conditioner_size=64,
+                  diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
+    den = DiffSVCDenoiser(cfg, torch.bfloat16)
+    with torch.no_grad():
+        for p in den.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) / (p.shape[-1] ** 0.5 if p.dim() > 1 else 10))
+        den = den.to(torch.bfloat16)
+        cond = torch.randn((2, 16, 64), generator=g)
+        cp, rows = den.precompute(cond, 10, torch.bfloat16)
+        st = denoiser_step.stack_denoiser_params(den, torch.bfloat16, "int8-w1")
+        condb = denoiser_step.fold_conditioner(den, cp, torch.bfloat16)
+    x = torch.nn.functional.pad(torch.randn((2, 16, 100), generator=g), (0, 28))
+    trace = []
+    eps = denoiser_step.forward_plain(st, condb, rows[3], x, trace)
+    assert len(trace) == 3 and torch.isfinite(eps).all()
+    for layer in trace:
+        assert layer["yq"].abs().max() <= 127 and layer["s_y"].shape == (2, 1, 1)
+        assert all(float(layer["yq"][i].abs().max()) == 127.0 for i in range(2))
+    f32 = denoiser_step.forward_plain(st, condb, rows[3], x, kernel_order=False)
+    assert (eps - f32).abs().max() <= 2e-2 * f32.abs().max()

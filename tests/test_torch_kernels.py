@@ -282,7 +282,8 @@ def test_k1_k5_k6_batch_of_masked_clips(dev, quantize):
 
 
 # chip_smoke.py's limits for the int8 forms, per mode (a tie of a quantiser
-# flipped by a bf16 h summed in another order moves one operand a whole step)
+# flipped by a bf16 h summed in another order moves one operand a whole
+# step; the plain version sums in the kernel's order, and they agree exactly)
 INT8_TOL = {"int8-w1": 1.5e-2, "int8": 2.5e-2}
 
 
@@ -304,6 +305,17 @@ def test_k6_tiles_and_halos_at_clip_boundaries(dev, t_len, c, quantize):
         one = denoiser_step.denoise(st, condb[:, i:i + 1].contiguous(), rows[3], x[i:i + 1].contiguous())
         assert torch.equal(eps[i:i + 1], one)
     assert torch.equal(eps, denoiser_step.denoise(st, condb, rows[3], x))
+
+
+@pytest.mark.parametrize("quantize", ["int8-w1", "int8"])
+@pytest.mark.parametrize("b,t_len,c,layers", [(2, 100, 384, 5), (1, 384, 384, 20)])
+def test_k6_equals_its_plain_version_bit_for_bit(dev, quantize, b, t_len, c, layers):
+    """The int8 plain version sums its bf16 products in the wgmma tile's
+    order (``denoiser_step.wgmma_matmul``), so K6 and it agree bit for bit,
+    on the clip-boundary operands above and at the main path's depth."""
+    st, condb, rows, x, _ = _denoiser_operands(dev, b, t_len, c, layers, quantize)
+    assert torch.equal(denoiser_step.denoise(st, condb, rows[3], x),
+                       denoiser_step.denoise_plain(st, condb, rows[3], x))
 
 
 def test_k1_is_deterministic(dev):
