@@ -140,7 +140,13 @@
       and K3 x 1, against the unchunked generator: SNR >= 12 dB and
       correlation >= 0.97 (the bf16 bounds of tests/test_bf16_drift.py); prints
       the max abs error;
-   y-ab and the train step on a mesh (after x): first which of the port's
+   af. (after x) ``capture_intermediates`` on the full-width denoiser's own
+      forward (20 x 384, f32, T = 384; no launches): the 44 entries (each
+      block's ``noise_step_condition`` and ``__call__``, the step encoder's
+      ``step_embedding``, ``step_encoder_output`` and ``__call__``, the
+      output) present and finite, the output bit-equal to an uncaptured
+      call's; prints both calls' ms;
+   y-ad and the train step on a mesh (after af): first which of the port's
       collectives gloo takes on CUDA tensors (``gloo_cuda_probe``: 2 ranks on
       cuda:0; NCCL refuses two ranks on one card). Then one spawn of 2 ranks on
       cuda:0 over gloo, each computing on the card with its kernels:
@@ -158,11 +164,37 @@
          printed;
       the train step on a mesh (data 2, then model 2): one step on path v's
          first batch (B = 8, 512 frames) from the same state and global draws
-         as one rank's step: loss and parameters within 1e-5 relative L2.
-      Then ab's GPipe route at world size 1 over NCCL (gloo refuses its ring's
-      send/recv on CUDA tensors): PLMS@10 through ``make_pp_denoise_fn`` on a
+         as one rank's step: loss and parameters within 1e-5 relative L2;
+      ac. the GAN step pair on a mesh (data 2, then model 2: the generator's
+         channels split by ``VOCODER_TP_RULES``): one discriminator and
+         generator step of path w's full-width GAN on path w's batch from
+         the same state as one rank's pair: losses, gradients (the
+         generator's gathered) and the parameters whose gradient is at least
+         ``GAN_SMALL_GRAD`` within ``GAN_MESH_REL_BOUND`` relative L2, or
+         within the distance of a second single-rank pair or of one whose
+         input mel moved by one f32 ulp, where that is larger (both printed);
+         the other parameters within 2 lr; every loss finite, every
+         generator parameter a non-zero gradient; no launches; prints ms a
+         step on each rank;
+      ad. the GPipe forward and backward at 2 stages (the ring's carries sent
+         as host copies over gloo): the gradients of mean(eps^2) through the
+         full-width denoiser (B = 4 x 256 frames, 2 microbatches, f32),
+         summed over the pipe group, within ``PP_GRAD_REL_BOUND`` per leaf of
+         one device's autograd, each rank's backward on its own stage's
+         layers; no launches.
+      Then ab's GPipe route at world size 1 over NCCL (NCCL refuses two ranks
+      on one card): PLMS@10 through ``make_pp_denoise_fn`` on a
       one-stage pipe axis, f32, final mel correlation >= 0.9999 with the
       composed f32 denoiser. Each rank's launches go into the kernels' line;
+   ae. the elastic supervisor over a real gang on the card: ``run_elastic``
+      launches 2 workers (``chip_smoke.py --elastic-worker``, both on cuda:0,
+      joined by ``ensure_initialized`` over gloo) that run
+      ``train_diffusion`` on a data-2 mesh over path v's first batch, 4
+      steps with a checkpoint every 2; worker 1 dies at step 3 of attempt 0.
+      One restart, exit code 13 in attempt 0, [0, 0] in attempt 1, both
+      workers resumed from step 2, and the final checkpoint within
+      ``RESUME_REL_BOUND`` of an unbroken 2-worker run's; prints the seconds
+      of each attempt;
    p. (last) the transcription CLI on the 4 s clip with Whisper-medium at
       full width (24 + 24 layers, 1024 wide, vocabulary 51865) on random
       weights, the whole fallback ladder (beam 5 at temperature 0, then
@@ -2119,6 +2151,23 @@ def diffusion_training_path(cfg, counters, paths, device, tmp: str) -> dict:
                  "batch": batches[0]}
 
 
+def gan_batch(cfg, device) -> dict:
+    """Path w's batch: B = 2 segments of GAN_FRAMES frames of the synthetic
+    clip and their log-mels."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.ops.mel import mel_spectrogram
+
+    n = GAN_FRAMES * cfg.hop_length
+    audio = clip(cfg.fs, CLIP_SECONDS)
+    wave = torch.as_tensor(np.stack([audio[:n], audio[cfg.fs: cfg.fs + n]]), device=device)
+    mel = mel_spectrogram(wave, cfg.n_fft, cfg.n_mels, cfg.fs, cfg.hop_length, cfg.win_length, cfg.fmin,
+                          cfg.fmax).transpose(1, 2)
+    return {"mel": mel, "wave": wave}
+
+
 def gan_training_path(cfg, counters, paths, device) -> dict:
     """Path w: the GAN steps at the vocoder's full width (1536, six stages,
     MPD periods [2, 3, 5, 7, 11], the three MRD resolutions) on B = 2
@@ -2129,16 +2178,10 @@ def gan_training_path(cfg, counters, paths, device) -> dict:
     import numpy as np
     import torch
 
-    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
-    from svc_inference_pipeline_tpu_torch.ops.mel import mel_spectrogram
     from svc_inference_pipeline_tpu_torch.training.gan import init_gan_train_state, make_gan_train_steps
 
     n = GAN_FRAMES * cfg.hop_length
-    audio = clip(cfg.fs, CLIP_SECONDS)
-    wave = torch.as_tensor(np.stack([audio[:n], audio[cfg.fs: cfg.fs + n]]), device=device)
-    mel = mel_spectrogram(wave, cfg.n_fft, cfg.n_mels, cfg.fs, cfg.hop_length, cfg.win_length, cfg.fmin,
-                          cfg.fmax).transpose(1, 2)
-    batch = {"mel": mel, "wave": wave}
+    batch = gan_batch(cfg, device)
     state, gopt, dopt = init_gan_train_state(cfg, torch.Generator(device=device).manual_seed(9), device=device)
     disc_step, gen_step = make_gan_train_steps(cfg, gopt, dopt)
     times, losses = {"disc": [], "gen": []}, []
@@ -2517,6 +2560,22 @@ TP_MIN_MEL_CORR = 0.999  # path z: final mel, TP (bf16) vs one device (bf16)
 WAVE_MIN_SNR_DB, WAVE_MIN_CORR = 12.0, 0.97  # paths z and aa: the bf16 bounds of tests/test_bf16_drift.py:71-72
 PP_MIN_MEL_CORR = 0.9999  # path ab: the GPipe final mel (f32) vs one device (f32)
 TRAIN_MESH_REL_BOUND = 1e-5  # the train step on a mesh vs one rank: loss and parameters, relative L2
+# path ac: the GAN step pair on a mesh vs one rank's, losses, gradients and
+# parameters, relative L2; or, if larger, the distance between two
+# single-rank runs measured beside it: a repeat (cuDNN's backward need not
+# repeat its sums bit for bit) and a run whose input mel is moved by one f32
+# ulp, the gradients' sensitivity to a rounding-level change of the
+# activations, which the model axis makes in every conv by summing its
+# input channels in two halves (the losses' kinks, |.| of the L1 terms and
+# the discriminators' leaky ReLUs, turn such a change into whole gradient
+# terms). As in tests/test_torch_gan.py, parameters whose
+# single-rank gradient is below GAN_SMALL_GRAD are held apart: AdamW's first
+# step, lr g / (|g| + eps), turns the rounding of a near-zero gradient into
+# a step of up to lr either way, so they are held to 2 lr each
+GAN_MESH_REL_BOUND = 1e-5
+GAN_SMALL_GRAD = 1e-6
+PP_GRAD_REL_BOUND = 1e-4  # path ad: the 2-stage GPipe's gradients vs one device's autograd, relative L2 per leaf
+PP_GRAD_FRAMES = 256  # path ad: B = 4 clips of 256 frames in 2 microbatches
 
 
 def _host64(x):
@@ -2551,6 +2610,161 @@ def _timed(counters, fn):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0, counters.read()
+
+
+def _gan_mesh_phase(world: int, cfg, device, counters) -> dict:
+    """Path ac on this rank: one discriminator and generator step pair of
+    path w's full-width GAN on path w's batch at data 2, then at model 2
+    (the generator's channels split), from the same state as one rank's
+    pair, run twice beside it: the losses and the parameters (the
+    generator's gathered) against the single-rank pair's, relative L2."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.parallel.mesh import MODEL_AXIS, axis_group, make_mesh
+    from svc_inference_pipeline_tpu_torch.parallel.sharding import unshard
+    from svc_inference_pipeline_tpu_torch.training import gan
+
+    batch = gan_batch(cfg, device)
+
+    def pair(mesh, data=batch):
+        state, gopt, dopt = gan.init_gan_train_state(cfg, torch.Generator(device=device).manual_seed(9), device=device)
+        disc_step, gen_step = gan.make_gan_train_steps(cfg, gopt, dopt, mesh=mesh)
+        if mesh is not None:
+            state = disc_step.shard_state(state)
+        with torch.no_grad():  # the generator's output before the steps, the whole batch on every rank
+            y_hat = state.generator(data["mel"], axis_group(mesh, MODEL_AXIS)).double()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, d_loss = disc_step(state, data)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, g_loss, aux = gen_step(state, data)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dead = [n for n, p in state.generator.named_parameters() if p.grad is None or not bool(p.grad.abs().max() > 0)]
+        group, specs = axis_group(mesh, MODEL_AXIS), gan.generator_specs(state)
+        gen_params = (gan.gathered_generator(state, mesh)["params"] if mesh is not None
+                      else {n: p.detach() for n, p in state.generator.named_parameters()})
+        params = {f"generator.{n}": v.clone() for n, v in gen_params.items()}
+        grads = {f"generator.{n}": (p.grad if specs[n] is None or group is None
+                                    else unshard(p.grad, specs[n], group)).clone()
+                 for n, p in state.generator.named_parameters()}
+        for k in ("mpd", "mrd"):  # the discriminator step's gradients
+            for n, p in getattr(state, k).named_parameters():
+                params[f"{k}.{n}"], grads[f"{k}.{n}"] = p.detach().clone(), p.grad.clone()
+        return {"losses": torch.stack([d_loss, g_loss, *aux.values()]).double().cpu(), "params": params,
+                "grads": grads, "y_hat": y_hat, "disc_ms": 1e3 * (t1 - t0), "gen_ms": 1e3 * (t2 - t1), "dead": dead,
+                "local_rows": state.generator.conv_pre.conv.weight.shape[0]}
+
+    def distance(a, b) -> dict:
+        """Relative L2 of the losses, the gradients, the parameters, and the
+        parameters whose gradient in b is at least GAN_SMALL_GRAD; the largest
+        change of the others, and their share."""
+        sums = dict.fromkeys(("g_num", "g_den", "p_num", "p_den", "l_num", "l_den", "n_small", "n"), 0.0)
+        small_max, worst = 0.0, ("", 0.0)
+        for k, p in b["params"].items():
+            g = b["grads"][k].double()
+            dp = (a["params"][k].double() - p.double()) ** 2
+            small = g.abs() < GAN_SMALL_GRAD
+            dg = float(((a["grads"][k].double() - g) ** 2).sum())
+            worst = max(worst, (k, math.sqrt(dg / max(float((g ** 2).sum()), 1e-300))), key=lambda w: w[1])
+            sums["g_num"] += dg
+            sums["g_den"] += float((g ** 2).sum())
+            sums["p_num"] += float(dp.sum())
+            sums["p_den"] += float((p.double() ** 2).sum())
+            sums["l_num"] += float(dp[~small].sum())
+            sums["l_den"] += float((p.double()[~small] ** 2).sum())
+            sums["n_small"] += float(small.sum())
+            sums["n"] += small.numel()
+            if bool(small.any()):
+                small_max = max(small_max, float(dp[small].max().sqrt()))
+        return {"loss_rel": float((a["losses"] - b["losses"]).norm() / b["losses"].norm()),
+                "y_hat_rel_l2": float((a["y_hat"] - b["y_hat"]).norm() / b["y_hat"].norm()),
+                "grads_rel_l2": math.sqrt(sums["g_num"] / sums["g_den"]),
+                "params_rel_l2": math.sqrt(sums["p_num"] / sums["p_den"]),
+                "params_rel_l2_large_grad": math.sqrt(sums["l_num"] / sums["l_den"]),
+                "small_grad_max_abs": small_max, "small_grad_share": sums["n_small"] / sums["n"],
+                "worst_grad_leaf": worst[0], "worst_grad_leaf_rel_l2": worst[1]}
+
+    ref = pair(None)
+    again = pair(None)
+    repeat = distance(again, ref)
+    nudged = distance(pair(None, dict(batch, mel=batch["mel"] * (1 + 2.0 ** -23))), ref)
+    del again
+    out = {}
+    for data, model in ((world, 1), (1, world)):
+        got, wall, counts = _timed(counters, lambda: pair(make_mesh(data=data, model=model)))
+        out[f"ac gan data {data} model {model}"] = {
+            "launches": counts, "wall_s": wall, **distance(got, ref), **{f"repeat_{k}": v for k, v in repeat.items()},
+            **{f"ulp_{k}": v for k, v in nudged.items()},
+            "finite": bool(torch.isfinite(got["losses"]).all()), "zero_grad_params": got["dead"][:5],
+            "n_zero_grad_params": len(got["dead"]), "local_rows": got["local_rows"],
+            "ms_disc_step": got["disc_ms"], "ms_gen_step": got["gen_ms"],
+            "single_ms_disc_step": ref["disc_ms"], "single_ms_gen_step": ref["gen_ms"]}
+    return out
+
+
+def _pp_grad_phase(world: int, cfg, device, counters) -> dict:
+    """Path ad on this rank: the gradients of mean(eps^2) through the
+    full-width denoiser as a ``world``-stage GPipe over gloo (the ring's
+    carries sent as host copies), summed over the pipe group, against the
+    denoiser's own forward and autograd on one device, f32, relative L2 per
+    leaf; each rank's own backward must reach exactly its stage's layers."""
+    import torch
+    import torch.distributed as dist
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+    from svc_inference_pipeline_tpu_torch.parallel.mesh import PIPE_AXIS, mesh_over
+    from svc_inference_pipeline_tpu_torch.parallel.pp import pp_denoise_fn
+
+    g = torch.Generator(device=device).manual_seed(7)
+    with torch.device(device):
+        den = DiffSVCDenoiser(cfg.mapper)
+    random_init_(den, g)
+    randomize_vectors_(den, g)
+    steps = int(cfg.mapper.noise_schedule_factors[2])
+    x = torch.randn((4, PP_GRAD_FRAMES, cfg.mapper.n_mel), generator=g, device=device)
+    cond = 0.3 * torch.randn((4, PP_GRAD_FRAMES, cfg.mapper.conditioner_size), generator=g, device=device)
+    t = torch.tensor([137, 137, 642, 642], device=device)
+
+    def grads():
+        out = [p.grad if p.grad is not None else torch.zeros_like(p) for p in den.parameters()]
+        den.zero_grad(set_to_none=True)
+        return out
+
+    t0 = time.perf_counter()
+    eps = torch.cat([den(x[i:i + 2], cond[i:i + 2], t[i:i + 2, None]) for i in (0, 2)])
+    single_loss = (eps ** 2).mean()
+    single_loss.backward()
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    ref = grads()
+    mesh = mesh_over(range(world), (world,), (PIPE_AXIS,))
+
+    def run():
+        eps = pp_denoise_fn(den, cond, t, x, mesh, cfg.mapper, steps, n_micro=2)
+        loss = (eps ** 2).mean()
+        loss.backward()
+        return loss
+
+    loss, wall, counts = _timed(counters, run)
+    got = grads()
+    names = [n for n, _ in den.named_parameters()]
+    own = sorted({n.split(".")[0] for n, v in zip(names, got) if n.startswith("residual_") and bool(v.abs().max() > 0)},
+                 key=lambda n: int(n.split("_")[1]))
+    flat = torch.cat([v.reshape(-1) for v in got])
+    dist.all_reduce(flat, group=mesh.get_group(PIPE_AXIS))
+    got = [v.view_as(r) for v, r in zip(flat.split([r.numel() for r in ref]), ref)]
+    errs = {n: rel_l2(v, r) for n, v, r in zip(names, got, ref)}
+    worst = max(errs, key=errs.get)
+    per = cfg.mapper.residual_layer_num // world
+    rank = dist.get_rank(mesh.get_group(PIPE_AXIS))
+    return {"ad pp backward": {
+        "launches": counts, "wall_s": wall, "single_s": single_s, "grad_rel_l2": errs[worst], "worst_leaf": worst,
+        "loss_rel": abs(float(loss) - float(single_loss)) / abs(float(single_loss)),
+        "own_layers_ok": own == [f"residual_{i}" for i in range(rank * per, (rank + 1) * per)],
+        "finite": all(bool(torch.isfinite(v).all()) for v in got)}}
 
 
 def _mesh_rank(rank: int, world: int, cfg, wavs: list, singers: list, batch: dict) -> dict:
@@ -2648,6 +2862,9 @@ def _mesh_rank(rank: int, world: int, cfg, wavs: list, singers: list, batch: dic
         out[f"train mesh data {data} model {model}"] = {
             "launches": counts, "wall_s": wall, "loss_rel": abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)),
             "params_rel_l2": float(torch.sqrt(num / den))}
+    del ref_state, ref_opt, state, opt
+    out.update(_gan_mesh_phase(world, cfg, device, counters))
+    out.update(_pp_grad_phase(world, cfg, device, counters))
     return out
 
 
@@ -2729,6 +2946,7 @@ def mesh_paths(cfg, counters, paths, batch) -> dict:
 
     from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
     from svc_inference_pipeline_tpu_torch.parallel.distributed import spawn
+    from svc_inference_pipeline_tpu_torch.training.gan import LR as GAN_LR
 
     t0 = time.perf_counter()
     probe = gloo_cuda_probe()
@@ -2750,7 +2968,8 @@ def mesh_paths(cfg, counters, paths, batch) -> dict:
     want = {"y ddpm bf16": {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1},
             "y plms@10 int8-w1": {"K5 int8-w1": steps // 10 + 1, "K4": 24, "K2": 6, "K3": 1},
             "z tp plms@10": {"K4": 24, "K2": 6, "K3": 1}, "ab sp whisper": {},
-            f"train mesh data {MESH_RANKS} model 1": {}, f"train mesh data 1 model {MESH_RANKS}": {}}
+            f"train mesh data {MESH_RANKS} model 1": {}, f"train mesh data 1 model {MESH_RANKS}": {},
+            f"ac gan data {MESH_RANKS} model 1": {}, f"ac gan data 1 model {MESH_RANKS}": {}, "ad pp backward": {}}
     card = card_line()
     print(f"multi-rank paths ({card}): one spawn of {MESH_RANKS} ranks {mesh_s:.1f}s, the PP rank {pp_s:.1f}s")
     failures = []
@@ -2774,13 +2993,190 @@ def mesh_paths(cfg, counters, paths, batch) -> dict:
             if name.startswith("train") and not (got["loss_rel"] <= TRAIN_MESH_REL_BOUND and
                                                  got["params_rel_l2"] <= TRAIN_MESH_REL_BOUND):
                 failures.append(f"{name} rank {r}: {got}")
+            if name.startswith("ac") and not (
+                    got["finite"] and got["n_zero_grad_params"] == 0
+                    and all(got[k] <= max(GAN_MESH_REL_BOUND, got[f"repeat_{k}"], got[f"ulp_{k}"])
+                            for k in ("loss_rel", "grads_rel_l2", "params_rel_l2_large_grad"))
+                    and got["small_grad_max_abs"] <= 2 * GAN_LR):
+                failures.append(f"{name} rank {r}: {got}")
+            if name.startswith("ad") and not (got["finite"] and got["own_layers_ok"]
+                                              and got["grad_rel_l2"] <= PP_GRAD_REL_BOUND
+                                              and got["loss_rel"] <= PP_GRAD_REL_BOUND):
+                failures.append(f"{name} rank {r}: {got}")
     print(f"path ab pp (world size 1, {pp['backend']}): PLMS@10 final mel corr {pp['mel_corr']:.7f} with one "
-          f"device f32 (bound {PP_MIN_MEL_CORR}), sampling {pp['wall_s']:.3f}s; the 2-stage ring waits for two cards")
+          f"device f32 (bound {PP_MIN_MEL_CORR}), sampling {pp['wall_s']:.3f}s; the 2-stage ring ran in path ad, "
+          f"over gloo")
     if not (pp["finite"] and pp["mel_corr"] >= PP_MIN_MEL_CORR):
         failures.append(f"path ab pp: {pp}")
     if failures:
         raise AssertionError("multi-rank paths: " + "; ".join(failures))
     return {"gloo_cuda": probe, "mesh_spawn_s": mesh_s, "pp_spawn_s": pp_s, "ranks": ranks, "pp": pp}
+
+
+ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_DIE_AT = 4, 2, 3  # path ae: the drill's steps, checkpoints, fault
+
+
+def elastic_worker(argv: list) -> int:
+    """One worker of path ae's gang (``chip_smoke.py --elastic-worker
+    CKPT_DIR BATCH.npz``): joins the gang from the supervisor's
+    environment over gloo on its card and runs ``train_diffusion`` on a
+    data-2 mesh over the batch, resuming from CKPT_DIR."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from svc_inference_pipeline_tpu_torch.config import load_config
+    from svc_inference_pipeline_tpu_torch.parallel import distributed
+    from svc_inference_pipeline_tpu_torch.parallel.mesh import make_mesh
+    from svc_inference_pipeline_tpu_torch.training.loop import train_diffusion
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt_dir, batch_path = argv
+    if not distributed.ensure_initialized(backend="gloo"):
+        raise RuntimeError("elastic worker: no gang in the environment")
+    cfg = load_config(os.path.join(ROOT, "config", "config.json"))
+    with np.load(batch_path) as f:
+        batch = {k: f[k] for k in f.files}
+    t0 = time.perf_counter()
+    state = train_diffusion(cfg, [batch], ELASTIC_STEPS, checkpoint_dir=ckpt_dir, checkpoint_every=ELASTIC_CKPT_EVERY,
+                            mesh=make_mesh(data=dist.get_world_size()), seed=4)
+    print(f"ELASTIC_OK {dist.get_rank()} step {state.step} on {distributed.current_device()} "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def elastic_path(cfg, counters, paths, batch: dict) -> dict:
+    """Path ae: the elastic supervisor over a real gang on the card.
+    ``run_elastic`` launches 2 workers (:func:`elastic_worker`, both on
+    cuda:0 over gloo) training on path v's batch on a data-2 mesh for
+    ELASTIC_STEPS steps with a checkpoint every ELASTIC_CKPT_EVERY; worker
+    1 dies at step ELASTIC_DIE_AT on attempt 0. Requires one restart, exit
+    code 13 in attempt 0, both workers of attempt 1 resumed from the last
+    checkpoint and exiting 0, and the final checkpoint within
+    RESUME_REL_BOUND of an unbroken 2-worker run's."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.native_io import load_checkpoint
+    from svc_inference_pipeline_tpu_torch.training.elastic import run_elastic
+
+    torch.cuda.empty_cache()  # the workers need the card's memory
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        batch_path = os.path.join(tmp, "batch.npz")
+        np.savez(batch_path, **{k: np.asarray(v) for k, v in batch.items()})
+
+        def gang(name, **kw):
+            res[name] = run_elastic([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--elastic-worker",
+                                     os.path.join(tmp, name), batch_path], num_workers=2,
+                                    log_dir=os.path.join(tmp, f"logs_{name}"), grace_period=10.0, **kw)
+
+        def run():
+            gang("drill", max_restarts=1, extra_env={"SVC_FAULT_INJECT": f"die@{ELASTIC_DIE_AT}:p1:a0"})
+            gang("whole", max_restarts=0)
+            return {}
+
+        try:
+            drive("ae elastic drill", counters, run, {}, paths)
+        except Exception as e:
+            raise AssertionError(f"path ae: {e}\n{_logs(tmp)}") from e
+        drill, whole = res["drill"], res["whole"]
+        logs = {name: open(os.path.join(tmp, "logs_drill", name)).read()
+                for name in ("worker0_a1.log", "worker1_a1.log")}
+        resumed_at = ELASTIC_DIE_AT // ELASTIC_CKPT_EVERY * ELASTIC_CKPT_EVERY
+        a, b = (load_checkpoint(os.path.join(tmp, name, "latest")) for name in ("drill", "whole"))
+        keys = [(k, n) for k in ("enc", "den") for n in b[k]] + [("ema", k, n) for k in b["ema"] for n in b["ema"][k]]
+
+        def get(ckpt, key):
+            for part in key:
+                ckpt = ckpt[part]
+            return torch.as_tensor(ckpt).double()
+
+        num = sum(((get(a, k) - get(b, k)) ** 2).sum() for k in keys)
+        den = sum((get(b, k) ** 2).sum() for k in keys)
+        out = {"restarts": drill.restarts, "attempts": drill.attempts, "whole_attempts": whole.attempts,
+               "steps": (int(a["step"]), int(b["step"])), "resumed_at": resumed_at,
+               "resumed": all(f"resumed from step {resumed_at}" in log for log in logs.values()),
+               "ok_lines": all(f"ELASTIC_OK {w} step {ELASTIC_STEPS}" in logs[f"worker{w}_a1.log"] for w in range(2)),
+               "final_rel_l2": float(torch.sqrt(num / den))}
+        print(f"path ae ({card_line()}): drill attempts "
+              + ", ".join(f"{x['attempt']}: exit {x['exit_codes']} in {x['duration_s']:.2f}s" for x in drill.attempts)
+              + f"; unbroken run {whole.attempts[0]['duration_s']:.2f}s; resumed from step {resumed_at} "
+              f"{out['resumed']}, final checkpoint vs unbroken rel L2 {out['final_rel_l2']:.3e} "
+              f"(bound {RESUME_REL_BOUND})")
+        if not (drill.restarts == 1 and 13 in drill.attempts[0]["exit_codes"]
+                and drill.attempts[1]["exit_codes"] == [0, 0] and whole.restarts == 0
+                and out["steps"] == (ELASTIC_STEPS, ELASTIC_STEPS) and out["resumed"] and out["ok_lines"]
+                and out["final_rel_l2"] <= RESUME_REL_BOUND):
+            raise AssertionError(f"path ae: {out}\n{_logs(tmp)}")
+    return out
+
+
+def _logs(tmp: str) -> str:
+    """The ends of path ae's worker logs, for a failure's message."""
+    parts = []
+    for d in sorted(os.listdir(tmp)):
+        if d.startswith("logs_"):
+            for name in sorted(os.listdir(os.path.join(tmp, d))):
+                with open(os.path.join(tmp, d, name)) as f:
+                    parts.append(f"--- {d}/{name}\n{f.read()[-1500:]}")
+    return "\n".join(parts)
+
+
+CAPTURE_FRAMES = 384  # path af: the 4 s clip's padded length
+
+
+def capture_path(cfg, counters, paths, device) -> dict:
+    """Path af: ``capture_intermediates`` on the full-width denoiser's own
+    forward (20 x 384, f32, the module route: no launches) at the 4 s
+    clip's length: every sown and module entry present (each block's
+    ``noise_step_condition`` and ``__call__``, the step encoder's
+    ``step_embedding``, ``step_encoder_output`` and ``__call__``, the
+    output), finite, and the output equal, bit for bit, to an uncaptured
+    call's; prints both calls' ms."""
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+    from svc_inference_pipeline_tpu_torch.utils.observability import capture_intermediates
+
+    g = torch.Generator(device=device).manual_seed(11)
+    with torch.device(device):
+        den = DiffSVCDenoiser(cfg.mapper)
+    random_init_(den, g)
+    randomize_vectors_(den, g)
+    m = cfg.mapper
+    x = torch.randn((1, CAPTURE_FRAMES, m.n_mel), generator=g, device=device)
+    cond = torch.randn((1, CAPTURE_FRAMES, m.conditioner_size), generator=g, device=device)
+    t = torch.tensor([[500]], device=device)
+    got = {}
+    with torch.no_grad():
+        plain = den(x, cond, t)
+
+        def run():
+            got["out"], got["tree"] = capture_intermediates(den, x, cond, t)
+            return {}
+
+        drive("af capture_intermediates", counters, run, {}, paths)
+        plain_ms = cuda_ms(lambda: den(x, cond, t))
+        capture_ms = cuda_ms(lambda: capture_intermediates(den, x, cond, t))
+    tree = got["tree"]
+    want = {"__call__": None, "diffusion_embedding": {"step_embedding", "step_encoder_output", "__call__"},
+            **{f"residual_{i}": {"noise_step_condition", "__call__"} for i in range(m.residual_layer_num)}}
+    keys_ok = set(tree) == set(want) and all(set(tree[k]) == v for k, v in want.items() if v)
+    leaves = [v for k, entry in tree.items() for vals in (entry.values() if isinstance(entry, dict) else [entry])
+              for item in vals for v in (item if isinstance(item, tuple) else (item,))]
+    out = {"keys_ok": keys_ok, "entries": sum(len(v) if isinstance(v, dict) else 1 for v in tree.values()),
+           "bit_equal": bool(torch.equal(got["out"], plain)), "finite": all(bool(torch.isfinite(v).all()) for v in leaves),
+           "plain_ms": plain_ms, "capture_ms": capture_ms}
+    print(f"path af ({card_line()}): {out['entries']} entries over {m.residual_layer_num} blocks, keys complete "
+          f"{keys_ok}, output bit-equal {out['bit_equal']}; forward {plain_ms:.3f} ms, captured {capture_ms:.3f} ms")
+    if not (keys_ok and out["bit_equal"] and out["finite"]):
+        raise AssertionError(f"path af: {out}, keys {sorted(tree)}")
+    return out
 
 
 def main_paths(cfg, device, voc) -> tuple:
@@ -2878,12 +3274,16 @@ def main_paths(cfg, device, voc) -> tuple:
     checks.update(feature_paths(cfg, counters, paths, device))
     training, batch = training_paths(cfg, counters, paths, device)
     checks.update(training)
+    checks["capture"] = capture_path(cfg, counters, paths, device)
     checks["mesh"] = mesh_paths(cfg, counters, paths, batch)
+    checks["elastic"] = elastic_path(cfg, counters, paths, batch)
     checks["transcribe"] = transcribe_paths(counters, paths, device)
     return paths, checks
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        return elastic_worker(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():

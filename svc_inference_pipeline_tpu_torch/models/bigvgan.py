@@ -25,6 +25,19 @@ activation composed on its own alpha/beta and every AMP block through its
 own act/conv modules, on any device, and makes or reads no kernel-form
 copy, so autograd reaches every parameter. Nothing switches routes on its
 own.
+
+The training route also runs channel-sharded (``tp_group``, the model-axis
+group of a generator sharded by ``parallel/sharding.py``'s
+``VOCODER_TP_RULES``, as the GAN train steps on a mesh run it). The signal
+between layers is whole on every rank. ``conv_pre`` and each up-conv are
+column-parallel (the rules shard their output channels and bias; JAX
+stores an up-conv kernel [K, Cout, Cin]): they compute this rank's output
+channels, all-gathered (:func:`gather_from`). Each resblock conv is
+row-parallel (the rules shard its input channels): it takes this rank's
+channels of its activation's output, and its partial sums join in one
+all-reduce (:func:`reduce_from`) before the whole bias. Each activation
+runs on this rank's channels (:func:`scatter_to`) with its alpha/beta.
+``activation_post`` and ``conv_post`` run replicated.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from svc_inference_pipeline_tpu_torch.parallel.sharding import copy_to, gather_from, reduce_from, scatter_to
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +170,10 @@ class Activation1d(nn.Module):
     def params(self):
         return self.alpha, (self.beta if self.beta is not None else self.alpha)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """With ``tp_group``: this rank's channels of the replicated x, the
+        activation on them with this rank's alpha/beta."""
+        x = scatter_to(x, -1, tp_group)
         if not self.use_kernels:
             return activation1d_composed(x, *self.params(), self.kind, self.logscale)
         from svc_inference_pipeline_tpu_torch.ops.pallas.snake import fused_activation1d
@@ -180,13 +198,19 @@ class TorchConv1d(nn.Module):
         self.compute_dtype = dtype
         self.conv = nn.Conv1d(cin, cout, kernel_size, dilation=dilation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """With ``tp_group`` the conv is row-parallel: x holds this rank's
+        input channels, the partial sums are all-reduced, then the whole
+        bias is added."""
         k, d = self.conv.kernel_size[0], self.dilation
         pad = d * (k - 1) // 2
         dtype = self.compute_dtype or x.dtype
         xp = F.pad(x.to(dtype).transpose(1, 2), (pad, pad + max(0, d * (k - 1) - 2 * pad)))
-        y = F.conv1d(xp, self.conv.weight.to(dtype), self.conv.bias.to(dtype), dilation=d)
-        return y.transpose(1, 2)
+        if tp_group is None:
+            y = F.conv1d(xp, self.conv.weight.to(dtype), self.conv.bias.to(dtype), dilation=d)
+            return y.transpose(1, 2)
+        y = reduce_from(F.conv1d(xp, self.conv.weight.to(dtype), dilation=d), tp_group)
+        return (y + self.conv.bias.to(dtype)[:, None]).transpose(1, 2)
 
     def kernel_kio(self) -> torch.Tensor:
         """Weight in the JAX [k, Cin, Cout] layout (K2's operand)."""
@@ -299,9 +323,11 @@ class AMPBlock1(nn.Module):
                 w.data = w.data.permute(2, 1, 0).contiguous().permute(2, 1, 0)
         self.kernel_pairs = kernel_params((self.pair_params(),), self.kind, self.logscale, dtype)[0]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
         from svc_inference_pipeline_tpu_torch.ops.pallas.amp_pair import MAX_CHANNELS, fused_amp_pair
 
+        if tp_group is not None:
+            _refuse_kernels_under_tp(self.use_kernels)
         if self.use_kernels and self.channels <= MAX_CHANNELS:
             w = None if self.kernel_pairs is None else self.kernel_pairs[0][0]
             if w is None or w.dtype != x.dtype or w.device != x.device:
@@ -311,10 +337,10 @@ class AMPBlock1(nn.Module):
                 x = fused_amp_pair(x, pair, self.kernel_size, d)
             return x
         for j in range(len(self.dilations)):
-            xt = getattr(self, f"act1_{j}")(x)
-            xt = getattr(self, f"conv1_{j}")(xt)
-            xt = getattr(self, f"act2_{j}")(xt)
-            x = getattr(self, f"conv2_{j}")(xt) + x
+            xt = getattr(self, f"act1_{j}")(x, tp_group)
+            xt = getattr(self, f"conv1_{j}")(xt, tp_group)
+            xt = getattr(self, f"act2_{j}")(xt, tp_group)
+            x = getattr(self, f"conv2_{j}")(xt, tp_group) + x
         return x
 
 
@@ -331,9 +357,9 @@ class AMPBlock2(nn.Module):
             self.add_module(f"act_{j}", Activation1d(channels, cfg.activation, cfg.snake_logscale, use_kernels))
             self.add_module(f"conv_{j}", TorchConv1d(channels, channels, kernel_size, d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
         for j in range(len(self.dilations)):
-            x = getattr(self, f"conv_{j}")(getattr(self, f"act_{j}")(x)) + x
+            x = getattr(self, f"conv_{j}")(getattr(self, f"act_{j}")(x, tp_group), tp_group) + x
         return x
 
 
@@ -399,44 +425,55 @@ class BigVGANGenerator(nn.Module):
             stages.append(StageParams(blk.kernel_pairs for blk in blocks))
         self.kernel_stages = tuple(stages)
 
-    def stage_blocks(self, i: int, x: torch.Tensor) -> torch.Tensor:
+    def stage_blocks(self, i: int, x: torch.Tensor, tp_group=None) -> torch.Tensor:
         """Stage i's blocks applied one by one to x, summed at x's dtype and
         divided by their number (the JAX generator's block route)."""
         n = len(self.cfg.resblock_kernel_sizes)
         acc = None
         for j in range(n):
-            y = getattr(self, f"resblock_{i}_{j}")(x)
+            y = getattr(self, f"resblock_{i}_{j}")(x, tp_group)
             acc = y if acc is None else acc + y
         return acc / n
 
-    def _forward(self, mel: torch.Tensor, per_block: bool) -> torch.Tensor:
+    def _forward(self, mel: torch.Tensor, per_block: bool, tp_group=None) -> torch.Tensor:
         from svc_inference_pipeline_tpu_torch.ops.pallas.amp_stage import fused_amp_stage
 
         cfg = self.cfg
         dtype = self.compute_dtype or mel.dtype
+        if tp_group is not None:
+            _refuse_kernels_under_tp(self.use_kernels)
         if not per_block and self.kernel_stages is None:
             self.prepare_kernel_params()
-        x = self.conv_pre(mel.to(dtype))
+        # conv_pre and the up-convs column-parallel under TP (their output channels gathered)
+        x = gather_from(self.conv_pre(copy_to(mel.to(dtype), tp_group)), -1, tp_group)
         ks = tuple(cfg.resblock_kernel_sizes)
         dils = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
         for i in range(len(cfg.upsample_rates)):
-            x = getattr(self, f"up_{i}")(x)
+            x = gather_from(getattr(self, f"up_{i}")(copy_to(x, tp_group)), -1, tp_group)
             if per_block:
-                x = self.stage_blocks(i, x)
+                x = self.stage_blocks(i, x, tp_group)
             else:
                 x = fused_amp_stage(x.contiguous(), self.kernel_stages[i], ks, dils)
         x = self.activation_post(x)
         x = self.conv_post(x)
         return torch.tanh(x.float())[..., 0]
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        return self._forward(mel, per_block=self.cfg.resblock != "1" or not self.use_kernels)
+    def forward(self, mel: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """The waveform; ``tp_group`` runs the training route channel-sharded
+        (the module docstring), refused on the kernel route."""
+        return self._forward(mel, self.cfg.resblock != "1" or not self.use_kernels, tp_group)
 
     def forward_per_block(self, mel: torch.Tensor) -> torch.Tensor:
         """The generator block by block (resblock "1": each AMPBlock1's own
         forward, K7 up to 384 channels), as ``perf_vocoder_stages`` runs the
         JAX generator's layers."""
         return self._forward(mel, per_block=True)
+
+
+def _refuse_kernels_under_tp(use_kernels: bool) -> None:
+    if use_kernels:
+        raise ValueError("tp_group shards the training route (use_kernels=False); the kernel route runs "
+                         "whole, and inference splits the vocoder in time (parallel/tp_vocoder.py)")
 
 
 def vocoder_output_to_audio(wave: torch.Tensor, n_frames: int, hop_length: int) -> torch.Tensor:

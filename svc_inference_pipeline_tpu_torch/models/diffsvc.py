@@ -9,7 +9,8 @@ in ``checkpoints/from_jax.py`` converts the JAX trees.
 Architecture (config "mapper"): mel preprocess Linear + ReLU, sinusoidal
 step embedding through two SiLU projections, ``residual_layer_num`` gated
 dilated-conv blocks (dilation 2^(i mod cycle)) with an f32 skip sum, skip
-projection + ReLU, output projection.
+projection + ReLU, output projection. Its forward sows JAX's
+intermediates (``utils/observability.py::capture_intermediates``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from svc_inference_pipeline_tpu_torch.parallel.sharding import copy_to, gather_from, row_parallel
+from svc_inference_pipeline_tpu_torch.utils.observability import sow
 
 INV_SQRT2 = float(torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32))
 
@@ -60,8 +62,11 @@ class StepEncoder(nn.Module):
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         x = step_embedding(t, 128)
+        sow(self, "step_embedding", x)
         x = F.silu(linear(self.projection1, x, torch.float32))
-        return F.silu(linear(self.projection2, x, torch.float32))
+        x = F.silu(linear(self.projection2, x, torch.float32))
+        sow(self, "step_encoder_output", x)
+        return x
 
 
 class ResidualBlock(nn.Module):
@@ -92,6 +97,7 @@ class ResidualBlock(nn.Module):
             dilation=self.dilation,
         ).transpose(1, 2)
         y = y + cond_proj
+        sow(self, "noise_step_condition", y)
         gate, filt = y.chunk(2, dim=-1)
         g = torch.sigmoid(gate) * torch.tanh(filt)
         if tp_group is None:

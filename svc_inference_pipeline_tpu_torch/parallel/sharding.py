@@ -24,15 +24,20 @@ The layout (the Megatron pattern):
   its output columns (all-gathered).
 * Whisper: q/k/v shard heads, the out projection and ``mlp_2`` their input,
   ``mlp_0`` its output: one all-reduce per sub-block.
-* BigVGAN: channel sharding of every conv (the table is kept; the pipeline
-  runs the vocoder time-chunked instead, ``parallel/tp_vocoder.py``).
+* BigVGAN: channel sharding of every conv, the GAN train steps' TP
+  (``training/gan.py``): ``conv_pre`` column-parallel, each up-conv and
+  resblock conv row-parallel on this rank's input channels, the
+  activations on those channels. Inference runs the vocoder time-chunked
+  instead (``parallel/tp_vocoder.py``).
 
 JAX's GSPMD writes the collectives; here the TP forwards call the
 autograd-aware ones below: :func:`reduce_from` (all-reduce forward,
 identity backward, where a row-parallel product's partial sums join),
 :func:`copy_to` (identity forward, all-reduce backward, where a replicated
-tensor enters column-parallel products) and :func:`gather_from` (all-gather
-forward, this rank's slice backward).
+tensor enters column-parallel products), :func:`gather_from` (all-gather
+forward, this rank's slice backward) and :func:`scatter_to` (this rank's
+slice forward, all-gather backward, where a replicated tensor enters
+row-parallel products).
 """
 
 from __future__ import annotations
@@ -230,6 +235,18 @@ class _GatherFrom(torch.autograd.Function):
         return grad.chunk(size, dim=ctx.dim)[rank].contiguous(), None, None
 
 
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        return x.chunk(size, dim=dim)[rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
 def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     """Sum of the ranks' partials (all-reduce); the gradient passes through."""
     return x if group is None else _ReduceFrom.apply(x, group)
@@ -245,6 +262,17 @@ def gather_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' column shards joined along ``dim``; the gradient is this
     rank's slice."""
     return x if group is None else _GatherFrom.apply(x, dim, group)
+
+
+def scatter_to(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal slice of a replicated ``x`` along ``dim``; the
+    gradient is the ranks' slices' gradients joined (each rank's slice
+    gradient is whole for its slice, so nothing is summed or scaled)."""
+    if group is None:
+        return x
+    if x.shape[dim] % dist.get_world_size(group):
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide by {dist.get_world_size(group)}")
+    return _ScatterTo.apply(x, dim, group)
 
 
 def row_parallel(x: torch.Tensor, layer: nn.Linear, group, dtype: Optional[torch.dtype] = None) -> torch.Tensor:

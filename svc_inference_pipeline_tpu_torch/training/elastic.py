@@ -12,8 +12,9 @@ Python (subprocess, files, sockets) with the port's logger:
 
 * **Gang-restart recovery** (:func:`run_elastic`): a supervisor that
   launches one worker process per host, hands each the rendezvous env
-  ``SVC_COORDINATOR``/``SVC_NUM_PROCESSES``/``SVC_PROCESS_ID`` (no module of
-  the port reads it yet: multi-process training is not ported), and watches
+  ``SVC_COORDINATOR``/``SVC_NUM_PROCESSES``/``SVC_PROCESS_ID`` (which
+  ``parallel.distributed.ensure_initialized`` reads to join the gang's
+  process group over TCP), and watches
   liveness two ways: process exit and a per-worker heartbeat file the
   training loop touches every step (:func:`heartbeat`). When a worker dies
   or its heartbeat goes stale (a hang, which exit monitoring misses), the

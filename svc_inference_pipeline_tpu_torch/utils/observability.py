@@ -7,9 +7,11 @@ Counterpart of ``svc_inference_pipeline_tpu/utils/observability.py``:
   (visible in a :func:`profile` trace) observed as ``span/<name>``,
 * :func:`profile` — a ``torch.profiler`` trace of a code region (CUDA
   activity when a GPU is present), written as a Chrome trace,
+* :func:`capture_intermediates` and :func:`sow` — flax's
+  ``capture_intermediates=True`` and ``Module.sow``: a model's activations
+  (step embeddings, each block's gated pre-activation, ...) recorded for
+  one call, without changing its signature or its numbers,
 * :class:`Metrics` — counters and observations with one-line JSON export.
-
-``capture_intermediates`` (flax ``sow`` collections) has no counterpart.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import logging
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch import nn
 
 _LOG_FORMAT = "%(asctime)s %(levelname).1s %(name)s: %(message)s"
 
@@ -66,6 +69,69 @@ def profile(log_dir: str) -> Iterator[None]:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# the active capture: {id(module): its entry dict in the intermediates tree}
+_capture: Optional[Dict[int, Dict[str, Any]]] = None
+
+
+def sow(module: nn.Module, name: str, value: Any) -> None:
+    """Record ``value`` under ``name`` in ``module``'s entry while a
+    :func:`capture_intermediates` call runs (appended to a tuple, as flax's
+    ``sow`` does); otherwise nothing, at the cost of one check."""
+    if _capture is None:
+        return
+    entry = _capture.get(id(module))
+    if entry is not None:
+        entry[name] = entry.get(name, ()) + (value,)
+
+
+def capture_intermediates(model: nn.Module, *args, **kwargs) -> Tuple[Any, Dict[str, Any]]:
+    """``model(*args, **kwargs)`` with every intermediate recorded: (output,
+    intermediates). The tree is keyed by flax's module paths (``residual_0``,
+    ``diffusion_embedding``, ...): each module's entry holds what it sows
+    (:func:`sow`) and, under ``__call__``, the outputs of each call of it as
+    a module (forward hooks, registered for this call and removed after
+    it); the model's own output is the root's ``__call__``. Values are
+    tuples, one element a call, as flax gives them.
+
+    The port's denoiser sows JAX's three points: ``diffusion_embedding``'s
+    ``step_embedding`` and ``step_encoder_output``, each ``residual_i``'s
+    ``noise_step_condition`` (the conv output plus the conditioner
+    projection, before the gate split). It calls its Dense and conv leaves
+    functionally, so their ``__call__`` entries (``mel_preprocess``,
+    ``projection1``/``projection2``, each block's ``diffusion_projection``,
+    ``dilated_conv``, ``conditioner_projection`` and ``output_projection``,
+    ``skip_projection``, ``output_projection``), which JAX's tree has, are
+    absent. Recording copies nothing and changes no number."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("capture_intermediates is already running")
+    tree: Dict[str, Any] = {}
+    entries, hooks = {}, []
+    for path, sub in model.named_modules():
+        entry = tree
+        for key in filter(None, path.split(".")):
+            entry = entry.setdefault(key, {})
+        entries[id(sub)] = entry
+
+        def record(_m, _args, out, entry=entry):
+            entry["__call__"] = entry.get("__call__", ()) + (out,)
+
+        hooks.append(sub.register_forward_hook(record))
+    _capture = entries
+    try:
+        out = model(*args, **kwargs)
+    finally:
+        _capture = None
+        for h in hooks:
+            h.remove()
+
+    def prune(d):  # modules that recorded nothing have no entry, as in flax
+        kept = {k: prune(v) if isinstance(v, dict) else v for k, v in d.items()}
+        return {k: v for k, v in kept.items() if not isinstance(v, dict) or v}
+
+    return out, prune(tree)
 
 
 class Metrics:

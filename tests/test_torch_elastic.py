@@ -1,12 +1,16 @@
 """The port's fault injection and gang-restart supervisor
 (``training/elastic.py``), held to the JAX package's drills
-(``tests/test_elastic.py``, less its real-gang drill, which needs the
-multi-process training the port does not have yet): the spec grammar and
-scoping, stub-worker gangs that crash, hang or never beat, the restart
-budget, and the port's ``train_diffusion`` resuming from its checkpoint
-after a crash, all with real OS processes."""
+(``tests/test_elastic.py``): the spec grammar and scoping, stub-worker
+gangs that crash, hang or never beat, the restart budget, the port's
+``train_diffusion`` resuming from its checkpoint after a crash, and a real
+gang of two processes joined by ``distributed.ensure_initialized`` (gloo
+over TCP on 127.0.0.1) that a kill breaks and the supervisor restarts; and
+the two-process rendezvous of ``tests/test_multihost.py``. All with real
+OS processes."""
 
 import os
+import socket
+import subprocess
 import sys
 import textwrap
 
@@ -232,3 +236,108 @@ def test_elastic_training_resumes_from_checkpoint(tmp_path):
     # the resumed attempt's log shows the checkpoint restore
     log1 = (tmp_path / "logs" / "worker0_a1.log").read_text()
     assert "resumed from step 4" in log1
+
+
+# ------------------------------------------------ a real distributed gang
+
+# Two processes rendezvous through ensure_initialized (gloo over TCP on
+# 127.0.0.1, from the supervisor's SVC_COORDINATOR), all-reduce once per
+# step and checkpoint a step counter through process 0. Worker 1 is killed
+# at step 5 on attempt 0, leaving worker 0 in the step-5 all-reduce: the
+# supervisor reaps it, relaunches both on a fresh port, and they resume at
+# step 5 and finish in lockstep (JAX's test_elastic_recovers_real_distributed_gang).
+_DIST_WORKER = textwrap.dedent("""
+    import os, sys
+    sys.path.insert(0, {repo!r})
+    import torch
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from svc_inference_pipeline_tpu_torch.parallel import distributed
+    from svc_inference_pipeline_tpu_torch.training.elastic import fault_hook, heartbeat
+
+    assert distributed.ensure_initialized(device="cpu")
+    n = dist.get_world_size()
+    pid = dist.get_rank()
+    ckpt = sys.argv[1]  # process 0's checkpoint (the step counter)
+    start = int(open(ckpt).read()) if os.path.exists(ckpt) else 0
+    for step in range(start, 8):
+        fault_hook(step)
+        heartbeat(step)
+        x = torch.full((2,), float(step + 1))
+        dist.all_reduce(x)  # the cross-process collective
+        assert float(x.sum()) == (step + 1) * n * 2, (float(x.sum()), step)
+        if pid == 0:
+            with open(ckpt, "w") as f:
+                f.write(str(step + 1))
+    print("DIST_ELASTIC_OK", pid, flush=True)
+    dist.destroy_process_group()
+""").format(repo=REPO)
+
+
+def test_elastic_recovers_real_distributed_gang(tmp_path):
+    script = tmp_path / "dist_worker.py"
+    script.write_text(_DIST_WORKER)
+    res = run_elastic(
+        [sys.executable, str(script), str(tmp_path / "ckpt")],
+        num_workers=2, max_restarts=1,
+        extra_env={"SVC_FAULT_INJECT": "die@5:p1:a0"},
+        log_dir=str(tmp_path / "logs"), grace_period=10.0,
+    )
+    assert res.restarts == 1
+    assert 13 in res.attempts[0]["exit_codes"]          # the injected kill
+    assert res.attempts[1]["exit_codes"] == [0, 0]
+    assert (tmp_path / "ckpt").read_text() == "8"
+    for wid in range(2):
+        log1 = (tmp_path / "logs" / f"worker{wid}_a1.log").read_text()
+        assert f"DIST_ELASTIC_OK {wid}" in log1
+
+
+# ------------------------------------------------- the bare rendezvous
+
+# tests/test_multihost.py's workers: two processes join one group through
+# SVC_COORDINATOR and all-reduce across it. JAX's processes hold 2 virtual
+# devices each (4 global); the port has one device a process, so 2.
+_RENDEZVOUS_WORKER = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {repo!r})
+    import torch
+    import torch.distributed as dist
+
+    from svc_inference_pipeline_tpu_torch.parallel import distributed
+
+    assert distributed.is_distributed_env()
+    assert distributed.ensure_initialized(device="cpu")
+    info = distributed.process_info()
+    assert info["process_count"] == 2, info
+    assert info["global_devices"] == 2, info  # one device a process
+    assert info["backend"] == "gloo" and info["device"] == "cpu", info
+    x = torch.arange(3, dtype=torch.float32) + 3 * info["process_index"]
+    dist.all_reduce(x)
+    assert x.tolist() == [3.0, 5.0, 7.0], x
+    print("MULTIHOST_OK", info["process_index"], flush=True)
+    dist.destroy_process_group()
+""").format(repo=REPO)
+
+
+def test_two_process_rendezvous_and_all_reduce():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for pid in range(2):
+        env = dict(os.environ, SVC_COORDINATOR=f"127.0.0.1:{port}", SVC_NUM_PROCESSES="2",
+                   SVC_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen([sys.executable, "-c", _RENDEZVOUS_WORKER], env=env, cwd=REPO,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=50)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"worker {pid} failed:\n{out}"
+        assert f"MULTIHOST_OK {pid}" in out, out

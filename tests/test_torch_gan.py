@@ -171,16 +171,16 @@ def test_losses_match_jax():
 # ------------------------------------------------------------------ steps
 
 
-def _jax_grads(jax_state, batch, side):
+def _jax_grads(jax_state, batch, side, cfg=TINY):
     """Gradients of JAX's discriminator or generator loss (the steps'
     closures, with the package's loss helpers) at ``jax_state``."""
-    vcfg = TINY.vocoder
+    vcfg = cfg.vocoder
     g, mpd, mrd = JaxGenerator(vcfg), jdisc.MultiPeriodDiscriminator(vcfg), jdisc.MultiResolutionDiscriminator(vcfg)
     y, mel = jnp.asarray(batch["wave"]), jnp.asarray(batch["mel"])
 
     def mel_of(w):
-        return jax_mel_spectrogram(w, TINY.n_fft, TINY.n_mels, TINY.fs, TINY.hop_length, TINY.win_length,
-                                   TINY.fmin, TINY.fmax)
+        return jax_mel_spectrogram(w, cfg.n_fft, cfg.n_mels, cfg.fs, cfg.hop_length, cfg.win_length,
+                                   cfg.fmin, cfg.fmax)
 
     def disc_loss(dp):
         y_hat = jax.lax.stop_gradient(g.apply({"params": jax_state.gen_params}, mel))
@@ -317,6 +317,14 @@ def test_training_route_reaches_every_parameter(batch):
     k(mel).square().mean().backward()
     missed = [n for n, p in k.named_parameters() if p.grad is None]
     assert missed and all(n.startswith("resblock_") for n in missed)
+
+
+def test_tp_group_refused_on_the_kernel_route(batch):
+    """Channel TP shards the training route only: a ``tp_group`` given to
+    the kernel route raises before any collective."""
+    mel = torch.from_numpy(batch["mel"])
+    with pytest.raises(ValueError, match="training route"):
+        _generator(True)(mel, tp_group=object())
 
 
 def test_training_route_equals_kernel_route(batch):

@@ -1,5 +1,6 @@
 """The port's observability (``utils/observability.py``) against the JAX
-package's, and the CLI's batch, bucket, PCM16 and profile options on CPU."""
+package's (``capture_intermediates`` on the same bridged denoiser), and the
+CLI's batch, bucket, PCM16 and profile options on CPU."""
 
 import glob
 import json
@@ -132,3 +133,69 @@ def test_cli_pcm16_upload_and_count_mismatch(tmp_path, tiny_config, monkeypatch)
                      "--output", out, "--random-weights", "--device", "cpu"]) == 2
     assert seen == [True]
     assert np.isfinite(audio_io.read_wav(out)[0]).all()
+
+
+# the port calls these leaves functionally: JAX's tree has their __call__ entries, the port's does not
+FUNCTIONAL_LEAVES = ("mel_preprocess", "projection1", "projection2", "diffusion_projection", "dilated_conv",
+                     "conditioner_projection", "output_projection", "skip_projection")
+CAPTURE_TOL = 1e-5  # of max|JAX| per entry
+
+
+def _flat(tree, prefix=()):
+    """{(path..., name): tuple of arrays} of an intermediates tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def test_capture_intermediates_matches_jax():
+    """JAX's test_capture_intermediates_replaces_stats_tuples on the same
+    bridged weights (residual_layer_num=2) and inputs: the port's tree is
+    JAX's without the functional leaves' __call__ entries, every sown value
+    and module output within CAPTURE_TOL of max|JAX|, and the captured
+    output equal, bit for bit, to an uncaptured call's."""
+    import jax
+    import jax.numpy as jnp
+
+    from svc_inference_pipeline_tpu.config import load_config as jax_load_config
+    from svc_inference_pipeline_tpu.models.diffsvc import DiffSVCDenoiser as JaxDenoiser
+    from svc_inference_pipeline_tpu.utils.devices import fast_random_params
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params
+    from svc_inference_pipeline_tpu_torch.config import HParams
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+
+    mcfg = jax_load_config(CONFIG).mapper.replace(residual_layer_num=2)
+    model = JaxDenoiser(mcfg)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 8, 100)).astype(np.float32)
+    cond = rng.standard_normal((1, 8, 384)).astype(np.float32)
+    t = np.array([[37]], np.int32)
+    params = fast_random_params(lambda: model.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(cond),
+                                                   jnp.asarray(t)))["params"]
+    want_out, want = jax_obs.capture_intermediates(model, {"params": params}, jnp.asarray(x), jnp.asarray(cond),
+                                                   jnp.asarray(t))
+    den = load_jax_params(DiffSVCDenoiser(HParams(**mcfg.to_dict())), jax.device_get(params))
+    args = [torch.from_numpy(v) for v in (x, cond, t)]
+    with torch.no_grad():
+        out, got = observability.capture_intermediates(den, *args)
+        plain = den(*args)
+    assert torch.equal(out, plain)
+    want, got = _flat(jax.device_get(want)), _flat(got)
+    assert set(got) == {k for k in want if not (k[-1] == "__call__" and len(k) > 1 and k[-2] in FUNCTIONAL_LEAVES)}
+    for sown in (("diffusion_embedding", "step_embedding"), ("diffusion_embedding", "step_encoder_output"),
+                 ("residual_0", "noise_step_condition"), ("residual_1", "noise_step_condition")):
+        assert sown in got
+    for key, values in got.items():
+        assert isinstance(values, tuple) and len(values) == len(want[key]) == 1, key
+        for g, w in zip(jax.tree_util.tree_leaves(values), jax.tree_util.tree_leaves(want[key])):
+            w = np.asarray(w)
+            assert g.shape == w.shape, key
+            assert np.abs(g.numpy() - w).max() <= CAPTURE_TOL * np.abs(w).max(), key
+    np.testing.assert_array_equal(got[("__call__",)][0].numpy(), out.numpy())
+    with torch.no_grad():  # nothing is recorded outside a capture
+        observability.sow(den.residual_0, "noise_step_condition", plain)
+        assert torch.equal(den(*args), plain)

@@ -279,6 +279,85 @@ def case_train_step(rank, world, cfg, data, jax_state, batch, t, noise):
             "local_rows": state.denoiser.block(0).dilated_conv.weight.shape[0]}
 
 
+def case_gan_steps(rank, world, cfg, data, jax_state, batch):
+    """One discriminator step and, from the same JAX state, one generator
+    step on a (data x model) mesh: losses, and the gathered gradients,
+    parameters and AdamW moments of the side that stepped."""
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import train_state_from_jax
+    from svc_inference_pipeline_tpu_torch.parallel.mesh import axis_group
+    from svc_inference_pipeline_tpu_torch.parallel.sharding import unshard
+    from svc_inference_pipeline_tpu_torch.training import gan
+
+    mesh = _mesh(world, data=data)
+    group = axis_group(mesh, "model")
+    out = {}
+    for side in ("disc", "gen"):
+        state, gopt, dopt = gan.init_gan_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        train_state_from_jax(jax_state, state)
+        disc_step, gen_step = gan.make_gan_train_steps(cfg, gopt, dopt, mesh=mesh)
+        state = disc_step.shard_state(state)
+        if side == "disc":
+            state, loss = disc_step(state, batch)
+            res = {"loss": float(loss), "aux": {}, "step": state.step}
+            for key, m in (("mpd", state.mpd), ("mrd", state.mrd)):
+                moments = [dopt.state[p] for p in m.parameters()]
+                res[key] = {"grads": {n: _np(p.grad) for n, p in m.named_parameters()},
+                            "params": {n: _np(p) for n, p in m.named_parameters()},
+                            **{k: {n: _np(s[k]) for (n, _), s in zip(m.named_parameters(), moments)}
+                               for k in ("exp_avg", "exp_avg_sq")}}
+        else:
+            state, loss, aux = gen_step(state, batch)
+            specs = gan.generator_specs(state)
+            whole = gan.gathered_generator(state, mesh)
+            res = {"loss": float(loss), "aux": {k: float(v) for k, v in aux.items()}, "step": state.step,
+                   "local_rows": state.generator.conv_pre.conv.weight.shape[0],
+                   "generator": {"grads": {n: _np(p.grad if specs[n] is None or group is None
+                                                  else unshard(p.grad, specs[n], group))
+                                           for n, p in state.generator.named_parameters()},
+                                 **{k: {n: _np(v) for n, v in tree.items()} for k, tree in whole.items()}}}
+        out[side] = res
+    return out
+
+
+def case_gan_uneven(rank, world, cfg):
+    """``shard_state`` at a model axis that a stage's width does not divide:
+    the ValueError's message."""
+    from svc_inference_pipeline_tpu_torch.training import gan
+
+    state, gopt, dopt = gan.init_gan_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    disc_step, _ = gan.make_gan_train_steps(cfg, gopt, dopt, mesh=_mesh(world))
+    try:
+        disc_step.shard_state(state)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def case_pp_grads(rank, world, cfg, params, x, cond, t, num_steps, n_micro):
+    """The gradients of mean(eps^2) through ``pp_denoise_fn`` over a pipe
+    axis of ``world`` stages, summed over the pipe group, and the leaves
+    this rank's own backward reached."""
+    import torch.distributed as dist
+
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_params
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+    from svc_inference_pipeline_tpu_torch.parallel.mesh import PIPE_AXIS, mesh_over
+    from svc_inference_pipeline_tpu_torch.parallel.pp import pp_denoise_fn
+
+    mesh = mesh_over(range(world), (world,), (PIPE_AXIS,))
+    den = load_jax_params(DiffSVCDenoiser(cfg, torch.float32), params)
+    eps = pp_denoise_fn(den, torch.from_numpy(cond), torch.from_numpy(t), torch.from_numpy(x), mesh, cfg,
+                        num_steps, n_micro=n_micro)
+    (eps ** 2).mean().backward()
+    names = [n for n, _ in den.named_parameters()]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in den.parameters()]
+    own = [n for n, g in zip(names, grads) if bool(g.abs().max() > 0)]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.get_group(PIPE_AXIS))
+    return {"grads": {n: v.view(g.shape).numpy() for n, g, v in zip(names, grads, flat.split([g.numel() for g in grads]))},
+            "own": own}
+
+
 def _batches(n, b=4, t=32, content_dim=16):
     rng = np.random.default_rng(0)
     return [{"mel": rng.standard_normal((b, t, 100)).astype(np.float32) * 0.1,
@@ -678,6 +757,156 @@ def pp_reference(mcfg, args, n_stages: int) -> np.ndarray:
     mesh = Mesh(np.asarray(jax.devices()[:n_stages]), axis_names=(JAX_PIPE,))
     return np.asarray(jax_pp(jax.tree_util.tree_map(jnp.asarray, args["params"]), jnp.asarray(args["cond"]),
                              jnp.asarray(args["t"]), jnp.asarray(args["x"]), mesh, mcfg, PP_STEPS, n_micro=2))
+
+
+def pp_grad_reference(mcfg, args, n_stages: int) -> dict:
+    """The gradients of mean(eps^2), in the port's layout: JAX's ``jax.grad``
+    through its ``pp_denoise_fn`` over ``n_stages`` virtual devices (op by
+    op, as ``test_pp_gradients_flow`` takes it: jitted on the CPU it lands
+    6.7% from the op-by-op gradients), and the port's own autograd through
+    the denoiser's forward on one device, microbatch by microbatch."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from svc_inference_pipeline_tpu.parallel.pp import PIPE_AXIS as JAX_PIPE
+    from svc_inference_pipeline_tpu.parallel.pp import pp_denoise_fn as jax_pp
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import jax_tree_to_torch, load_jax_params
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+
+    mesh = Mesh(np.asarray(jax.devices()[:n_stages]), axis_names=(JAX_PIPE,))
+    cond, t, x = (jnp.asarray(args[k]) for k in ("cond", "t", "x"))
+
+    def loss(p):
+        return jnp.mean(jnp.square(jax_pp(p, cond, t, x, mesh, mcfg, PP_STEPS, n_micro=args["n_micro"])))
+
+    grads = jax.device_get(jax.grad(loss)(jax.tree_util.tree_map(jnp.asarray, args["params"])))
+    den = load_jax_params(DiffSVCDenoiser(args["cfg"], torch.float32), args["params"])
+    xs, cs, ts = (torch.from_numpy(args[k]) for k in ("x", "cond", "t"))
+    bm = xs.shape[0] // args["n_micro"]
+    eps = torch.cat([den(xs[i:i + bm], cs[i:i + bm], ts[i:i + bm, None]) for i in range(0, xs.shape[0], bm)])
+    (eps ** 2).mean().backward()
+    return {"jax": {n: v.numpy() for n, v in jax_tree_to_torch(den, grads).items()},
+            "single": {n: p.grad.numpy() for n, p in den.named_parameters()}}
+
+
+PP_GRAD_JAX_RTOL, PP_GRAD_SINGLE_RTOL = 1e-3, 1e-5  # relative L2 per leaf
+
+
+def check_pp_grads(results: list, ref: dict, world: int) -> None:
+    """Every rank's summed gradients against JAX's and the single-device
+    ones, each residual leaf finite and non-zero, and each rank's own
+    backward reaching exactly its stage's residual layers."""
+    per = PP_L // world
+    for r in range(world):
+        got = case_result(results, "pp_grads", r)
+        for name, want in ref["jax"].items():
+            g = got["grads"][name]
+            for other, tol in ((want, PP_GRAD_JAX_RTOL), (ref["single"][name], PP_GRAD_SINGLE_RTOL)):
+                rel = np.linalg.norm(g - other) / max(np.linalg.norm(other), 1e-30)
+                assert rel <= tol, (r, name, rel, tol)
+            if name.startswith("residual_"):
+                assert np.isfinite(g).all() and np.abs(g).max() > 0, name
+        mine = {n.split(".")[0] for n in got["own"] if n.startswith("residual_")}
+        assert mine == {f"residual_{i}" for i in range(r * per, (r + 1) * per)}, (r, sorted(mine))
+
+
+GAN_RESBLOCK2 = dict(resblock="2", resblock_dilation_sizes=[[1, 3]])
+
+
+def gan_setup(vocoder=None) -> dict:
+    """``tests/test_torch_gan.py``'s TINY config (its vocoder updated by
+    ``vocoder``), JAX's state from its own init and that file's batch; the
+    state goes to the ranks in plain containers (they import no JAX, flax
+    or optax)."""
+    import jax
+
+    from svc_inference_pipeline_tpu.training import gan as jgan
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import _adam_state
+    from test_torch_gan import T_FRAMES, TINY
+
+    jcfg = TINY.replace(vocoder=TINY.vocoder.replace(**(vocoder or {})))
+    state0 = jax.device_get(jax.jit(lambda k: jgan.init_gan_train_state(jcfg, k)[0])(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    batch = {"mel": rng.standard_normal((2, T_FRAMES, 20)).astype(np.float32),
+             "wave": (0.1 * rng.standard_normal((2, T_FRAMES * jcfg.hop_length))).astype(np.float32)}
+
+    def plain(opt_state):
+        adam = _adam_state(opt_state)
+        return (SimpleNamespace(count=adam.count, mu=adam.mu, nu=adam.nu),)
+
+    jax_state = SimpleNamespace(step=state0.step, gen_params=state0.gen_params, mpd_params=state0.mpd_params,
+                                mrd_params=state0.mrd_params, gen_opt=plain(state0.gen_opt),
+                                disc_opt=plain(state0.disc_opt))
+    return {"cfg": HParams(**jcfg.to_dict()), "jcfg": jcfg, "state0": state0, "jax_state": jax_state, "batch": batch}
+
+
+def gan_reference(setup: dict) -> dict:
+    """JAX's discriminator and generator steps from :func:`gan_setup`'s
+    state (jitted, as ``tests/test_torch_gan.py`` runs them) in the port's
+    names and layouts: losses, gradients, parameters and Adam moments after
+    each step."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from svc_inference_pipeline_tpu.training import gan as jgan
+    from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import _adam_state, jax_tree_to_torch
+    from svc_inference_pipeline_tpu_torch.training import gan
+    from test_torch_gan import _jax_grads
+
+    cfg, jcfg, state0, batch = setup["cfg"], setup["jcfg"], setup["state0"], setup["batch"]
+    opt = optax.adamw(2e-4, b1=0.8, b2=0.99)
+    disc_step, gen_step = jgan.make_gan_train_steps(jcfg, opt, opt)
+    arrays = {k: jnp.asarray(v) for k, v in batch.items()}
+    d_new, d_loss = jax.device_get(disc_step(state0, arrays))
+    g_new, g_loss, g_aux = jax.device_get(gen_step(state0, arrays))
+    port, _, _ = gan.init_gan_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def conv(module, grads, params, adam, key=None):
+        mu, nu = (adam.mu, adam.nu) if key is None else (adam.mu[key], adam.nu[key])
+        return {k: {n: v.numpy() for n, v in jax_tree_to_torch(module, tree).items()}
+                for k, tree in (("grads", grads), ("params", params), ("exp_avg", mu), ("exp_avg_sq", nu))}
+
+    d_grads = _jax_grads(state0, batch, "disc", jcfg)
+    d_adam = _adam_state(d_new.disc_opt)
+    ref = {"disc": {"loss": float(d_loss), "aux": {}, "step": 0,
+                    "mpd": conv(port.mpd, d_grads["mpd"], d_new.mpd_params, d_adam, "mpd"),
+                    "mrd": conv(port.mrd, d_grads["mrd"], d_new.mrd_params, d_adam, "mrd")},
+           "gen": {"loss": float(g_loss), "aux": {k: float(v) for k, v in g_aux.items()}, "step": 1,
+                   "generator": conv(port.generator, _jax_grads(state0, batch, "gen", jcfg), g_new.gen_params,
+                                     _adam_state(g_new.gen_opt))}}
+    return ref
+
+
+def check_gan_steps(got: dict, ref: dict) -> None:
+    """A mesh's GAN steps against JAX's with ``tests/test_torch_gan.py``'s
+    tolerances: losses, gradients per leaf, parameters after AdamW (looser
+    where |g_jax| < SMALL_GRAD), and the moments, exp_avg (0.2 g) within
+    GRAD_RTOL and exp_avg_sq (0.01 g^2, whose relative error is twice g's)
+    within 2 GRAD_RTOL."""
+    from test_torch_gan import GRAD_RTOL, LOSS_RTOL, PARAM_ATOL, SMALL_GRAD, SMALL_GRAD_ATOL
+
+    def rel(a, b):
+        return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+    for side, modules in (("disc", ("mpd", "mrd")), ("gen", ("generator",))):
+        g, r = got[side], ref[side]
+        np.testing.assert_allclose(g["loss"], r["loss"], rtol=LOSS_RTOL)
+        for k, v in r["aux"].items():
+            np.testing.assert_allclose(g["aux"][k], v, rtol=LOSS_RTOL)
+        assert g["step"] == r["step"]
+        for key in modules:
+            want, mine = r[key], g[key]
+            assert set(mine["params"]) == set(want["params"])
+            for name, w in want["grads"].items():
+                assert rel(mine["grads"][name], w) <= GRAD_RTOL, (side, key, name, rel(mine["grads"][name], w))
+                small = np.abs(w) < SMALL_GRAD
+                diff = np.abs(mine["params"][name] - want["params"][name])
+                assert diff[~small].max(initial=0.0) <= PARAM_ATOL, (side, key, name, diff[~small].max())
+                assert diff[small].max(initial=0.0) <= SMALL_GRAD_ATOL, (side, key, name)
+                assert rel(mine["exp_avg"][name], want["exp_avg"][name]) <= GRAD_RTOL, (side, key, name)
+                assert rel(mine["exp_avg_sq"][name], want["exp_avg_sq"][name]) <= 2 * GRAD_RTOL, (side, key, name)
 
 
 TRAIN_B = 4

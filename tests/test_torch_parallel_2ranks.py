@@ -8,16 +8,24 @@ test. Tolerances: TP modules f32 within 5e-4 (the denoiser, PARITY.md
 §2.7) and rtol 2e-4 (Whisper), SP rtol 2e-4 / atol 2e-5 and PP atol 1e-5
 (JAX's own tests), DP bit for bit against each rank's slice on one device,
 the train step on the model axis with ``tests/test_torch_training.py``'s
-tolerances against the port's step on one device."""
+tolerances against the port's step on one device, the GAN steps at data 2
+and at model 2 against JAX's with ``tests/test_torch_gan.py``'s, and the
+GPipe backward at 2 stages against JAX's ``jax.grad`` (1e-3) and the
+port's single-device autograd (1e-5), relative L2 per leaf."""
 
 import numpy as np
 import pytest
 
 from test_torch_parallel import (
     case_result,
+    check_gan_steps,
+    check_pp_grads,
     check_train_step,
+    gan_reference,
+    gan_setup,
     module_refs,
     module_setup,
+    pp_grad_reference,
     pp_reference,
     pp_setup,
     single_device_step,
@@ -35,6 +43,8 @@ def run(tmp_path_factory):
     mods = module_setup()
     pp_cfg, pp_args = pp_setup()
     train = train_setup()
+    gan = gan_setup()
+    gan_args = dict(cfg=gan["cfg"], jax_state=gan["jax_state"], batch=gan["batch"])
     cases = {
         "tp_encoder": ("case_tp_encoder", mods["enc"]),
         "tp_denoiser": ("case_tp_denoiser", mods["den"]),
@@ -46,12 +56,17 @@ def run(tmp_path_factory):
         "routes": ("case_pipeline_routes", {}),
         "train": ("case_train_step", dict(cfg=train["cfg"], data=1, jax_state=train["state0"],
                                           batch=train["batch"], t=train["t"], noise=train["noise"])),
+        "gan_data": ("case_gan_steps", dict(data=WORLD, **gan_args)),
+        "gan_model": ("case_gan_steps", dict(data=1, **gan_args)),
+        "pp_grads": ("case_pp_grads", pp_args),
     }
     ranks = spawn_in_thread(WORLD, cases, tmp_path_factory.mktemp("ranks"))
     refs = module_refs(mods)
     refs["sp"] = sp_reference(mods, WORLD)
     refs["pp"] = pp_reference(pp_cfg, pp_args, WORLD)
     refs["train"] = single_device_step(train)
+    refs["gan"] = gan_reference(gan)
+    refs["pp_grads"] = pp_grad_reference(pp_cfg, pp_args, WORLD)
     return ranks.result(), refs
 
 
@@ -151,3 +166,23 @@ def test_train_step_on_model_axis_matches_one_device(run):
         got = case_result(results, "train", r)
         assert got["local_rows"] == 2 * 64 // WORLD
         check_train_step(got, refs["train"])
+
+
+@pytest.mark.parametrize("case", ["gan_data", "gan_model"])
+def test_gan_steps_on_a_mesh_match_jax(run, case):
+    """One discriminator step and one generator step from JAX's TINY state
+    at data 2 (each rank one clip of the batch) and at model 2 (the
+    generator's channels split), every rank against JAX's steps."""
+    results, refs = run
+    for r in range(WORLD):
+        got = case_result(results, case, r)
+        assert got["gen"]["local_rows"] == 32 // (WORLD if case == "gan_model" else 1)
+        check_gan_steps(got, refs["gan"])
+
+
+def test_pp_gradients_match_jax(run):
+    """jax.grad through the 2-stage GPipe (the loss of JAX's
+    test_pp_gradients_flow): every leaf, the residual layers finite and
+    non-zero, each rank's backward on its own stage's layers."""
+    results, refs = run
+    check_pp_grads(results, refs["pp_grads"], WORLD)
