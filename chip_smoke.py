@@ -211,6 +211,7 @@ no CUDA device or any check fails.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -2071,12 +2072,26 @@ def diffusion_training_path(cfg, counters, paths, device, tmp: str) -> dict:
     runs, step_s, losses = {}, {}, {}
     ckpt = os.path.join(tmp, "ckpt")
 
+    class StepLog(Metrics):
+        """Metrics that also keep each step's observations, in order."""
+
+        def __init__(self):
+            super().__init__()
+            self.values = collections.defaultdict(list)
+
+        def observe(self, key, value):
+            super().observe(key, value)
+            self.values[key].append(float(value))
+
     def train(name, data, num_steps, checkpoint_dir=None):
-        Metrics.default().reset()
-        runs[name] = train_diffusion(cfg, data, num_steps, checkpoint_dir=checkpoint_dir,
-                                     checkpoint_every=RESUME_AT, device=device)
-        obs = Metrics.default().observations
-        step_s[name], losses[name] = list(obs["train/step_s"]), list(obs["train/loss"])
+        default, Metrics._default = Metrics._default, StepLog()
+        try:
+            runs[name] = train_diffusion(cfg, data, num_steps, checkpoint_dir=checkpoint_dir,
+                                         checkpoint_every=RESUME_AT, device=device)
+            obs = Metrics._default.values
+        finally:
+            Metrics._default = default
+        step_s[name], losses[name] = obs["train/step_s"], obs["train/loss"]
 
     def run():
         torch.cuda.reset_peak_memory_stats()

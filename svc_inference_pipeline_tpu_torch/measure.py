@@ -1,7 +1,7 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
     python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch | --decode | --train |
-                                                       --k6-ties]
+                                                       --k6-ties | --spans]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
@@ -16,7 +16,9 @@ the 4 s clip (:func:`batch_times`), ``--decode`` the Whisper text
 decoder's steps at medium width (:func:`decode_times`), ``--train`` the
 training steps at full width (:func:`train_times`), ``--k6-ties`` where
 K6 int8-w1 parts from its plain version on a card test's operands
-(:func:`k6_ties`). Every line names the
+(:func:`k6_ties`), ``--spans`` the cost of a span and a warm 10 s
+conversion's spans and device idle time by span (:func:`span_costs`).
+Every line names the
 card (``nvidia-smi`` name and power limit). Needs a CUDA device.
 """
 
@@ -573,6 +575,53 @@ def k6_ties(gpu: str) -> None:
                   flush=True)
 
 
+def span_costs(pipe, gpu: str, spans_timed: int = 100_000) -> None:
+    """The host cost of one span with no profiler running (the median of
+    five loops of ``spans_timed`` empty spans), the spans of one warm 10 s
+    DDPM conversion and their cost's share of it, then the same conversion
+    under ``observability.profile`` (the CLI's ``--profile``): its device
+    idle time by span. One JSON line."""
+    import collections
+    import glob
+    import tempfile
+
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.utils import observability as obs
+
+    costs = []
+    for _ in range(5):
+        t = time.perf_counter_ns()
+        for _ in range(spans_timed):
+            with obs.trace("measure.span"):
+                pass
+        costs.append((time.perf_counter_ns() - t) / spans_timed)
+    wav = synth_clip(pipe.cfg.fs, 10.0)
+
+    def convert():
+        pipe.convert(wav, "svcc_CDF1", generator=torch.Generator(device=pipe.device).manual_seed(0),
+                     sampler="ddpm")
+
+    convert()
+    convert()
+    t0 = time.perf_counter_ns()
+    convert()
+    names = collections.Counter(s.name for s in obs.spans(t0))
+    timings = dict(pipe.timings)
+    with tempfile.TemporaryDirectory() as d:
+        with obs.profile(d):
+            convert()
+        (path,) = glob.glob(os.path.join(d, "idle_*.json"))
+        with open(path) as f:
+            idle = json.load(f)
+    span_ns = statistics.median(costs)
+    n = sum(names.values())
+    print(json.dumps({"card": gpu, "span_ns": span_ns, "span_ns_loops": costs, "spans_per_conversion": n,
+                      "spans_by_name": dict(names), "timings": timings,
+                      "span_share_of_conversion": n * span_ns / 1e9 / timings["total_s"],
+                      "profiled_timings": dict(pipe.timings), "idle_by_span": idle}), flush=True)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
@@ -582,6 +631,7 @@ def main(argv=None) -> int:
     p.add_argument("--decode", action="store_true")
     p.add_argument("--train", action="store_true")
     p.add_argument("--k6-ties", action="store_true")
+    p.add_argument("--spans", action="store_true")
     args = p.parse_args(argv)
 
     import torch
@@ -616,6 +666,9 @@ def main(argv=None) -> int:
     pipe = SVCPipeline.from_config(cfg, random_weights=True, whisper_size="medium", seed=0)
     if args.batch:
         batch_times(pipe, gpu)
+        return 0
+    if args.spans:
+        span_costs(pipe, gpu)
         return 0
     for seconds in CLIP_SECONDS:
         wav = synth_clip(cfg.fs, seconds)

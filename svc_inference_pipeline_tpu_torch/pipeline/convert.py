@@ -28,7 +28,13 @@ the last K DDPM steps on the unquantised stack.
 
 ``self.timings`` holds the wall seconds of the last conversion's phases
 (front-end, sampling ``ddpm_s`` whichever sampler ran it, vocoder, total),
-each closed by a device synchronisation.
+each closed by a device synchronisation, and of its host F0 (``f0_s``, the
+clips' F0 summed) and the wait on it (``f0_wait_s``), with the clips' true
+and padded frames (``frames_true``, ``frames_padded``). They are read from
+the call's spans (``utils/observability.py``): ``pipeline.call``, and in it
+``pipeline.load``, ``frontend.device``, ``frontend.f0_wait``,
+``frontend.upload``, ``sampling``, ``vocoder`` and ``pipeline.download``,
+with ``frontend.f0`` a clip on the F0 thread.
 """
 
 from __future__ import annotations
@@ -70,7 +76,7 @@ from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 from svc_inference_pipeline_tpu_torch.utils.artifacts import load_mel_min_max, pitch_shift
 from svc_inference_pipeline_tpu_torch.utils.audio_io import load_audio, save_audio
 from svc_inference_pipeline_tpu_torch.utils.devices import resolve_device
-from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
+from svc_inference_pipeline_tpu_torch.utils.observability import Metrics, current_span, get_logger, trace
 from svc_inference_pipeline_tpu_torch.utils.registry import get_singer_id
 
 DEFAULT_BUCKET = 64  # frame-count padding granularity
@@ -376,27 +382,33 @@ class SVCPipeline:
         singer = get_singer_id(cfg, singer_name)
         n_frames, n_windows = self._frame_counts(len(audio))
         padded = pad_to_bucket(n_frames, self.bucket)
+        caller = current_span()
 
         def f0_job():
-            f0, _ = get_f0_features(audio, n_frames, cfg)
-            f0 = f0 * pitch_factor if pitch_factor is not None else pitch_shift(f0, cfg)
-            return np.pad(f0[:n_frames], (0, padded - n_frames)).astype(np.float32)
+            with trace("frontend.f0", parent=caller, samples=len(audio), frames=n_frames) as span:
+                f0, _ = get_f0_features(audio, n_frames, cfg)
+                f0 = f0 * pitch_factor if pitch_factor is not None else pitch_shift(f0, cfg)
+            return np.pad(f0[:n_frames], (0, padded - n_frames)).astype(np.float32), span.seconds
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             f0_future = pool.submit(f0_job)
-            if upload_pcm16 and audio.dtype == np.float32:
-                dev_audio = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
-            else:
-                dev_audio = audio
-            energy, content = self._frontend_device(torch.as_tensor(dev_audio, device=self.device),
-                                                    n_windows, n_frames, padded)
-            f0 = f0_future.result()
-        batch = {
-            "content_whisper": content,
-            "melody": torch.as_tensor(f0, device=self.device)[None],
-            "loudness": energy,
-            "singer": torch.as_tensor(singer[None].astype(np.int64), device=self.device),
-        }
+            with trace("frontend.device"):
+                if upload_pcm16 and audio.dtype == np.float32:
+                    dev_audio = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+                else:
+                    dev_audio = audio
+                energy, content = self._frontend_device(torch.as_tensor(dev_audio, device=self.device),
+                                                        n_windows, n_frames, padded)
+            with trace("frontend.f0_wait") as wait:
+                f0, f0_s = f0_future.result()
+        with trace("frontend.upload"):
+            batch = {
+                "content_whisper": content,
+                "melody": torch.as_tensor(f0, device=self.device)[None],
+                "loudness": energy,
+                "singer": torch.as_tensor(singer[None].astype(np.int64), device=self.device),
+            }
+        self.timings.update(f0_s=f0_s, f0_wait_s=wait.seconds)
         return batch, n_frames
 
     def extract_features_batch(self, wavs: Sequence[Union[str, np.ndarray]],
@@ -415,29 +427,36 @@ class SVCPipeline:
         padded = pad_to_bucket(max(frame_counts), self.bucket)
         # enough windows that the remap's source span covers `padded`
         n_windows = max(max(window_counts), -(-(padded * 8 // 15 + 1) // 1500))
-        block = np.zeros((len(audios), max(len(a) for a in audios)), np.float32)
-        for i, a in enumerate(audios):
-            block[i, : len(a)] = a
+        caller = current_span()
 
         def f0_job():
-            f0s = np.zeros((len(audios), padded), np.float32)
+            f0s, f0_s = np.zeros((len(audios), padded), np.float32), 0.0
             for i, (a, n) in enumerate(zip(audios, frame_counts)):
-                f0, _ = get_f0_features(a, n, cfg)
-                f0s[i, :n] = pitch_shift(f0, cfg)[:n]
-            return f0s
+                with trace("frontend.f0", parent=caller, samples=len(a), frames=n) as span:
+                    f0, _ = get_f0_features(a, n, cfg)
+                    f0s[i, :n] = pitch_shift(f0, cfg)[:n]
+                f0_s += span.seconds
+            return f0s, f0_s
 
         with ThreadPoolExecutor(max_workers=1) as pool:
             f0_future = pool.submit(f0_job)
-            energy, content = self._frontend_device_batch(
-                torch.as_tensor(block, device=self.device),
-                torch.tensor(frame_counts, device=self.device), n_windows, padded)
-            f0s = f0_future.result()
-        batch = {
-            "content_whisper": content,
-            "melody": torch.as_tensor(f0s, device=self.device),
-            "loudness": energy,
-            "singer": torch.as_tensor(singer_ids, device=self.device),
-        }
+            with trace("frontend.device"):
+                block = np.zeros((len(audios), max(len(a) for a in audios)), np.float32)
+                for i, a in enumerate(audios):
+                    block[i, : len(a)] = a
+                energy, content = self._frontend_device_batch(
+                    torch.as_tensor(block, device=self.device),
+                    torch.tensor(frame_counts, device=self.device), n_windows, padded)
+            with trace("frontend.f0_wait") as wait:
+                f0s, f0_s = f0_future.result()
+        with trace("frontend.upload"):
+            batch = {
+                "content_whisper": content,
+                "melody": torch.as_tensor(f0s, device=self.device),
+                "loudness": energy,
+                "singer": torch.as_tensor(singer_ids, device=self.device),
+            }
+        self.timings.update(f0_s=f0_s, f0_wait_s=wait.seconds)
         return batch, frame_counts
 
     # ------------------------------------------------------------------
@@ -575,26 +594,26 @@ class SVCPipeline:
         """This rank's conversion of a padded feature batch (see
         :meth:`_convert_core`)."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
-        t0 = time.perf_counter()
-        cond = self.cond_encoder(batch, self._tp_group)
-        shape = (cond.shape[0], n_frames, self.cfg.mapper.n_mel)
-        denoise_fn = self._denoise_fn(cond, composed)
-        mel_norm = self._run_sampler(denoise_fn, cond, shape, sampler, speedup, generator, noise)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        lo, hi = self._mel_min, self._mel_max
-        mel = (mel_norm + 1.0) / 2.0 * (hi - lo + 1e-12) + lo
-        self.last_mel = mel
-        if self._voc_chunks > 1:
-            # TP: overlap-save time chunks over the model axis, K2/K3 on every rank
-            wave = chunked_vocoder_apply(self.vocoder, mel, self._voc_chunks, self._voc_halo,
-                                         self.cfg.hop_length, self.mesh, self._model_axis)
-        else:
-            wave = self.vocoder(mel)
-        hop = self.cfg.hop_length
-        wave = vocoder_output_finalize(wave[..., : n_frames * hop], n_true, hop, pcm16=pcm16)
-        _sync(self.device)
-        self.timings.update(ddpm_s=t1 - t0, vocoder_s=time.perf_counter() - t1)
+        with trace("sampling") as sampling:
+            cond = self.cond_encoder(batch, self._tp_group)
+            shape = (cond.shape[0], n_frames, self.cfg.mapper.n_mel)
+            denoise_fn = self._denoise_fn(cond, composed)
+            mel_norm = self._run_sampler(denoise_fn, cond, shape, sampler, speedup, generator, noise)
+            _sync(self.device)
+        with trace("vocoder") as vocoding:
+            lo, hi = self._mel_min, self._mel_max
+            mel = (mel_norm + 1.0) / 2.0 * (hi - lo + 1e-12) + lo
+            self.last_mel = mel
+            if self._voc_chunks > 1:
+                # TP: overlap-save time chunks over the model axis, K2/K3 on every rank
+                wave = chunked_vocoder_apply(self.vocoder, mel, self._voc_chunks, self._voc_halo,
+                                             self.cfg.hop_length, self.mesh, self._model_axis)
+            else:
+                wave = self.vocoder(mel)
+            hop = self.cfg.hop_length
+            wave = vocoder_output_finalize(wave[..., : n_frames * hop], n_true, hop, pcm16=pcm16)
+            _sync(self.device)
+        self.timings.update(ddpm_s=sampling.seconds, vocoder_s=vocoding.seconds)
         return wave
 
     def convert(self, wav: Union[str, np.ndarray], singer_name: str,
@@ -607,15 +626,18 @@ class SVCPipeline:
         ``upload_pcm16`` and ``pitch_factor`` as in :meth:`extract_features`;
         ``output_path`` also writes the WAV."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
-        t0 = time.perf_counter()
-        batch, n_frames = self.extract_features(wav, singer_name, upload_pcm16, pitch_factor)
-        _sync(self.device)
-        self.timings = {"frontend_s": time.perf_counter() - t0}
-        padded = batch["melody"].shape[1]
-        n_true = torch.tensor([n_frames], device=self.device)
-        wave = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup, pcm16=pcm16)
-        audio = wave[0, : n_frames * self.cfg.hop_length].cpu().numpy().copy()
-        self.timings["total_s"] = time.perf_counter() - t0
+        with trace("pipeline.call", clips=1) as call:
+            self.timings = {}
+            (audio,) = self._load_clips(call, [wav])
+            batch, n_frames = self.extract_features(audio, singer_name, upload_pcm16, pitch_factor)
+            padded = batch["melody"].shape[1]
+            self._frontend_done(call, n_frames, padded)
+            n_true = torch.tensor([n_frames], device=self.device)
+            wave = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup,
+                                      pcm16=pcm16)
+            with trace("pipeline.download"):
+                audio = wave[0, : n_frames * self.cfg.hop_length].cpu().numpy().copy()
+                self._total_done(call)
         if output_path is not None:
             save_audio(output_path, audio, self.cfg.fs, turn_up=not pcm16)
         return audio
@@ -628,26 +650,48 @@ class SVCPipeline:
         each of its own true length. ``sampler``/``speedup`` as in
         :meth:`convert`."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
-        t0 = time.perf_counter()
-        split = self._data_split(len(wavs))
-        if split:  # this data rank converts its slice, as one device would
-            mine = np.array_split(np.arange(len(wavs)), self._dp_size)[axis_rank(self.mesh, self._data_axis)]
-            wavs, singer_names = [wavs[i] for i in mine], [singer_names[i] for i in mine]
-        batch, frame_counts = self.extract_features_batch(wavs, singer_names)
+        with trace("pipeline.call", clips=len(wavs)) as call:
+            self.timings = {}
+            split = self._data_split(len(wavs))
+            if split:  # this data rank converts its slice, as one device would
+                mine = np.array_split(np.arange(len(wavs)), self._dp_size)[axis_rank(self.mesh, self._data_axis)]
+                wavs, singer_names = [wavs[i] for i in mine], [singer_names[i] for i in mine]
+            batch, frame_counts = self.extract_features_batch(self._load_clips(call, wavs), singer_names)
+            padded = batch["melody"].shape[1]
+            self._frontend_done(call, sum(frame_counts), len(frame_counts) * padded)
+            n_true = torch.tensor(frame_counts, device=self.device)
+            if split:
+                waves = self._core(batch, n_true, padded, self.rank_generator(generator), None, sampler, speedup,
+                                   False)
+                waves, n_true = self._gather_waves(waves, n_true)
+                frame_counts = n_true.tolist()
+            else:
+                waves = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup)
+            with trace("pipeline.download"):
+                waves = waves.cpu().numpy()
+                self._total_done(call)
+                return [waves[i, : n * self.cfg.hop_length].copy() for i, n in enumerate(frame_counts)]
+
+    def _load_clips(self, call, wavs) -> List[np.ndarray]:
+        """The call's clips as float waveforms at cfg.fs (``pipeline.load``);
+        their samples go on the call's span."""
+        with trace("pipeline.load", clips=len(wavs)):
+            audios = [self._load(w) for w in wavs]
+        call.attrs["samples"] = sum(len(a) for a in audios)
+        return audios
+
+    def _frontend_done(self, call, frames_true: int, frames_padded: int) -> None:
+        """Wait for the front-end; ``frontend_s`` runs from the call's entry
+        to here. Counts the frames the core will compute, true and padded."""
         _sync(self.device)
-        self.timings = {"frontend_s": time.perf_counter() - t0}
-        n_true = torch.tensor(frame_counts, device=self.device)
-        if split:
-            waves = self._core(batch, n_true, batch["melody"].shape[1], self.rank_generator(generator), None,
-                               sampler, speedup, False)
-            waves, n_true = self._gather_waves(waves, n_true)
-            frame_counts = n_true.tolist()
-        else:
-            waves = self._convert_core(batch, n_true, batch["melody"].shape[1], generator, sampler=sampler,
-                                       speedup=speedup)
-        waves = waves.cpu().numpy()
-        self.timings["total_s"] = time.perf_counter() - t0
-        return [waves[i, : n * self.cfg.hop_length].copy() for i, n in enumerate(frame_counts)]
+        self.timings.update(frontend_s=(time.perf_counter_ns() - call.start_ns) / 1e9,
+                            frames_true=int(frames_true), frames_padded=int(frames_padded))
+        metrics = Metrics.default()
+        metrics.incr("pipeline/frames_true", frames_true)
+        metrics.incr("pipeline/frames_padded", frames_padded)
+
+    def _total_done(self, call) -> None:
+        self.timings["total_s"] = (time.perf_counter_ns() - call.start_ns) / 1e9
 
     def _gather_waves(self, waves: torch.Tensor, n_true: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The data ranks' waves [b, n] (n may differ by rank) and true frame
@@ -663,18 +707,22 @@ class SVCPipeline:
         """One utterance -> one waveform per target singer: the features are
         extracted once and tiled over the singers into one batch (the
         pipeline's default sampler)."""
-        t0 = time.perf_counter()
-        ids = np.concatenate([get_singer_id(self.cfg, s) for s in singer_names]).astype(np.int64)[:, None]
-        batch, n_frames = self.extract_features(wav, singer_names[0])
-        _sync(self.device)
-        self.timings = {"frontend_s": time.perf_counter() - t0}
         b = len(singer_names)
-        tiled = {k: v.expand(b, *v.shape[1:]).contiguous() for k, v in batch.items()}
-        tiled["singer"] = torch.as_tensor(ids, device=self.device)
-        n_true = torch.full((b,), n_frames, device=self.device)
-        waves = self._convert_core(tiled, n_true, batch["melody"].shape[1], generator).cpu().numpy()
-        self.timings["total_s"] = time.perf_counter() - t0
-        return [waves[i, : n_frames * self.cfg.hop_length].copy() for i in range(b)]
+        with trace("pipeline.call", clips=b) as call:
+            self.timings = {}
+            ids = np.concatenate([get_singer_id(self.cfg, s) for s in singer_names]).astype(np.int64)[:, None]
+            (audio,) = self._load_clips(call, [wav])
+            batch, n_frames = self.extract_features(audio, singer_names[0])
+            padded = batch["melody"].shape[1]
+            self._frontend_done(call, b * n_frames, b * padded)
+            tiled = {k: v.expand(b, *v.shape[1:]).contiguous() for k, v in batch.items()}
+            tiled["singer"] = torch.as_tensor(ids, device=self.device)
+            n_true = torch.full((b,), n_frames, device=self.device)
+            waves = self._convert_core(tiled, n_true, padded, generator)
+            with trace("pipeline.download"):
+                waves = waves.cpu().numpy()
+                self._total_done(call)
+                return [waves[i, : n_frames * self.cfg.hop_length].copy() for i in range(b)]
 
     def convert_streaming(self, wav: Union[str, np.ndarray], singer_name: str, chunk_seconds: float = 10.0,
                           context_seconds: float = 1.0, generator: Optional[torch.Generator] = None,

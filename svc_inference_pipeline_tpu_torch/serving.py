@@ -22,6 +22,15 @@ scales with the device batch instead of queueing sequential conversions.
 lock as the batches. The models load from the checkpoint files that
 ``--config`` names (``SVCPipeline.from_config``); ``--random-weights`` draws
 them at random instead.
+
+Spans (``utils/observability.py``), under each request's own trace id:
+``server.decode`` and ``server.encode`` on the client's thread,
+``server.queue`` from the enqueue to the start of its group's call; on the
+worker, ``server.coalesce`` (the wait for more requests after the first),
+``server.drain`` (``requests``, ``groups``) and in it one ``server.group``
+(``clips``, ``length_class``) a device call. ``Metrics`` counts
+``server/drains`` and ``server/groups``; ``GET /metrics`` shows them with
+the span aggregates.
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from svc_inference_pipeline_tpu_torch.utils.observability import (
+    Metrics, get_logger, new_trace_id, record_span, trace)
+
 
 #: client-selectable fast-sampler strides
 ALLOWED_SPEEDUPS = frozenset({1, 2, 5, 10, 20, 50, 100})
@@ -53,9 +65,10 @@ class ServerOverloaded(RuntimeError):
 
 class _Request:
     __slots__ = ("audio", "singer", "sampler", "speedup", "frames",
-                 "event", "result", "error")
+                 "event", "result", "error", "trace_id", "thread", "enqueued_ns")
 
-    def __init__(self, audio, singer, sampler=None, speedup=None, frames=0):
+    def __init__(self, audio, singer, sampler=None, speedup=None, frames=0,
+                 trace_id=None):
         self.audio = audio
         self.singer = singer
         self.sampler = sampler  # per-request override (None = server default)
@@ -64,6 +77,9 @@ class _Request:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.trace_id = trace_id  # the request's spans' id
+        self.thread = threading.get_ident()  # the client's
+        self.enqueued_ns = time.perf_counter_ns()  # stamped again at the enqueue
 
 
 #: shortest coalescing length class, in mel frames (~2.7 s @ hop 256/24 kHz)
@@ -137,18 +153,19 @@ class SVCServer:
             batch = [req]
             deadline = time.time() + self.coalesce_ms / 1000.0
             stop = False
-            while len(batch) < self.max_batch:
-                timeout = deadline - time.time()
-                if timeout <= 0:
-                    break
-                try:
-                    nxt = self.queue.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    stop = True
-                    break
-                batch.append(nxt)
+            with trace("server.coalesce"):
+                while len(batch) < self.max_batch:
+                    timeout = deadline - time.time()
+                    if timeout <= 0:
+                        break
+                    try:
+                        nxt = self.queue.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        stop = True
+                        break
+                    batch.append(nxt)
             self._run(batch)
             if stop:
                 self._drain()
@@ -185,12 +202,19 @@ class SVCServer:
             sampler, speedup = self.pipeline._resolve_sampler(r.sampler, r.speedup)
             key = (sampler, speedup, length_class(r.frames))
             groups.setdefault(key, []).append(r)
-        for (sampler, speedup, _), group in groups.items():
-            self._run_group(group, sampler, speedup)
+        metrics = Metrics.default()
+        metrics.incr("server/drains")
+        metrics.incr("server/groups", len(groups))
+        with trace("server.drain", requests=len(batch), groups=len(groups)) as drain:
+            for (sampler, speedup, lclass), group in groups.items():
+                with trace("server.group", clips=len(group), length_class=lclass):
+                    now = time.perf_counter_ns()
+                    for r in group:
+                        record_span("server.queue", r.enqueued_ns, now, trace_id=r.trace_id, thread=r.thread,
+                                    drain=drain.span_id)
+                    self._run_group(group, sampler, speedup)
 
     def _run_group(self, batch, sampler, speedup) -> None:
-        from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
-
         try:
             with self._device_lock:
                 waves = self.pipeline.convert_batch(
@@ -245,10 +269,12 @@ class SVCServer:
         from svc_inference_pipeline_tpu_torch.utils.registry import get_singer_id
 
         get_singer_id(self.cfg, singer)  # KeyError → 400 before enqueue
-        with tempfile.NamedTemporaryFile(suffix=".wav") as f:
-            f.write(wav_bytes)
-            f.flush()
-            audio, _ = load_audio(f.name, self.cfg.fs)
+        rid = new_trace_id()
+        with trace("server.decode", trace_id=rid):
+            with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+                f.write(wav_bytes)
+                f.flush()
+                audio, _ = load_audio(f.name, self.cfg.fs)
 
         if self.closed:
             raise RuntimeError("server closed")
@@ -260,8 +286,9 @@ class SVCServer:
                 f"hop ({self.cfg.hop_length} samples)"
             )
         req = _Request(audio, singer, sampler=sampler, speedup=speedup,
-                       frames=frames)
+                       frames=frames, trace_id=rid)
         try:
+            req.enqueued_ns = time.perf_counter_ns()
             self.queue.put_nowait(req)
         except queue.Full:
             self._count(sheds=1)
@@ -281,7 +308,7 @@ class SVCServer:
             )
         if req.error is not None:
             raise req.error
-        with tempfile.NamedTemporaryFile(suffix=".wav") as out:
+        with trace("server.encode", trace_id=rid), tempfile.NamedTemporaryFile(suffix=".wav") as out:
             save_audio(out.name, req.result, self.cfg.fs)
             out.seek(0)
             return open(out.name, "rb").read()
@@ -349,8 +376,6 @@ class SVCServer:
             protocol_version = "HTTP/1.1"
 
             def log_message(self, fmt, *args):  # route through our logger
-                from svc_inference_pipeline_tpu_torch.utils.observability import get_logger
-
                 get_logger("svc_tpu.serving").info(fmt, *args)
 
             def _json(self, code: int, obj, retry_after: Optional[int] = None) -> None:
@@ -376,8 +401,6 @@ class SVCServer:
 
                     self._json(200, load_singer_lut(server.cfg.singer_file))
                 elif path == "/metrics":
-                    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
-
                     m = Metrics.default().summary()
                     m["serving"] = {
                         "conversions": server.conversions,

@@ -54,20 +54,23 @@ def test_logger_and_trace():
     assert log.handlers[0].formatter._fmt == jax_obs.get_logger("svc_tpu.test_jax").handlers[0].formatter._fmt
     assert observability.get_logger("svc_tpu.test_port") is log and len(log.handlers) == 1
     metrics = observability.Metrics.default()
-    before = len(metrics.observations["span/port-test"])
+    before = metrics.observations["span/port-test"].count
     with observability.trace("port-test"):
         torch.ones(3).sum()
-    assert len(metrics.observations["span/port-test"]) == before + 1
+    assert metrics.observations["span/port-test"].count == before + 1
 
 
 def test_profile_writes_a_chrome_trace(tmp_path):
     with observability.profile(str(tmp_path / "prof")):
         with observability.trace("profiled-span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    (path,) = glob.glob(str(tmp_path / "prof" / "*.json"))
+    (path,) = glob.glob(str(tmp_path / "prof" / "trace_*.json"))
     with open(path) as f:
         trace = json.load(f)
     assert any(ev.get("name") == "profiled-span" for ev in trace["traceEvents"])
+    (path,) = glob.glob(str(tmp_path / "prof" / "idle_*.json"))  # the device's idle time by span, beside it
+    with open(path) as f:
+        assert {"idle_s", "covered_share", "by_span", "beside"} <= set(json.load(f))
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +114,7 @@ def test_cli_batches_several_inputs(tmp_path, tiny_config, monkeypatch):
     for path, seconds in zip(outputs, (1.0, 0.7)):
         samples, sr = audio_io.read_wav(path)
         assert sr == 24000 and len(samples) == mel_frame_count(cfg, int(seconds * 24000)) * 256 + 2 * 1200
-    assert len(glob.glob(str(tmp_path / "prof" / "*.json"))) == 1
+    assert len(glob.glob(str(tmp_path / "prof" / "trace_*.json"))) == 1
 
 
 def test_cli_pcm16_upload_and_count_mismatch(tmp_path, tiny_config, monkeypatch):
