@@ -14,15 +14,19 @@
 //
 // What bounds it here: ~18 GFLOP per call at T=384, C=384, L=20 (18 us at
 //   the tensor cores' peak), but at batch 1 a launch has 72 output tiles of
-//   64 x 64 for 132 SMs (216 blocks for a gate split over its taps), so the
-//   latency of each tile's loads, K loop and epilogue sets the time, and a
-//   step's floor is the latency of its 2 + 2L dependent launches. The
-//   activations (h [T,C] bf16, skip [T,C] f32: ~0.9 MB at T=384) stay in the
-//   50 MB L2 between launches. 227 KB of shared memory cannot hold a
-//   sequential layer loop over the whole clip, and CUDA blocks do not run in
-//   order, so the TPU's single resident kernel does not carry over.
+//   64 x 64 for 132 SMs (216 blocks for a gate split over its taps), so one
+//   block's path, from its start to its last store, sets a launch's time, and
+//   a call is 2L + 3 such launches in a dependent chain. With the epilogue
+//   reading its operands after the wait, one global load per element, that
+//   path was 8-17 us on an H100 at T = 960 (globaltimer stamps per block):
+//   3-15 us the epilogue's serial L2 round trips, 2-5 us a K loop that drained
+//   every chunk. The activations (h [T,C] bf16, skip [T,C] f32: ~2.2 MB at
+//   T = 960) stay in the 50 MB L2 between launches. 227 KB of shared memory
+//   cannot hold a sequential layer loop over the whole clip, and CUDA blocks
+//   do not run in order, so the TPU's single resident kernel does not carry
+//   over (K8, one cooperative launch with grid barriers, is no faster).
 //
-// Design: 2 + 2L launches per call, each one GEMM tile with its own fused
+// Design: 2L + 3 launches per call, each one GEMM tile with its own fused
 //   epilogue:
 //   1. prologue: h = relu(bf16(x) @ wmel + bmel), skip = 0;
 //   2. per layer: gate g = sigmoid . tanh of (taps(y) @ w1 + cond_block);
@@ -34,9 +38,12 @@
 //   Numerics follow the TPU kernel: bf16 operands, f32 accumulation, f32
 //   gates, f32 skip, h stored bf16, f32 carry x, sigma (s4) = 0 at t = 0.
 //
-// The bf16 launches run on the pipelined wgmma tile (gemm_wg.cuh): a
-//   4-stage cp.async ring with K in chunks of 64. Row tiles go per clip
-//   (b, 64-row t tile) and never straddle two clips.
+// The bf16 launches (K1 and K5) keep the result in the wgmma accumulator
+//   registers and run their epilogue from there. All but the gate run on the
+//   prefetching tile below: the whole K (<= 384) of A resident in shared
+//   memory, B's first three chunks of 64 in shared memory and the rest in
+//   registers. Row tiles go per clip (b, 64-row t tile) and never straddle
+//   two clips.
 //   - The conv input is ready to copy: the epilogue that writes h (the
 //     prologue for layer 0, the residual epilogue of layer l for layer l+1)
 //     also writes y = bf16(h + step_row[l+1]) into a [B, T + 2*halo, C]
@@ -46,20 +53,42 @@
 //     Tap m of the gate is then the 64-row box at row t0 + (m-1)*d of the
 //     clip's rows: a pure cp.async source, with no gather arithmetic.
 //   - The gate is split over its 3 taps in a thread-block cluster of 3: each
-//     block multiplies one tap (K = C), the three f32 partial tiles are summed
-//     through distributed shared memory in the fixed order tap 0 + tap 1 +
-//     tap 2 (no atomics: the same bits on every run, and a clip's rows never
-//     depend on another clip's), and each block runs the gated epilogue on a
-//     third of the rows. At T = 384 that is 216 blocks instead of 72.
-//   - Programmatic dependent launch between the launches. The rule every
-//     kernel here follows: it issues only its weight loads (B, which no
-//     launch writes) before grid_dependency_wait(); it reads and writes h, y,
-//     g, skip, s1, the amax buffer and the carry x only after it. No kernel
-//     triggers its dependents early: the next launch's blocks start as this
-//     launch's blocks exit, put their first weight chunks in flight and wait.
-//     An explicit trigger, at a kernel's start or right after its wait, made
-//     the int8 steps slower on an H100 than no PDL at all: chains of waiting
-//     launches took the SMs from the kernel they waited for.
+//     block multiplies one tap (K = C) for 64 rows, 64 gate columns and their
+//     64 filter columns, the three f32 partial tiles meet through distributed
+//     shared memory and are summed in the fixed order tap 0 + tap 1 + tap 2
+//     (no atomics: the same bits on every run, and a clip's rows never depend
+//     on another clip's), and each block runs the gated epilogue on a third
+//     of the tile's fragments. At T = 960 that is 270 blocks: one wave at 3
+//     blocks an SM. The gate is bound by L2's bandwidth: a wave moves ~39 MB
+//     of taps and weights into the SMs (step_gate_kernel).
+//   - Programmatic dependent launch between the launches, and the rule for
+//     what a launch may read before grid_dependency_wait(): anything that the
+//     launch just before it does not write. Launch N's blocks start only when
+//     every block of launch N-1 has triggered its dependents or exited, and
+//     every one of those blocks triggers, if at all, after it has returned
+//     from its own wait on launch N-2; so whatever launch N-2 or an earlier
+//     one wrote is complete and visible when launch N starts. Each bf16
+//     launch therefore puts in flight before its wait: its weights (the gate:
+//     its first three chunks), and of its epilogue's operands the
+//     gate's conditioner tile, the biases, the residual's h and skip tiles
+//     (last written by the residual of the layer before, or the prologue: two
+//     launches back) and its next step row, and the DDPM update's x and z
+//     tiles (written before the step began). After the wait it loads, in one
+//     batch, only what the launch just before wrote: y for the gate, g for the
+//     residual, skip for the skip projection, s1 for the output projection;
+//     the prologue loads x and its step row there, because the first launch
+//     of a call follows whatever the caller ran last. Weights and biases
+//     belong to the stack, which the caller makes before the call and no
+//     launch writes. The early loads read through L2 (ld.global.cg), past the
+//     SMs' incoherent L1. A bf16 launch whose blocks are all resident at once
+//     triggers its dependents right after its wait, so that their blocks
+//     start and put their loads in flight while it runs; the gate triggers
+//     once its K loop is done, when every one of its blocks holds an SM, and
+//     any other launch of more than one wave triggers nothing: waiting blocks
+//     of the next launch must not take the SMs from the launch they wait for
+//     (an explicit trigger at a kernel's start or right after its wait made
+//     the int8 steps, whose gate takes several waves, slower on an H100 than
+//     no PDL at all; K6 triggers nothing).
 //
 // int8 (K6): the conv input y = h + step_row is quantised in f32, not first
 //   rounded to bf16, with s_y = max(max|y|, 1e-12)/127 per batch element (the
@@ -92,7 +121,10 @@
 //     int8.
 //   - "int8" mode's residual reads that int8 g by cp.async and scales its
 //     int32 sums by (wouts[col] * (1/127)).
-//   The other launches of the int8 modes are bf16 and take the bf16 tile.
+//   The other launches of the int8 modes are bf16 and take gemm_wg.cuh's
+//   ring tile (wg_gemm: only the weights before the wait, the result through
+//   shared memory) with the epilogue below, as every K6 launch does: the
+//   int8 gate reads an abs max that the launch just before it completes.
 //   The dequantising epilogues use round-to-nearest intrinsics without
 //   contraction, as the plain version computes them. The int8 sums are exact
 //   (|sum| <= 3C * 127^2 < 2^31), and the int32 -> f32 conversion rounds to
@@ -170,20 +202,15 @@ struct RowMax {
   }
 };
 
-// What the epilogue that writes h also writes for the next layer: y to the
-// bf16 conv-input buffer, or |y| to the int8 scale's running max.
+// What the epilogue that writes h also writes for the next layer on an int8
+// stack: |y| to the int8 scale's running max.
 __device__ __forceinline__ void next_input(const StepEpi& e, RowMax& rowmax, int r, int c, bf16 hv) {
-  if (e.y_out == nullptr && e.amax_out == nullptr) return;
-  const int b = r / e.T;
+  if (e.amax_out == nullptr) return;
   const float y = __bfloat162float(hv) + __bfloat162float(e.next_row[c]);
-  if (e.y_out != nullptr) {
-    e.y_out[((size_t)b * (e.T + 2 * e.halo) + e.halo + (r - b * e.T)) * e.ldo + c] = __float2bfloat16(y);
-  } else {
-    rowmax.add(b, fabsf(y), e.amax_out);
-  }
+  rowmax.add(r / e.T, fabsf(y), e.amax_out);
 }
 
-// The fused epilogues over tile rows [i_lo, i_hi) of the 64 x 64 result
+// K6's fused epilogues over tile rows [i_lo, i_hi) of the 64 x 64 result
 // acc(i, j) (f32, or an int32 sum when INT8), whose row i is
 // global row r0 + i; rows at or past nvalid are skipped. Lanes of a warp
 // share a row (the loops step by whole rows per warp), so the skip is
@@ -277,56 +304,491 @@ __device__ __forceinline__ void cluster_epilogue(const StepEpi& e, const Acc* pa
   cluster.sync();  // no block leaves while another still reads its tile
 }
 
-// --- bf16 launches: the pipelined wgmma tile over per-clip row tiles.
+// --- K6's bf16 launches: gemm_wg.cuh's ring tile over per-clip row tiles.
 struct WgOp {
   const void* a;  // bf16 (f32 when A_F32) rows [B, T + 2*halo, lda] (halo = 0: [B*T, lda])
   int lda, halo;
-  int dil;        // SPLIT (the gate): tap m reads rows shifted by (m - 1) * dil
-  const bf16* w;  // [K, ldw], or [3K, ldw] tap-major when SPLIT
+  int dil;        // the split gate: tap m reads rows shifted by (m - 1) * dil
+  const bf16* w;  // [K, ldw], or [3K, ldw] tap-major for the split gate
   int ldw, half, N, K;
   float scale;    // f32 A: multiplied before rounding
 };
 
-template <bool A_F32, int EPI, bool SPLIT>
+template <bool A_F32, int EPI>
 __global__ void __launch_bounds__(WG_THREADS) step_gemm_wg_kernel(const WgOp op, const StepEpi e) {
   extern __shared__ uint8_t wg_smem[];
   uint8_t* ring = align1024(wg_smem);
-  const int tap = SPLIT ? (int)(blockIdx.x % 3) : 0;  // == the block's rank in its cluster of 3
-  const int tile = SPLIT ? blockIdx.x / 3 : blockIdx.x;
+  const int tile = blockIdx.x;
   const int tpc = cdiv(e.T, WG_BM);
   const int b = tile / tpc;
   const int t0 = (tile - b * tpc) * WG_BM;
   const int nvalid = min(WG_BM, e.T - t0);
   const int bx = blockIdx.y;
-  const long arow = (long)b * (e.T + 2 * op.halo) + op.halo + t0 + (SPLIT ? (tap - 1) * op.dil : 0);
+  const long arow = (long)b * e.T + t0;
   const WgA a{A_F32 ? static_cast<const void*>(static_cast<const float*>(op.a) + arow * op.lda)
                     : static_cast<const void*>(static_cast<const bf16*>(op.a) + arow * op.lda),
               op.lda, nvalid, op.scale};
-  const WgB bw{op.w + (size_t)tap * op.K * op.ldw, op.ldw, op.half > 0 ? bx * 32 : bx * WG_BN,
-               op.half > 0 ? op.half + bx * 32 : bx * WG_BN + 32};
+  const WgB bw{op.w, op.ldw, op.half > 0 ? bx * 32 : bx * WG_BN, op.half > 0 ? op.half + bx * 32 : bx * WG_BN + 32};
   const float* Cs = wg_gemm<A_F32>(a, bw, op.K, ring);
-  const int r0 = b * e.T + t0;
-  const int C = op.half;
-  if constexpr (SPLIT) {
-    cluster_epilogue<false, EPI>(e, Cs, 0, tap, r0, nvalid, bx, C, op.N);
-  } else {
-    epilogue<false, EPI>(e, [&](int i, int j) { return Cs[i * WG_LDC + j]; }, r0, nvalid, bx, C, op.N, 0,
-                         WG_BM);
+  epilogue<false, EPI>(e, [&](int i, int j) { return Cs[i * WG_LDC + j]; }, b * e.T + t0, nvalid, bx, op.half,
+                       op.N, 0, WG_BM);
+}
+
+// --- K1 and K5 (bf16 stacks): the prefetching tile. A block puts everything
+// that the launch just before it does not write in flight, waits, loads that
+// launch's output in one batch, multiplies, and runs its epilogue from the
+// accumulator registers.
+constexpr int PF_NK = 6;                            // chunks of 64 a tile holds: K <= 384
+constexpr int PF_BS = 3;                            // B chunks in shared memory; the rest wait in registers
+constexpr int PF_PIECES = WG_BM * 8 / WG_THREADS;   // 16-byte pieces of one chunk per thread
+constexpr int PF_F32_BATCH = 3;                     // f32 A chunks loaded per round
+constexpr int PF_SMEM_BYTES = (PF_NK + PF_BS) * WG_TILE_BYTES + 1024;  // 73 KB: 3 blocks an SM
+
+__device__ __forceinline__ uint32_t ldcg32(const void* p) { return __ldcg(static_cast<const unsigned int*>(p)); }
+__device__ __forceinline__ float2 ldcg64(const float* p) { return __ldcg(reinterpret_cast<const float2*>(p)); }
+// the two halves of two packed bf16, as f32 (a bf16's f32 value is its bits << 16)
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ void st32(void* p, uint32_t v) { *static_cast<uint32_t*>(p) = v; }
+__device__ __forceinline__ void st64(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+
+// This thread's fragments of the m64n64 accumulator: acc[4j + 2h + q] is
+// tile row pf_row() + 8h, column 8j + pf_col() + q (j < 8, h, q < 2).
+__device__ __forceinline__ int pf_row() { return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2); }
+__device__ __forceinline__ int pf_col() { return 2 * (threadIdx.x & 3); }
+
+__device__ __forceinline__ void cp_async_wait_upto(int n) {  // n: commit groups left in flight, < PF_NK
+  switch (n) {
+    case 5: cp_async_wait<5>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
   }
-  if constexpr (EPI == EPI_RELU) {
-    // the prologue: the halo rows of y above a clip's first tile and below
-    // its last, for this block's 64 columns
-    if (e.y_out != nullptr && (t0 == 0 || t0 + WG_BM >= e.T)) {
-      bf16* clip = e.y_out + (size_t)b * (e.T + 2 * e.halo) * e.ldo + bx * WG_BN;
-      const bf16 zero = __float2bfloat16(0.0f);
-      for (int idx = threadIdx.x; idx < e.halo * WG_BN; idx += WG_THREADS) {
-        const int i = idx / WG_BN;
-        const int j = idx % WG_BN;
-        if (t0 == 0) clip[(size_t)i * e.ldo + j] = zero;
-        if (t0 + WG_BM >= e.T) clip[(size_t)(e.halo + e.T + i) * e.ldo + j] = zero;
+}
+
+// B chunk kt's pieces of this thread (wg_load_b's) into registers, and from
+// there into a stage
+__device__ __forceinline__ void pf_load_b_regs(const WgB& bw, int kt, uint4 (&v)[PF_PIECES]) {
+#pragma unroll
+  for (int it = 0; it < PF_PIECES; ++it) {
+    const int p = it * WG_THREADS + threadIdx.x;
+    const int c = p & 7;
+    const int col = c < 4 ? bw.col_lo + 8 * c : bw.col_hi + 8 * (c - 4);
+    v[it] = __ldcg(reinterpret_cast<const uint4*>(bw.w + (size_t)(kt * WG_BK + (p >> 3)) * bw.ldw + col));
+  }
+}
+
+__device__ __forceinline__ void pf_store_b(const uint4 (&v)[PF_PIECES], uint8_t* Bs) {
+#pragma unroll
+  for (int it = 0; it < PF_PIECES; ++it) {
+    const int p = it * WG_THREADS + threadIdx.x;
+    *reinterpret_cast<uint4*>(Bs + sw128(p >> 3, p & 7)) = v[it];
+  }
+}
+
+// f32 A chunks k0 .. k0 + PF_F32_BATCH - 1 (those below nk), times a.scale and
+// rounded to bf16, into their resident tiles: every load first, then the
+// stores (wg_load_a<true>'s arithmetic)
+__device__ __forceinline__ void pf_f32_chunks(const WgA& a, int k0, int nk, uint8_t* As) {
+  float4 v[PF_F32_BATCH][PF_PIECES][2];
+#pragma unroll
+  for (int q = 0; q < PF_F32_BATCH; ++q)
+#pragma unroll
+    for (int it = 0; it < PF_PIECES; ++it) {
+      const int p = it * WG_THREADS + threadIdx.x;
+      v[q][it][0] = v[q][it][1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (k0 + q < nk && (p >> 3) < a.nvalid) {
+        const float4* src = reinterpret_cast<const float4*>(static_cast<const float*>(a.row0) +
+                                                            (size_t)(p >> 3) * a.ld + (k0 + q) * WG_BK + 8 * (p & 7));
+        v[q][it][0] = __ldcg(src);
+        v[q][it][1] = __ldcg(src + 1);
+      }
+    }
+#pragma unroll
+  for (int q = 0; q < PF_F32_BATCH; ++q)
+#pragma unroll
+    for (int it = 0; it < PF_PIECES; ++it) {
+      const int p = it * WG_THREADS + threadIdx.x;
+      const float4 x0 = v[q][it][0], x1 = v[q][it][1];
+      const uint4 packed = make_uint4(pack_bf16x2(x0.x * a.scale, x0.y * a.scale),
+                                      pack_bf16x2(x0.z * a.scale, x0.w * a.scale),
+                                      pack_bf16x2(x1.x * a.scale, x1.y * a.scale),
+                                      pack_bf16x2(x1.z * a.scale, x1.w * a.scale));
+      if (k0 + q < nk) *reinterpret_cast<uint4*>(As + (k0 + q) * WG_TILE_BYTES + sw128(p >> 3, p & 7)) = packed;
+    }
+}
+
+// Lets the launch after this one start its blocks (they then run up to their
+// own grid_dependency_wait()).
+__device__ __forceinline__ void grid_dependency_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+enum PfA { PF_A_BOX, PF_A_F32 };  // how load_a fills the A tiles
+
+// acc = A @ B over K = 64 nk (nk <= PF_NK), summed as wg_gemm_loop sums it:
+// chunk by chunk, four k16 products a chunk. Before the wait: B's first PF_BS
+// chunks by cp.async, the rest into registers. After it, load_a(As) puts
+// every chunk of A into its own tile at once: PF_A_BOX by cp.async, one
+// commit group a chunk; PF_A_F32 complete when load_a returns. With `early`
+// the launch lets its dependents start right after the wait. B chunk
+// k >= PF_BS goes from registers into the stage of chunk
+// k - PF_BS once every warp has seen that chunk's products complete; one
+// wgmma group stays in flight while the loop moves on.
+template <int AMODE, class LoadA>
+__device__ __forceinline__ void pf_tile(const WgB& bw, int nk, bool early, uint8_t* smem, float (&acc)[32],
+                                        LoadA load_a) {
+  uint8_t* As = smem;
+  uint8_t* Bs = smem + PF_NK * WG_TILE_BYTES;
+#pragma unroll
+  for (int s = 0; s < PF_BS; ++s)
+    if (s < nk) wg_load_b(bw, s * WG_BK, Bs + s * WG_TILE_BYTES);
+  cp_async_commit();
+  uint4 breg[PF_NK - PF_BS][PF_PIECES];
+#pragma unroll
+  for (int s = 0; s < PF_NK - PF_BS; ++s)
+    if (PF_BS + s < nk) pf_load_b_regs(bw, PF_BS + s, breg[s]);
+  grid_dependency_wait();
+  if (early) grid_dependency_trigger();
+  load_a(As);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < PF_NK; ++kt) {
+    if (kt < nk) {
+      cp_async_wait_upto(AMODE == PF_A_BOX ? PF_NK - 1 - kt : 0);  // this thread's copies: A chunk kt, B 0..2
+      fence_proxy_async();  // ... and its stores, visible to wgmma's async proxy
+      __syncthreads();      // for every thread; every warp has seen chunk kt-2's products complete
+#pragma unroll
+      for (int s = 0; s < PF_NK - PF_BS; ++s)  // B chunk kt+1 into the stage of chunk kt-2
+        if (PF_BS + s == kt + 1 && kt + 1 < nk) pf_store_b(breg[s], Bs + ((kt + 1) % PF_BS) * WG_TILE_BYTES);
+      const uint64_t da = wg_desc(As + kt * WG_TILE_BYTES, 16);
+      const uint64_t db = wg_desc(Bs + (kt % PF_BS) * WG_TILE_BYTES, 1024);
+      wg_fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) wgmma_64x64x16(acc, da + 2 * kk, db + 128 * kk);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // chunk kt-1's products are complete
+      wg_fence_acc(acc);
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wg_fence_acc(acc);
+}
+
+// The bf16 launches but the gate. Tile columns are weight columns bx*64 ..
+// +63, or, for the residual (op.half = C), bx*32 .. +31 of each half: then
+// fragment j < 4 holds the first half's column c = bx*32 + 8j + pf_col() and
+// fragment j + 4 the second half's column C + c. Each epilogue computes every
+// element as the ring tile's epilogue does, the same operations in the same
+// order, and stores two adjacent columns at once.
+template <bool A_F32, int EPI>
+__global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? 3 : 1)
+    step_pf_kernel(const WgOp op, const StepEpi e, const bool early) {
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* smem = align1024(wg_smem);
+  const int tile = blockIdx.x;
+  const int tpc = cdiv(e.T, WG_BM);
+  const int b = tile / tpc;
+  const int t0 = (tile - b * tpc) * WG_BM;
+  const int nvalid = min(WG_BM, e.T - t0);
+  const int bx = blockIdx.y;
+  const int C = op.half;
+  const int r0 = b * e.T + t0;
+  const int row = pf_row();
+  const int col = pf_col();
+  const int nk = op.K / WG_BK;
+  const long arow = (long)b * e.T + t0;
+  const WgA a{A_F32 ? static_cast<const void*>(static_cast<const float*>(op.a) + arow * op.lda)
+                    : static_cast<const void*>(static_cast<const bf16*>(op.a) + arow * op.lda),
+              op.lda, nvalid, op.scale};
+  const WgB bw{op.w, op.ldw, op.half > 0 ? bx * 32 : bx * WG_BN, op.half > 0 ? op.half + bx * 32 : bx * WG_BN + 32};
+  auto box_a = [&](uint8_t* As) {  // A a 64-row box of bf16 rows
+#pragma unroll
+    for (int kt = 0; kt < PF_NK; ++kt) {
+      if (kt < nk) wg_load_a<false>(a, kt * WG_BK, As + kt * WG_TILE_BYTES);
+      cp_async_commit();  // group 1 + kt
+    }
+  };
+  float acc[32];
+
+  if constexpr (EPI == EPI_RESSKIP) {
+    // h and skip: last written two launches back; biases and the next step row: by no launch
+    bf16* hp = static_cast<bf16*>(e.out);
+    uint32_t bres[4], bskp[4], nrow[4] = {}, hv[2][4] = {};
+    float2 sk[2][4] = {};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = bx * 32 + 8 * j + col;
+      bres[j] = ldcg32(e.bias + c);
+      bskp[j] = ldcg32(e.bias + C + c);
+      if (e.y_out != nullptr) nrow[j] = ldcg32(e.next_row + c);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (row + 8 * h < nvalid) {
+          const size_t o = (size_t)(r0 + row + 8 * h) * e.ldo + c;
+          hv[h][j] = ldcg32(hp + o);
+          sk[h][j] = ldcg64(e.skip + o);
+        }
+      }
+    }
+    pf_tile<PF_A_BOX>(bw, nk, early, smem, acc, box_a);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row + 8 * h;
+      if (i >= nvalid) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = bx * 32 + 8 * j + col;
+        const size_t o = (size_t)(r0 + i) * e.ldo + c;
+        const float res0 = __fadd_rn(acc[4 * j + 2 * h], bf_lo(bres[j]));
+        const float res1 = __fadd_rn(acc[4 * j + 2 * h + 1], bf_hi(bres[j]));
+        const float sk0 = __fadd_rn(acc[4 * (j + 4) + 2 * h], bf_lo(bskp[j]));
+        const float sk1 = __fadd_rn(acc[4 * (j + 4) + 2 * h + 1], bf_hi(bskp[j]));
+        const uint32_t hn = pack_bf16x2((bf_lo(hv[h][j]) + res0) * 0.70710678118654752f,
+                                        (bf_hi(hv[h][j]) + res1) * 0.70710678118654752f);
+        st32(hp + o, hn);
+        st64(e.skip + o, sk[h][j].x + sk0, sk[h][j].y + sk1);
+        if (e.y_out != nullptr)
+          st32(e.y_out + ((size_t)b * (e.T + 2 * e.halo) + e.halo + t0 + i) * e.ldo + c,
+               pack_bf16x2(bf_lo(hn) + bf_lo(nrow[j]), bf_hi(hn) + bf_hi(nrow[j])));
+      }
+    }
+  } else {
+    // RELU, DDPM, EPS: plain tile columns bx*64 + 8j + col
+    uint32_t bias[8];
+    float2 xv[2][8] = {}, zv[2][8] = {};  // DDPM: x and z, written before the step
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = bx * WG_BN + 8 * j + col;
+      bias[j] = ldcg32(e.bias + c);
+      if constexpr (EPI == EPI_DDPM) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (row + 8 * h < nvalid) {
+            const size_t o = (size_t)(r0 + row + 8 * h) * e.ldo + c;
+            xv[h][j] = ldcg64(e.x + o);
+            zv[h][j] = ldcg64(e.z + o);
+          }
+        }
+      }
+    }
+    uint32_t nrow[8] = {};  // the prologue's step row, after the wait
+    if constexpr (A_F32) {  // the prologue and the skip projection
+      pf_tile<PF_A_F32>(bw, nk, early, smem, acc, [&](uint8_t* As) {
+        if (e.y_out != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) nrow[j] = ldcg32(e.next_row + bx * WG_BN + 8 * j + col);
+        }
+#pragma unroll
+        for (int k0 = 0; k0 < PF_NK; k0 += PF_F32_BATCH)
+          if (k0 < nk) pf_f32_chunks(a, k0, nk, As);
+      });
+    } else {
+      pf_tile<PF_A_BOX>(bw, nk, early, smem, acc, box_a);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row + 8 * h;
+      if (i >= nvalid) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = bx * WG_BN + 8 * j + col;
+        const size_t o = (size_t)(r0 + i) * e.ldo + c;
+        const float v0 = acc[4 * j + 2 * h] + bf_lo(bias[j]);
+        const float v1 = acc[4 * j + 2 * h + 1] + bf_hi(bias[j]);
+        if constexpr (EPI == EPI_RELU) {
+          const uint32_t hv = pack_bf16x2(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+          st32(static_cast<bf16*>(e.out) + o, hv);
+          if (e.zero_f32 != nullptr) st64(e.zero_f32 + o, 0.0f, 0.0f);
+          if (e.y_out != nullptr)
+            st32(e.y_out + ((size_t)b * (e.T + 2 * e.halo) + e.halo + t0 + i) * e.ldo + c,
+                 pack_bf16x2(bf_lo(hv) + bf_lo(nrow[j]), bf_hi(hv) + bf_hi(nrow[j])));
+        } else if constexpr (EPI == EPI_DDPM) {
+          const float2 x = xv[h][j], z = zv[h][j];
+          const float x00 = fminf(fmaxf(e.s0 * x.x - e.s1 * v0, -1.0f), 1.0f);
+          const float x01 = fminf(fmaxf(e.s0 * x.y - e.s1 * v1, -1.0f), 1.0f);
+          st64(static_cast<float*>(e.out) + o, e.s2 * x00 + e.s3 * x.x + e.s4 * z.x,
+               e.s2 * x01 + e.s3 * x.y + e.s4 * z.y);
+        } else {
+          float* eps = static_cast<float*>(e.out) + (size_t)(r0 + i) * e.n_out + c;
+          if (c + 1 < e.n_out && (e.n_out & 1) == 0) {
+            st64(eps, v0, v1);
+          } else if (c < e.n_out) {
+            eps[0] = v0;
+            if (c + 1 < e.n_out) eps[1] = v1;
+          }
+        }
+      }
+    }
+    if constexpr (EPI == EPI_RELU) {
+      // the prologue: the halo rows of y above a clip's first tile and below
+      // its last, for this block's 64 columns
+      if (e.y_out != nullptr && (t0 == 0 || t0 + WG_BM >= e.T)) {
+        bf16* clip = e.y_out + (size_t)b * (e.T + 2 * e.halo) * e.ldo + bx * WG_BN;
+        const bf16 zero = __float2bfloat16(0.0f);
+        for (int idx = threadIdx.x; idx < e.halo * WG_BN; idx += WG_THREADS) {
+          const int i = idx / WG_BN;
+          const int j = idx % WG_BN;
+          if (t0 == 0) clip[(size_t)i * e.ldo + j] = zero;
+          if (t0 + WG_BM >= e.T) clip[(size_t)(e.halo + e.T + i) * e.ldo + j] = zero;
+        }
       }
     }
   }
+}
+
+// The gate: a cluster of 3 blocks, one a tap, computes a tile of 64 rows by
+// 64 gate columns c = bx*64 .. +63 and their 64 filter columns C + c, as
+// two m64n64 accumulators: gate column c and filter column C + c sit in the
+// same place of each, so one thread pairs them. Twice the ring tile's width:
+// the cluster count halves (270 clusters' blocks at T = 960 fit in one wave of
+// 3 blocks an SM, where 540 took two) and so do the reads of each tap's box
+// of y. A stage holds a chunk of 64 of K: A and both B halves, 24 KB; three
+// stages. The first three chunks of B go in flight before the wait, A's after
+// it; later chunks, three at a time, once the stages are free. Each chunk's
+// products are the ring tile's, in the same order. The three partial tiles
+// meet through distributed shared memory and are summed in the fixed order
+// tap 0 + tap 1 + tap 2; each block runs the gated epilogue on a third of
+// the tile's fragments.
+constexpr int GATE_STAGE_BYTES = 3 * WG_TILE_BYTES;
+constexpr int GATE_SMEM_BYTES = 3 * GATE_STAGE_BYTES + 1024;  // 73 KB: 3 blocks an SM
+
+__global__ void __launch_bounds__(WG_THREADS, 3) step_gate_kernel(const WgOp op, const StepEpi e) {
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* smem = align1024(wg_smem);
+  const int tap = (int)(blockIdx.x % 3);  // == the block's rank in its cluster of 3
+  const int tile = blockIdx.x / 3;
+  const int tpc = cdiv(e.T, WG_BM);
+  const int b = tile / tpc;
+  const int t0 = (tile - b * tpc) * WG_BM;
+  const int nvalid = min(WG_BM, e.T - t0);
+  const int c0 = blockIdx.y * WG_BN;  // the tile's first gate column
+  const int C = op.half;
+  const int r0 = b * e.T + t0;
+  const int row = pf_row();
+  const int col = pf_col();
+  const int nk = op.K / WG_BK;
+  const long arow = (long)b * (e.T + 2 * op.halo) + op.halo + t0 + (tap - 1) * op.dil;
+  const WgA a{static_cast<const bf16*>(op.a) + arow * op.lda, op.lda, nvalid, 1.0f};
+  const bf16* w = op.w + (size_t)tap * op.K * op.ldw;
+  const WgB bg{w, op.ldw, c0, c0 + 32};          // gate columns
+  const WgB bf{w, op.ldw, C + c0, C + c0 + 32};  // filter columns
+  auto stage = [&](int s) { return smem + s * GATE_STAGE_BYTES; };
+
+  // this rank's fragments: (j, h) = (u / 2, u % 2) for u = tap + 3m below 16
+  uint32_t cgate[6] = {}, cfilt[6] = {};
+#pragma unroll
+  for (int m = 0; m < 6; ++m) {
+    const int u = tap + 3 * m;
+    const int i = row + 8 * (u & 1);
+    if (u < 16 && i < nvalid) {
+      const bf16* cb = e.cond + (size_t)(r0 + i) * 2 * C + c0 + 8 * (u >> 1) + col;
+      cgate[m] = ldcg32(cb);
+      cfilt[m] = ldcg32(cb + C);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    if (s < nk) {
+      wg_load_b(bg, s * WG_BK, stage(s) + WG_TILE_BYTES);
+      wg_load_b(bf, s * WG_BK, stage(s) + 2 * WG_TILE_BYTES);
+    }
+  }
+  cp_async_commit();
+  grid_dependency_wait();
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+    if (s < nk) wg_load_a<false>(a, s * WG_BK, stage(s));
+  cp_async_commit();
+
+  float accg[32], accf[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) accg[i] = accf[i] = 0.0f;
+  for (int k0 = 0; k0 < nk; k0 += 3) {
+    if (k0 > 0) {
+      __syncthreads();  // every warp's products of the last three chunks are complete: the stages are free
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        if (k0 + s < nk) {
+          wg_load_b(bg, (k0 + s) * WG_BK, stage(s) + WG_TILE_BYTES);
+          wg_load_b(bf, (k0 + s) * WG_BK, stage(s) + 2 * WG_TILE_BYTES);
+          wg_load_a<false>(a, (k0 + s) * WG_BK, stage(s));
+        }
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<0>();  // this thread's copies of the three chunks
+    fence_proxy_async();
+    __syncthreads();     // ... and every thread's
+    wg_fence_acc(accg);
+    wg_fence_acc(accf);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      if (k0 + s < nk) {
+        const uint64_t da = wg_desc(stage(s), 16);
+        const uint64_t dg = wg_desc(stage(s) + WG_TILE_BYTES, 1024);
+        const uint64_t df = wg_desc(stage(s) + 2 * WG_TILE_BYTES, 1024);
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) {
+          wgmma_64x64x16(accg, da + 2 * kk, dg + 128 * kk);
+          wgmma_64x64x16(accf, da + 2 * kk, df + 128 * kk);
+        }
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wg_fence_acc(accg);
+    wg_fence_acc(accf);
+  }
+  // every block of the launch holds its SM now, later waves' too: the next
+  // launch's blocks may take what SMs come free
+  grid_dependency_trigger();
+
+  __syncthreads();  // every warp's products are complete: the stages become the partial tile
+  // fragment u = 2j + h of thread t at u * WG_THREADS + t: its two gate and two filter columns
+  float4* part = reinterpret_cast<float4*>(smem);
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const int k = 4 * (u >> 1) + 2 * (u & 1);
+    part[u * WG_THREADS + threadIdx.x] = make_float4(accg[k], accg[k + 1], accf[k], accf[k + 1]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // the three partial tiles are complete
+  const float4* pt[3] = {cluster.map_shared_rank(part, 0), cluster.map_shared_rank(part, 1),
+                         cluster.map_shared_rank(part, 2)};
+  float4 v[6][3];  // [this rank's fragment m][tap]
+#pragma unroll
+  for (int m = 0; m < 6; ++m) {
+    const int u = tap + 3 * m;
+    if (u < 16) {
+#pragma unroll
+      for (int t = 0; t < 3; ++t) v[m][t] = pt[t][u * WG_THREADS + threadIdx.x];
+    }
+  }
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");  // done with the others' tiles
+#pragma unroll
+  for (int m = 0; m < 6; ++m) {
+    const int u = tap + 3 * m;
+    const int i = row + 8 * (u & 1);
+    if (u < 16 && i < nvalid) {
+      const float g0 = (v[m][0].x + v[m][1].x) + v[m][2].x, g1 = (v[m][0].y + v[m][1].y) + v[m][2].y;
+      const float f0 = (v[m][0].z + v[m][1].z) + v[m][2].z, f1 = (v[m][0].w + v[m][1].w) + v[m][2].w;
+      float y[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float gate = __fadd_rn(q ? g1 : g0, q ? bf_hi(cgate[m]) : bf_lo(cgate[m]));
+        const float filt = __fadd_rn(q ? f1 : f0, q ? bf_hi(cfilt[m]) : bf_lo(cfilt[m]));
+        y[q] = (1.0f / (1.0f + expf(-gate))) * tanhf(filt);
+      }
+      st32(static_cast<bf16*>(e.out) + (size_t)(r0 + i) * e.ldo + c0 + 8 * (u >> 1) + col, pack_bf16x2(y[0], y[1]));
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // no block leaves while another reads
 }
 
 // --- int8 launches (K6): the wgmma s8 tile over per-clip row tiles. The
@@ -464,17 +926,60 @@ __global__ void __launch_bounds__(WG_THREADS) step_gemm_s8_kernel(const W8Op op,
   }
 }
 
-// launch_ex (common.cuh) with a cluster for the split gates: 3 taps, by
+// launch_ex (common.cuh), with a cluster for the split gates: 3 taps, by
 // W8_GATE_Q column tiles for the int8 gate.
-template <bool A_F32, int EPI, bool SPLIT = false>
+template <bool A_F32, int EPI>
 void launch_wg(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
-  auto kernel = step_gemm_wg_kernel<A_F32, EPI, SPLIT>;
+  auto kernel = step_gemm_wg_kernel<A_F32, EPI>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM_BYTES);
   (void)attr;  // a refusal shows as the launch's error
   const int ny = op.half > 0 ? op.half / 32 : op.N / WG_BN;
-  const dim3 grid((SPLIT ? 3 : 1) * B * cdiv(e.T, WG_BM), ny);
-  launch_ex(kernel, grid, dim3(WG_THREADS), WG_SMEM_BYTES, dim3(SPLIT ? 3 : 1), s, op, e);
+  launch_ex(kernel, dim3(B * cdiv(e.T, WG_BM), ny), dim3(WG_THREADS), WG_SMEM_BYTES, dim3(1), s, op, e);
+}
+
+// Blocks of `kernel` that the device holds at once: its SMs times the blocks
+// an SM takes (0 when the query fails)
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WG_THREADS, smem) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// A launch whose grid is resident at once triggers its dependents right
+// after its wait (`early`), so that their blocks start and put their loads in
+// flight while it runs; a longer one triggers nothing, lest waiting blocks of
+// the next launch hold an SM that one of its later blocks needs. The gate
+// triggers once its K loop is done.
+// All of the SM's shared memory for `kernel`, so that three 73 KB blocks
+// fit; returns resident_blocks (a refused attribute shows as the launch's
+// error)
+template <typename Kernel>
+int big_smem(Kernel kernel, int smem) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return resident_blocks(kernel, smem);
+}
+
+template <bool A_F32, int EPI>
+void launch_pf(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
+  auto kernel = step_pf_kernel<A_F32, EPI>;
+  static const int resident = big_smem(kernel, PF_SMEM_BYTES);
+  const int ny = op.half > 0 ? op.half / 32 : op.N / WG_BN;
+  const dim3 grid(B * cdiv(e.T, WG_BM), ny);
+  const bool early = (int)(grid.x * grid.y) <= resident;
+  launch_ex(kernel, grid, dim3(WG_THREADS), PF_SMEM_BYTES, dim3(1), s, op, e, early);
+}
+
+void launch_gate(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
+  static const int resident = big_smem(step_gate_kernel, GATE_SMEM_BYTES);
+  (void)resident;
+  launch_ex(step_gate_kernel, dim3(3 * B * cdiv(e.T, WG_BM), op.half / WG_BN), dim3(WG_THREADS), GATE_SMEM_BYTES,
+            dim3(3), s, op, e);
 }
 
 template <int EPI>
@@ -512,25 +1017,52 @@ struct Forward {
   int B, T, C, L, cycle, mp;
 };
 
-// Prologue, the L layers and the skip projection: s1 is then ready for the
-// output projection.
-void run_body(const Forward& f, cudaStream_t st) {
+// Prologue, the L layers and the skip projection on a bf16 stack (the
+// prefetching tile): s1 is then ready for the output projection.
+void run_body_bf16(const Forward& f, cudaStream_t st) {
   const int M = f.B * f.T;
   const int C = f.C;
-  const bool q1 = f.w1s != nullptr;
-  const bool q2 = f.wouts != nullptr;
   const int halo = 1 << (f.cycle - 1);
-  if (q1) cudaMemsetAsync(f.amax, 0, sizeof(float) * f.L * f.B, st);
+  const bf16* w1 = static_cast<const bf16*>(f.w1);
+  const bf16* wout = static_cast<const bf16*>(f.wout);
+
+  StepEpi pro{};
+  pro.out = f.h; pro.ldo = C; pro.bias = f.bmel; pro.zero_f32 = f.skip; pro.T = f.T;
+  pro.next_row = f.step_rows_t; pro.y_out = f.y; pro.halo = halo;
+  launch_pf<true, EPI_RELU>(plain_op(f.x_in, f.mp, f.wmel, C, 0, C, f.mp), pro, f.B, st);
+
+  for (int l = 0; l < f.L; ++l) {
+    StepEpi ge{};
+    ge.out = f.g; ge.ldo = C; ge.cond = f.condb + (size_t)l * M * 2 * C; ge.T = f.T;
+    const WgOp gate{f.y, C, halo, 1 << (l % f.cycle), w1 + (size_t)l * 3 * C * 2 * C, 2 * C, C, 2 * C, C, 1.0f};
+    launch_gate(gate, ge, f.B, st);
+
+    StepEpi re{};
+    re.out = f.h; re.ldo = C; re.bias = f.bout + (size_t)l * 2 * C; re.skip = f.skip; re.T = f.T;
+    if (l + 1 < f.L) {
+      re.next_row = f.step_rows_t + (size_t)(l + 1) * C; re.y_out = f.y; re.halo = halo;
+    }
+    launch_pf<false, EPI_RESSKIP>(plain_op(f.g, C, wout + (size_t)l * C * 2 * C, 2 * C, C, 2 * C, C), re, f.B, st);
+  }
+
+  StepEpi sk{};
+  sk.out = f.s1; sk.ldo = C; sk.bias = f.bskip; sk.T = f.T;
+  const float inv_sqrt_l = (float)(1.0 / sqrt((double)f.L));
+  launch_pf<true, EPI_RELU>(plain_op(f.skip, C, f.wskip, C, 0, C, C, inv_sqrt_l), sk, f.B, st);
+}
+
+// The same on an int8 stack (K6): the int8 GEMMs on the s8 tile, the bf16
+// ones on the ring tile.
+void run_body_i8(const Forward& f, cudaStream_t st) {
+  const int M = f.B * f.T;
+  const int C = f.C;
+  const bool q2 = f.wouts != nullptr;
+  cudaMemsetAsync(f.amax, 0, sizeof(float) * f.L * f.B, st);
 
   // what the epilogue that writes h passes on to layer l's gate
   auto feed = [&](StepEpi& e, int l) {
     e.next_row = f.step_rows_t + (size_t)l * C;
-    if (q1) {
-      e.amax_out = f.amax + (size_t)l * f.B;
-    } else {
-      e.y_out = f.y;
-      e.halo = halo;
-    }
+    e.amax_out = f.amax + (size_t)l * f.B;
   };
 
   StepEpi pro{};
@@ -544,15 +1076,10 @@ void run_body(const Forward& f, cudaStream_t st) {
     const size_t wout_off = (size_t)l * C * 2 * C;
     StepEpi ge{};
     ge.out = f.g; ge.ldo = C; ge.cond = f.condb + (size_t)l * M * 2 * C; ge.T = f.T;
-    if (q1) {
-      const W8Op gate{f.h, C, d, static_cast<const int8_t*>(f.w1) + w1_off, C, C, f.step_rows_t + (size_t)l * C,
-                      f.amax + (size_t)l * f.B};
-      ge.col_scale = f.w1s + (size_t)l * 2 * C; ge.amax_in = gate.amax; ge.gate_i8 = q2;
-      launch_s8<EPI_GATE>(gate, ge, f.B, st);
-    } else {
-      const WgOp gate{f.y, C, halo, d, static_cast<const bf16*>(f.w1) + w1_off, 2 * C, C, 2 * C, C, 1.0f};
-      launch_wg<false, EPI_GATE, true>(gate, ge, f.B, st);
-    }
+    const W8Op gate{f.h, C, d, static_cast<const int8_t*>(f.w1) + w1_off, C, C, f.step_rows_t + (size_t)l * C,
+                    f.amax + (size_t)l * f.B};
+    ge.col_scale = f.w1s + (size_t)l * 2 * C; ge.amax_in = gate.amax; ge.gate_i8 = q2;
+    launch_s8<EPI_GATE>(gate, ge, f.B, st);
 
     StepEpi re{};
     re.out = f.h; re.ldo = C; re.bias = f.bout + (size_t)l * 2 * C; re.skip = f.skip; re.T = f.T;
@@ -571,6 +1098,13 @@ void run_body(const Forward& f, cudaStream_t st) {
   sk.out = f.s1; sk.ldo = C; sk.bias = f.bskip; sk.T = f.T;
   const float inv_sqrt_l = (float)(1.0 / sqrt((double)f.L));
   launch_wg<true, EPI_RELU>(plain_op(f.skip, C, f.wskip, C, 0, C, C, inv_sqrt_l), sk, f.B, st);
+}
+
+// The widths a stack's tiles take: K = C <= W8_MAX_K for the int8 tile, and
+// K = C and K = mp <= PF_NK * 64 for the prefetching tile, which holds its
+// whole K (K6's bf16 launches run on the ring tile, which takes any K)
+bool shapes_ok(const Forward& f) {
+  return f.w1s != nullptr ? f.C <= W8_MAX_K : f.C <= PF_NK * WG_BK && f.mp <= PF_NK * WG_BK;
 }
 
 }  // namespace
@@ -599,19 +1133,25 @@ using svc::bf16;
 // bf16 [L, B*T, 2C]; wout: bf16 [L, C, 2C], or the int8 K-major copy
 // [L, 2C, C] (then wouts f32 [L, 2C]); bout: bf16 [L, 2C]; wmel [mp, C], bmel
 // [C], wskip [C, C], bskip [C], wo [C, mp], bo [mp], all bf16. C and mp are
-// multiples of 64, and C <= W8_MAX_K on an int8 stack. s0..s4: this step's
-// schedule scalars.
+// multiples of 64, C <= W8_MAX_K on an int8 stack and C, mp <= 384 on a bf16
+// stack. s0..s4: this step's schedule scalars.
 extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SVC_FORWARD_PARAMS,
                              float s0, float s1c, float s2, float s3, float s4, void* stream) {
   using namespace svc;
-  if (w1s != nullptr && C > W8_MAX_K) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Forward f = SVC_FORWARD(x_in);
-  run_body(f, st);
+  if (!shapes_ok(f)) return (int)cudaErrorInvalidValue;
   StepEpi dd{};
   dd.out = x_out; dd.ldo = mp; dd.bias = bo; dd.x = x_in; dd.z = z; dd.T = T;
   dd.s0 = s0; dd.s1 = s1c; dd.s2 = s2; dd.s3 = s3; dd.s4 = s4;
-  launch_wg<false, EPI_DDPM>(plain_op(s1, C, wo, mp, 0, mp, C), dd, B, st);
+  const WgOp out = plain_op(s1, C, wo, mp, 0, mp, C);
+  if (w1s != nullptr) {
+    run_body_i8(f, st);
+    launch_wg<false, EPI_DDPM>(out, dd, B, st);
+  } else {
+    run_body_bf16(f, st);
+    launch_pf<false, EPI_DDPM>(out, dd, B, st);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -620,12 +1160,18 @@ extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SV
 extern "C" int svc_denoise(const float* x_in, float* eps, SVC_FORWARD_PARAMS, int n_mel,
                            void* stream) {
   using namespace svc;
-  if (w1s != nullptr && C > W8_MAX_K) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Forward f = SVC_FORWARD(x_in);
-  run_body(f, st);
+  if (!shapes_ok(f)) return (int)cudaErrorInvalidValue;
   StepEpi ee{};
   ee.out = eps; ee.ldo = n_mel; ee.bias = bo; ee.n_out = n_mel; ee.T = T;
-  launch_wg<false, EPI_EPS>(plain_op(s1, C, wo, mp, 0, mp, C), ee, B, st);
+  const WgOp out = plain_op(s1, C, wo, mp, 0, mp, C);
+  if (w1s != nullptr) {
+    run_body_i8(f, st);
+    launch_wg<false, EPI_EPS>(out, ee, B, st);
+  } else {
+    run_body_bf16(f, st);
+    launch_pf<false, EPI_EPS>(out, ee, B, st);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// The pipelined bf16 GEMM tile of the denoiser (K1, K5, the bf16 launches
-// of K6, and every phase of K8) and of K2's convs: one warpgroup (128
-// threads) computes a 64 x 64 f32 tile with wgmma.mma_async m64n64k16 over
-// K in chunks of 64.
+// The pipelined bf16 GEMM tile of the denoiser (the bf16 launches of K6,
+// every phase of K8) and of K2's convs: one warpgroup (128 threads) computes
+// a 64 x 64 f32 tile with wgmma.mma_async m64n64k16 over K in chunks of 64.
+// K1 and K5 build their own tile from its pieces (denoiser_step.cu).
 // gemm_wg_s8.cuh builds K6's int8 tile from the same swizzle, descriptors,
 // ring and dependent-launch rule.
 //
@@ -21,12 +21,18 @@
 // synchronously into its stage instead. Rows of A at or past `nvalid` read
 // nothing and are zero.
 //
-// Dependent launches: the weights are issued first, for the first
-// WG_STAGES - 1 chunks (wg_prefetch_b), because no earlier launch writes
-// them; then grid_dependency_wait(); only then the A operand, which earlier
-// launches write (wg_gemm_main). The caller's epilogue runs after the wait
-// too. K8, one cooperative launch, calls the two halves itself and issues a
-// phase's first weight chunks before the grid barrier that opens the phase.
+// Dependent launches: a launch may read before grid_dependency_wait()
+// anything that the launch just before it does not write. Its blocks start
+// only when every block of that launch has triggered its dependents (never
+// before its own wait) or exited, so what the launches before that one wrote
+// is complete and visible. wg_gemm's launches trigger nothing and use the
+// narrowest form of the rule: the weights' first
+// WG_STAGES - 1 chunks (wg_prefetch_b), which no launch writes, then the
+// wait, then A (wg_gemm_main); the caller's epilogue runs after the wait too.
+// K1 and K5's tile puts everything but the launch before's output in flight
+// before the wait. K8, one cooperative launch, calls the two halves itself
+// and issues a phase's first weight chunks before the grid barrier that
+// opens the phase.
 #pragma once
 
 #include "common.cuh"

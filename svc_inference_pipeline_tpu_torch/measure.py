@@ -158,8 +158,12 @@ def batch_times(pipe, gpu: str) -> None:
 def step_times(cfg, gpu: str) -> None:
     """``--steps``: K1 on one clip of each of STEP_FRAMES at the config's
     denoiser width (random weights from a seed), for each stack mode (bf16,
-    "int8-w1", "int8"): ten steps back to back between CUDA events, the
-    median of ten such loops, measured twice; one JSON line each."""
+    "int8-w1", "int8"): ten steps of one step chain back to back between CUDA
+    events, the median of ten such loops, measured twice; and the host's
+    issue time per step of the DDPM sampler (``ddpm_sample_fused`` over 20
+    steps enqueued behind a ~0.1 s kernel, the median of four; None where the
+    device caught up with the host, which would time the device instead).
+    One JSON line each."""
     import torch
 
     from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import random_init_
@@ -184,17 +188,36 @@ def step_times(cfg, gpu: str) -> None:
         x[..., :cfg.mapper.n_mel] = torch.randn((1, t_len, cfg.mapper.n_mel), generator=g, device=dev)
         z = torch.zeros_like(x)
         row = step_rows[sched.num_steps // 2].contiguous()
+        with torch.no_grad():
+            steps20 = den.precompute(cond, 20, bf)[1]
+        sched20 = DiffusionSchedule.from_factors(list(cfg.mapper.noise_schedule_factors[:2]) + [20])
         for quantize in (None, "int8-w1", "int8"):
             st = ds.stack_denoiser_params(den, bf, quantize)
+            chain = ds._StepChain(st, condb, row[None], x, z)
+            carry = (x.clone(), torch.empty_like(x))
 
             def ten_steps():
-                y = x
-                for _ in range(10):
-                    y = ds.ddpm_step(st, condb, row, y, z, srow)
+                for i in range(10):
+                    chain.step(0, carry[i % 2], z, carry[(i + 1) % 2], srow)
 
             ms = [cuda_ms(ten_steps) / 10 for _ in range(2)]
+            issue = []
+            for rep in range(4):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(200_000_000)  # ~0.1 s of device time ahead of the steps
+                busy = torch.cuda.Event()
+                busy.record()
+                t0 = time.perf_counter()
+                ds.ddpm_sample_fused(st, condb, steps20, sched20, (1, t_len, cfg.mapper.n_mel),
+                                     generator=torch.Generator(device=dev).manual_seed(rep))
+                us = (time.perf_counter() - t0) / 20 * 1e6
+                issue.append(us if not busy.query() else None)
+                torch.cuda.synchronize()
+            ok = [u for u in issue if u is not None]
             print(json.dumps({"card": gpu, "kernel": "K1 ddpm_step", "frames": t_len, "mode": st.mode,
-                              "ms_per_step": ms}), flush=True)
+                              "ms_per_step": ms,
+                              "host_issue_us_per_step": statistics.median(ok) if len(ok) == len(issue) else None}),
+                  flush=True)
 
 
 def back_to_back_ms(fn, n: int = 10, loops: int = 5) -> float:

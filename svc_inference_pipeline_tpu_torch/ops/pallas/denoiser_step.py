@@ -10,11 +10,14 @@ Counterpart of ``svc_inference_pipeline_tpu/ops/pallas/denoiser_step.py``:
   same two entry points on a stack made with ``quantize="int8"`` or
   ``"int8-w1"``.
 
-All are ``csrc/denoiser_step.cu`` (2 + 2L GEMM launches per call with fused
-epilogues; the bf16 launches on the pipelined wgmma tile of
-``csrc/gemm_wg.cuh``, the gate split over its three taps in a cluster of
-three blocks and read from the zero-halo buffer of
-:func:`conv_input_buffer`; the int8 GEMMs on the wgmma s8 tile of
+All are ``csrc/denoiser_step.cu`` (2L + 3 GEMM launches per call with fused
+epilogues; on a bf16 stack every launch on a prefetching wgmma tile, which
+puts all that the launch before it does not write in flight before its
+dependent-launch wait and runs its epilogue from the accumulator registers,
+the gate split over its three taps in a cluster of three blocks and read
+from the zero-halo buffer of :func:`conv_input_buffer`; on an int8 stack the
+bf16 launches on the ring tile of ``csrc/gemm_wg.cuh`` and the int8 GEMMs on
+the wgmma s8 tile of
 ``csrc/gemm_wg_s8.cuh``, whose K-major weights the int8 stacks carry as
 copies, the gate split over its taps in clusters of 3 taps x 2 column tiles
 that quantise the union of their tap boxes from h once, the three int32
@@ -57,11 +60,13 @@ import torch.nn.functional as F
 from svc_inference_pipeline_tpu_torch.models.diffsvc import INV_SQRT2, DiffSVCDenoiser
 from svc_inference_pipeline_tpu_torch.sampling.ddpm import initial_noise
 from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
+from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
 LANE = 128  # mel channels padded to this width in the carry
 QUANTIZE_MODES = (None, "int8", "int8-w1")
 INV_127 = np.float32(1.0 / 127.0)
 INT8_MAX_CHANNELS = 1024  # the int8 tile holds a tap's whole K = C (csrc/gemm_wg_s8.cuh W8_MAX_K)
+BF16_MAX_K = 384  # the prefetching tile holds its whole K = C or M_pad (csrc/denoiser_step.cu PF_NK)
 
 
 class StackedDenoiser(NamedTuple):
@@ -314,6 +319,8 @@ def _check_cuda_args(name, st, condb, step_rows_t, x) -> None:
         raise ValueError(f"{name}: kernel needs k=3 and C, M_pad multiples of 64 (C={c}, M_pad={m_pad})")
     if st.w1s is not None and c > INT8_MAX_CHANNELS:
         raise ValueError(f"{name}: the int8 tile needs C <= {INT8_MAX_CHANNELS} (C={c})")
+    if st.w1s is None and max(c, m_pad) > BF16_MAX_K:
+        raise ValueError(f"{name}: the bf16 tile needs C, M_pad <= {BF16_MAX_K} (C={c}, M_pad={m_pad})")
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     want = {
         "w1": ((n_layers, 3 * c, 2 * c), bf if st.w1s is None else i8),
@@ -372,9 +379,61 @@ def _forward_operands(st, condb, step_rows_t, x):
     return (h, g, s1, skip, amax, y), ptrs, dims
 
 
-def _count(fn, mode: str) -> None:
-    fn.launches += 1
-    fn.launches_by_mode[mode] += 1
+def _count(fn, mode: str, calls: int = 1) -> None:
+    fn.launches += calls
+    fn.launches_by_mode[mode] += calls
+
+
+def launches_per_call(n_layers: int) -> int:
+    """Kernel launches of one K1 or K5 call: the prologue, two a layer, the
+    skip and the output projections."""
+    return 2 * n_layers + 3
+
+
+def _count_launches(st: StackedDenoiser, calls: int) -> None:
+    """``denoiser/launches`` of ``calls`` K1 or K5 calls on ``st``, and
+    ``denoiser/launches_prefetched``, those on the prefetching tiles
+    (``step_pf_kernel``, ``step_gate_kernel``): all of a bf16 stack's, none
+    of an int8 stack's (whose bf16 launches take the ring tile)."""
+    n = calls * launches_per_call(st.w1.shape[0])
+    metrics = Metrics.default()
+    metrics.incr("denoiser/launches", n)
+    metrics.incr("denoiser/launches_prefetched", n if st.w1s is None else 0)
+
+
+class _StepChain:
+    """K1 on one stack over a run of steps of one shape: the operands checked
+    and the scratch allocated once, then one C call a step. The scratch is
+    reused from step to step, which the stream's order makes safe."""
+
+    def __init__(self, st: StackedDenoiser, condb: torch.Tensor, step_rows: torch.Tensor,
+                 x: torch.Tensor, z: torch.Tensor):
+        from svc_inference_pipeline_tpu_torch.ops.pallas import _build
+
+        _build.refuse_autograd("ddpm_step", st, condb, step_rows, x, z)
+        step_rows = step_rows.contiguous()  # kept: the launches read it
+        _check_cuda_args("ddpm_step", st, condb, step_rows[0], x)
+        for key, v in (("x", x), ("z", z)):
+            _check_f32("ddpm_step", key, v, (x.shape[0], x.shape[1], st.wmel.shape[0]))
+        self.st = st
+        self.steps = 0
+        self._scratch, ptrs, self._dims = _forward_operands(st, condb, step_rows[0], x)
+        self._head, self._tail = ptrs[:5], ptrs[6:]  # around the step row's pointer
+        self._step_rows = step_rows
+        self._rows = step_rows.data_ptr()
+        self._row_bytes = step_rows[0].numel() * step_rows.element_size()
+        self._fn = _build.lib().svc_ddpm_step
+        self._check = _build.check
+        self._stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def step(self, k: int, x: torch.Tensor, z: torch.Tensor, out: torch.Tensor, srow: Sequence[float]) -> None:
+        """out = one reverse step of x with noise z on step row k and the five
+        schedule scalars srow; x, z and out as the chain was made for, out
+        not x."""
+        status = self._fn(x.data_ptr(), z.data_ptr(), out.data_ptr(), *self._head,
+                          self._rows + k * self._row_bytes, *self._tail, *self._dims, *srow, self._stream)
+        self._check(status, "svc_ddpm_step")
+        self.steps += 1
 
 
 def ddpm_step(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
@@ -388,21 +447,11 @@ def ddpm_step(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tenso
     """
     if x.device.type == "cpu":
         return ddpm_step_plain(st, condb, step_rows_t, x, z, srow)
-    from svc_inference_pipeline_tpu_torch.ops.pallas import _build
-
-    _build.refuse_autograd("ddpm_step", st, condb, step_rows_t, x, z)
-    _check_cuda_args("ddpm_step", st, condb, step_rows_t, x)
-    for key, v in (("x", x), ("z", z)):
-        _check_f32("ddpm_step", key, v, (x.shape[0], x.shape[1], st.wmel.shape[0]))
-
+    chain = _StepChain(st, condb, step_rows_t[None], x, z)
     out = torch.empty_like(x)
-    _scratch, ptrs, dims = _forward_operands(st, condb, step_rows_t, x)  # alive until enqueued
-    status = _build.lib().svc_ddpm_step(
-        x.data_ptr(), z.data_ptr(), out.data_ptr(), *ptrs, *dims, *(float(v) for v in srow),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(status, "svc_ddpm_step")
+    chain.step(0, x, z, out, [float(v) for v in srow])
     _count(ddpm_step, st.mode)
+    _count_launches(st, 1)
     return out
 
 
@@ -432,6 +481,7 @@ def denoise(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
     )
     _build.check(status, "svc_denoise")
     _count(denoise, st.mode)
+    _count_launches(st, 1)
     return eps
 
 
@@ -452,7 +502,9 @@ def ddpm_sample_fused(st: StackedDenoiser, condb: torch.Tensor, step_rows: torch
     z [steps, B, T, M])`` (x_T already scaled by INIT_NOISE_STD), which tests
     use to feed both frameworks the same draws. With ``st_fp``, the last
     ``tail`` steps run on it (the full-precision stack of an int8 ``st``).
-    Returns x_0 [B, T, M] f32.
+    Returns x_0 [B, T, M] f32. On CUDA each stack's steps are one
+    :class:`_StepChain`: checked and given scratch once, the carry
+    alternating between two buffers.
     """
     b, t_len, n_mel = shape
     m_pad = st.wmel.shape[0]
@@ -462,14 +514,27 @@ def ddpm_sample_fused(st: StackedDenoiser, condb: torch.Tensor, step_rows: torch
     x_t = initial_noise(shape, device, generator, None if noise is None else noise[0])
     x = F.pad(x_t, (0, m_pad - n_mel)).contiguous()
     z = torch.zeros_like(x)
-    rows = schedule_rows(schedule)
+    rows = schedule_rows(schedule).tolist()
+    carry = (x, torch.empty_like(x))
+    chains = {}
     for i in range(num_steps):
         if noise is None:
             z[..., :n_mel].normal_(generator=generator)
         else:
             z[..., :n_mel] = noise[1][i].to(device=device, dtype=torch.float32)
         stack = st if i < num_steps - tail else st_fp
-        x = ddpm_step(stack, condb, step_rows[num_steps - 1 - i], x, z, rows[i])
+        k = num_steps - 1 - i
+        if device.type == "cpu":
+            x = ddpm_step(stack, condb, step_rows[k], x, z, rows[i])
+            continue
+        chain = chains.get(id(stack))
+        if chain is None:
+            chain = chains[id(stack)] = _StepChain(stack, condb, step_rows, x, z)
+        chain.step(k, carry[i % 2], z, carry[(i + 1) % 2], rows[i])
+        x = carry[(i + 1) % 2]
+    for chain in chains.values():
+        _count(ddpm_step, chain.st.mode, chain.steps)
+        _count_launches(chain.st, chain.steps)
     return x[..., :n_mel]
 
 

@@ -270,3 +270,44 @@ def test_forward_plain_traces_the_int8_codes():
         assert all(float(layer["yq"][i].abs().max()) == 127.0 for i in range(2))
     f32 = denoiser_step.forward_plain(st, condb, rows[3], x, kernel_order=False)
     assert (eps - f32).abs().max() <= 2e-2 * f32.abs().max()
+
+
+def _small_stack(quantize, c=64, layers=3):
+    g = torch.Generator().manual_seed(2)
+    cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
+                  diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
+    den = DiffSVCDenoiser(cfg, torch.bfloat16).to(torch.bfloat16)
+    with torch.no_grad():
+        cp, rows = den.precompute(torch.randn((1, 16, c), generator=g), 10, torch.bfloat16)
+        return (denoiser_step.stack_denoiser_params(den, torch.bfloat16, quantize),
+                denoiser_step.fold_conditioner(den, cp, torch.bfloat16), rows)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8-w1", "int8"])
+def test_launch_counters_count_calls_and_the_prefetched_share(quantize):
+    """``denoiser/launches`` adds 2L + 3 kernel launches for each K1 or K5
+    call, ``denoiser/launches_prefetched`` those on the prefetching tile: all
+    of a bf16 stack's, none of an int8 stack's."""
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
+
+    st, _, _ = _small_stack(quantize)
+    counters = Metrics.default().counters
+    before = (counters["denoiser/launches"], counters["denoiser/launches_prefetched"])
+    denoiser_step._count_launches(st, 7)
+    got = (counters["denoiser/launches"] - before[0], counters["denoiser/launches_prefetched"] - before[1])
+    assert denoiser_step.launches_per_call(3) == 9
+    assert got == (63, 63 if quantize is None else 0)
+
+
+def test_bf16_tile_refuses_widths_past_its_resident_k():
+    """The prefetching tile holds its whole K: a bf16 stack wider than 384
+    channels is refused before any launch; an int8 stack of that width is
+    not (its tiles take C up to 1024)."""
+    for quantize in (None, "int8-w1"):
+        st, condb, rows = _small_stack(quantize, c=448, layers=1)
+        x = torch.zeros((1, 16, 128))
+        if quantize is None:
+            with pytest.raises(ValueError, match="bf16 tile needs C, M_pad <= 384"):
+                denoiser_step._check_cuda_args("ddpm_step", st, condb, rows[3], x)
+        else:
+            denoiser_step._check_cuda_args("ddpm_step", st, condb, rows[3], x)

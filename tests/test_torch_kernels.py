@@ -8,6 +8,8 @@ has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import hashlib
+import json
 import math
 import os
 
@@ -328,6 +330,124 @@ def test_k1_is_deterministic(dev):
     srow = (1.2, 0.3, 0.5, 0.4, 0.1)
     first = denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
     assert all(torch.equal(first, denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)) for _ in range(3))
+
+
+@pytest.mark.parametrize("quantize,tail", [(None, 0), ("int8-w1", 4)])
+def test_fused_sampler_equals_k1_step_by_step(dev, quantize, tail):
+    """``ddpm_sample_fused`` checks its operands and allocates its scratch
+    once per stack and alternates two carries: over 10 steps (the last
+    ``tail`` on the bf16 stack of an int8 one) it equals ``ddpm_step``
+    called step by step on the same draws, bit for bit. Its counters: 10 K1
+    calls and 10 (2L + 3) launches, the bf16 stack's all prefetched."""
+    from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
+
+    st, condb, rows, x, g = _denoiser_operands(dev, 2, 100, 128, 5, quantize, conv_fan_in=True)
+    # the same draws stacked in bf16: the unquantised stack of the same denoiser
+    st_fp = _denoiser_operands(dev, 2, 100, 128, 5, None, conv_fan_in=True)[0] if tail else None
+    sched = DiffusionSchedule.from_factors([1e-4, 0.02, 10])
+    x_t = torch.randn(x.shape, generator=g, device=dev)
+    z = torch.randn((10,) + x.shape, generator=g, device=dev)
+    counters = Metrics.default().counters
+    before = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"],
+              counters["denoiser/launches_prefetched"])
+    got = denoiser_step.ddpm_sample_fused(st, condb, rows, sched, x.shape, noise=(x_t, z), st_fp=st_fp, tail=tail)
+    after = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"],
+             counters["denoiser/launches_prefetched"])
+    per_call = denoiser_step.launches_per_call(5)
+    prefetched = 10 if quantize is None else tail
+    assert tuple(a - b for a, b in zip(after, before)) == (10, 10 * per_call, prefetched * per_call)
+    pad = (0, 28)
+    want = torch.nn.functional.pad(x_t, pad).contiguous()
+    srows = denoiser_step.schedule_rows(sched)
+    for i in range(10):
+        stack = st if i < 10 - tail else st_fp
+        zi = torch.nn.functional.pad(z[i], pad).contiguous()
+        want = denoiser_step.ddpm_step(stack, condb, rows[9 - i], want, zi, srows[i])
+    assert torch.equal(got, want[..., :100])
+
+
+# K1/K5 operands drawn on the card from a fixed seed: (B, T, true lengths or
+# None, L) at C = 384. The first two are the benchmark cells' shapes (a 10 s
+# clip, 960 frames; two clips of a served batch padded to 1536 frames).
+DIGEST_CASES = {
+    "b1_t960": (1, 960, None, 20),
+    "b2_t1536_masked": (2, 1536, (1500, 200), 20),
+    "b2_t9": (2, 9, None, 5),
+    "b2_t100": (2, 100, None, 5),
+}
+DIGEST_SEED = 19
+DIGESTS = os.path.join(REPO, "tests", "data", "k1_k5_sha256.json")
+# the schedule rows of K1: the first gives x' - x/2 - z/2 = eps, the second an update as sampling has
+SROWS = ((0.0, -1 / 16, 16.0, 0.5, 0.5), (1.2, 0.3, 0.5, 0.4, 0.1))
+
+
+def _sha256(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _digest_operands(dev, case):
+    """(st, condb, step row, x [B, T, 100], xp and z [B, T, 128]) of a
+    DIGEST_CASES case; with true lengths the conditions are 0 past them."""
+    b, t_len, n_true, layers = DIGEST_CASES[case]
+    st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, 384, layers, None, seed=DIGEST_SEED,
+                                               conv_fan_in=True, n_true=n_true)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
+    return st, condb, rows[3], x, xp, z
+
+
+def k1_k5_digests(dev, case):
+    """sha256 of a case's operands and of K1's (both SROWS) and K5's outputs."""
+    st, condb, row, x, xp, z = _digest_operands(dev, case)
+    out = {"operands": _sha256(*(v for v in st if torch.is_tensor(v)), condb, row, x, xp, z)}
+    for k, srow in enumerate(SROWS):
+        out[f"k1_row{k}"] = _sha256(denoiser_step.ddpm_step(st, condb, row, xp, z, srow))
+    out["k5"] = _sha256(denoiser_step.denoise(st, condb, row, x))
+    return out
+
+
+@pytest.mark.parametrize("case", list(DIGEST_CASES))
+def test_k1_k5_equal_the_recorded_outputs_bit_for_bit(dev, case):
+    """K1 and K5 give the very bits that the kernels before the prefetching
+    tile gave (``tests/data/k1_k5_sha256.json``, written by their build on
+    an H100): the redesign changed where operands are loaded and how the
+    tile is kept, not any element's arithmetic. The operands' own digest is
+    checked first: a PyTorch whose generator or GEMMs draw other operands
+    fails there, not on the kernels."""
+    with open(DIGESTS) as f:
+        want = json.load(f)[case]
+    got = k1_k5_digests(dev, case)
+    assert got["operands"] == want["operands"], "the operands differ from those the digests were made from"
+    assert got == want
+
+
+@pytest.mark.parametrize("case", ["b1_t960", "b2_t1536_masked"])
+def test_k1_k5_at_the_cells_shapes(dev, case):
+    """The benchmark cells' shapes at full depth (C = 384, L = 20): one 10 s
+    clip (T = 960), and two clips padded to T = 1536 whose true lengths are
+    1500 and 200 frames. K1 (on x' - x/2 - z/2 = eps) and K5 per clip to
+    1e-2 of its range against the plain version, each clip's result equal
+    to that clip alone, and two calls equal bit for bit."""
+    st, condb, row, x, xp, z = _digest_operands(dev, case)
+    srow = SROWS[0]
+    eps = denoiser_step.denoise(st, condb, row, x)
+    step = denoiser_step.ddpm_step(st, condb, row, xp, z, srow)
+    ref_eps = denoiser_step.denoise_plain(st, condb, row, x)
+    ref_step = denoiser_step.ddpm_step_plain(st, condb, row, xp, z, srow)
+    for i in range(x.shape[0]):
+        _close(eps, ref_eps, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
+        _close(step, ref_step, tol=lambda m: 1e-2 * m, view=lambda y, i=i: (y - 0.5 * xp - 0.5 * z)[i])
+        one = (condb[:, i:i + 1].contiguous(), row)
+        assert torch.equal(eps[i:i + 1], denoiser_step.denoise(st, *one, x[i:i + 1].contiguous()))
+        assert torch.equal(step[i:i + 1], denoiser_step.ddpm_step(st, *one, xp[i:i + 1].contiguous(),
+                                                                   z[i:i + 1].contiguous(), srow))
+    assert torch.equal(eps, denoiser_step.denoise(st, condb, row, x))
+    assert torch.equal(step, denoiser_step.ddpm_step(st, condb, row, xp, z, srow))
+    assert torch.all(step[..., 100:] == 0)
 
 
 def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):
