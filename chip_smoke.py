@@ -25,7 +25,12 @@
    torch.profiler and the host time to issue them, and ``F.conv1d`` on their
    90 convs, ``conv_library_ms``) and two clips shorter than a pair's two
    halos, K8 the one-launch eps forward at T=944 (against its plain version
-   and K5);
+   and K5), and K1 and K5 on the wide tile at Amphion's BiDilConv widths
+   (C=512, L=40, step encoder 512) at the served cell's shapes
+   (``WIDE_SHAPES``: K1 at B=1, T=960 and B=2, T=1000, whose last tile is
+   partial; K5 at B=2, T=1536 and 1000), each clip to 1e-2 of its range,
+   every launch counted as wide (``denoiser/launches_wide``), with bounds
+   and ``torch.matmul`` on K1's 82 GEMM shapes timed beside it;
 4. drives the main paths, each with the launch counters set to 0 just before
    it and read just after, on a synthetic 4 s clip at full width (random
    weights, Whisper-medium, DiffSVC 20x384, BigVGAN 1536):
@@ -146,6 +151,10 @@
       ``step_embedding``, ``step_encoder_output`` and ``__call__``, the
       output) present and finite, the output bit-equal to an uncaptured
       call's; prints both calls' ms;
+   ag. (after f) the CLI with the denoiser at Amphion's BiDilConv widths
+      (512 x 40, step encoder 512), DDPM-1000 in bf16 (K1 x 1000, K4 x 24,
+      K2 x 6, K3 x 1), whose pipeline then runs ah. PLMS@10 in bf16 (K5 x
+      101): each launch of their K1/K5 calls (83 a call) on the wide tile;
    y-ad and the train step on a mesh (after af): first which of the port's
       collectives gloo takes on CUDA tensors (``gloo_cuda_probe``: 2 ranks on
       cuda:0; NCCL refuses two ranks on one card). Then one spawn of 2 ranks on
@@ -228,6 +237,13 @@ SINGER = "svcc_CDF1"
 WHISPER_SIZE = "medium"
 TPU_KERNELS = "svc_inference_pipeline_tpu/ops/pallas"
 HARNESS_FRAMES = 944  # the TPU harness's clip (perf_kernel3.main)
+# Amphion's DiffWaveNetSVC decoder, which runs on K1's wide tile (K = 512)
+BIDILCONV = {"residual_channels": 512, "residual_layer_num": 40, "diffusion_fc_size": 512}
+WIDE_TAG = "512x40"  # ends the names of the main paths on it
+# (form, B, T) of the wide tile's checks: the served cell's shapes, a clip of
+# 10 s and a batch of two padded to 1536 frames, and two clips of 1000 frames,
+# whose last 64-row tile holds 40 rows
+WIDE_SHAPES = (("K1", 1, 960), ("K1", 2, 1000), ("K5", 2, 1536), ("K5", 2, 1000))
 HARNESS_STEPS = 100
 VOCODER_MIN_CORR = 0.97  # per-block vs K2 waveform (the repo's bf16 tolerance, tests/test_bf16_drift.py)
 # path n: the waveform from the files against the same weights held directly
@@ -431,6 +447,17 @@ def randomize_vectors_(module, generator, scale: float = 0.1) -> None:
                 p.copy_(scale * torch.randn(p.shape, generator=generator, device=generator.device))
 
 
+def bidilconv_config(cfg):
+    """``cfg`` with its denoiser at Amphion's BiDilConv widths (the benchmark's
+    ``amphion-bidil512x40-ddpm1000-bf16``): 512 channels, 40 layers, step
+    encoder 512; the conditioner stays at 384."""
+    from svc_inference_pipeline_tpu_torch.config import HParams
+
+    d = cfg.to_dict()
+    d["mapper"].update(BIDILCONV)
+    return HParams(**d)
+
+
 def random_denoiser(cfg, g, device):
     import torch
 
@@ -492,12 +519,14 @@ def int8_library_ms(st, b: int, t_len: int, g, device) -> float:
 def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     """K1, K5 and K6 at B=1, T=n_frames, C=384, L=20, bf16 compute; K6 also at
     B=2 with the second clip's mel (so its int8 scale) 8x the first's; K8 at
-    B=1, T=HARNESS_FRAMES."""
+    B=1, T=HARNESS_FRAMES; K1 and K5 on the wide tile at C=512, L=40 (fc 512)
+    at WIDE_SHAPES, each clip to its own range, as rows "K1 512x40 B=b T=t"."""
     import torch
 
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step as ds
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_v2 as dv2
     from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
     bf = torch.bfloat16
     n_mel = cfg.mapper.n_mel
@@ -506,13 +535,13 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     t_mid = sched.num_steps // 2
     rows = {}
 
-    def operands(b, quantize, layers=None, t_len=n_frames):
-        """The stack, conditioner blocks and step rows; with ``layers`` cut to
-        the first ``layers`` layers."""
+    def operands(b, quantize, layers=None, t_len=n_frames, net=den):
+        """The stack, conditioner blocks and step rows of ``net``; with
+        ``layers`` cut to the first ``layers`` layers."""
         cond = torch.randn((b, t_len, cfg.mapper.conditioner_size), generator=g, device=device)
-        cond_projs, step_rows = den.precompute(cond, sched.num_steps, bf)
-        st = ds.stack_denoiser_params(den, bf, quantize)
-        condb, srow = ds.fold_conditioner(den, cond_projs, bf), step_rows[t_mid].contiguous()
+        cond_projs, step_rows = net.precompute(cond, sched.num_steps, bf)
+        st = ds.stack_denoiser_params(net, bf, quantize)
+        condb, srow = ds.fold_conditioner(net, cond_projs, bf), step_rows[t_mid].contiguous()
         if layers is not None:
             per_layer = ("w1", "wout", "bout", "w1s", "wouts", "w1_kmajor", "wout_kmajor")
             st = st._replace(**{k: getattr(st, k)[:layers].contiguous() for k in per_layer
@@ -530,24 +559,25 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     # x' - x/2 - z/2, i.e. eps, against the plain version's.
     probe = (0.0, -1.0 / 16.0, 16.0, 0.5, 0.5)
 
-    def ddpm_form(name, quantize):
-        st, condb, srow = operands(1, quantize)
+    def ddpm_form(name, quantize, b=1, t_len=n_frames, net=den):
+        st, condb, srow = operands(b, quantize, t_len=t_len, net=net)
         m_pad = st.wmel.shape[0]
-        x = torch.nn.functional.pad(mel(1), (0, m_pad - n_mel)).contiguous()
-        z = torch.nn.functional.pad(torch.randn((1, n_frames, n_mel), generator=g, device=device),
+        x = torch.nn.functional.pad(mel(b, t_len), (0, m_pad - n_mel)).contiguous()
+        z = torch.nn.functional.pad(torch.randn((b, t_len, n_mel), generator=g, device=device),
                                     (0, m_pad - n_mel)).contiguous()
-        print(f"{name} ddpm_step [1, {n_frames}, {m_pad}] f32 carry, C=384, L=20, {st.mode} stack")
+        print(f"{name} ddpm_step [{b}, {t_len}, {m_pad}] f32 carry, C={st.wskip.shape[0]}, L={st.w1.shape[0]}, "
+              f"{st.mode} stack")
         row = compare(f"{name} eps probe", lambda: ds.ddpm_step(st, condb, srow, x, z, probe),
                       lambda: ds.ddpm_step_plain(st, condb, srow, x, z, probe),
                       EPS_TOL if quantize is None else INT8_TOL[quantize],
-                      views=(lambda y: y - 0.5 * x - 0.5 * z,))
-        row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, 1, n_frames, 3 * x.nbytes)
+                      views=[lambda y, i=i: (y - 0.5 * x - 0.5 * z)[i] for i in range(b)])
+        row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, b, t_len, 3 * x.nbytes)
         # the gate's cluster sum has a fixed order (f32) or is exact (int32), with no
         # atomics: two calls agree bit for bit
         if not torch.equal(ds.ddpm_step(st, condb, srow, x, z, probe), ds.ddpm_step(st, condb, srow, x, z, probe)):
             raise AssertionError(f"{name}: two calls on the same operands differ")
         if quantize is None:
-            row["gemm_library_ms"] = gemm_library_ms(st, 1, n_frames, g, device)
+            row["gemm_library_ms"] = gemm_library_ms(st, b, t_len, g, device)
             print(f"  {name}: torch.matmul on the step's {2 + 2 * st.w1.shape[0]} GEMM shapes "
                   f"(gemm_library_ms) {row['gemm_library_ms']:.4f} ms; {name} / that = "
                   f"{row['ms'] / row['gemm_library_ms']:.3f}")
@@ -562,16 +592,17 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
         print(f"  {name}: torch._int_mm on the step's {n} int8 GEMM shapes (int8_library_ms) "
               f"{row['int8_library_ms']:.4f} ms; {name} / that = {row['ms'] / row['int8_library_ms']:.3f}")
 
-    def eps_form(name, quantize, b=1, layers=None):
-        st, condb, srow = operands(b, quantize, layers)
-        x = mel(b)
-        print(f"{name} denoise [{b}, {n_frames}, {n_mel}] f32, C=384, L={st.w1.shape[0]}, {st.mode} stack")
+    def eps_form(name, quantize, b=1, layers=None, t_len=n_frames, net=den):
+        st, condb, srow = operands(b, quantize, layers, t_len, net)
+        x = mel(b, t_len)
+        print(f"{name} denoise [{b}, {t_len}, {n_mel}] f32, C={st.wskip.shape[0]}, L={st.w1.shape[0]}, "
+              f"{st.mode} stack")
         views = [lambda y, i=i: y[i] for i in range(b)]
         row = compare(f"{name} eps", lambda: ds.denoise(st, condb, srow, x),
                       lambda: ds.denoise_plain(st, condb, srow, x),
                       EPS_TOL if quantize is None else INT8_TOL[quantize], views=views,
                       frames=layers is not None)
-        row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, b, n_frames, 2 * x.nbytes)
+        row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, b, t_len, 2 * x.nbytes)
         if quantize is not None and layers is None:
             library(name, row, st, b)
         if b > 1:
@@ -616,6 +647,20 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     k8.update(k5_ms=k5["plain_ms"], k5_err=k5["max_abs_err"], grid=dv2.denoise_v2.grid)
     k8["bound_ms"], k8["bound_by"] = denoiser_bound(st, condb, 1, HARNESS_FRAMES, 2 * x.nbytes)
     rows["K8"] = k8
+
+    # the wide tile: every launch of a 512-channel stack but the gate runs on it
+    wide = random_denoiser(bidilconv_config(cfg), g, device)
+    counters = Metrics.default().counters
+    for form, b, t_len in WIDE_SHAPES:
+        name = f"{form} 512x40 B={b} T={t_len}"
+        before = (counters["denoiser/launches"], counters["denoiser/launches_wide"])
+        check = ddpm_form if form == "K1" else eps_form
+        rows[name] = check(name, None, b=b, t_len=t_len, net=wide)
+        launched = (counters["denoiser/launches"] - before[0], counters["denoiser/launches_wide"] - before[1])
+        if launched[0] == 0 or launched[1] != launched[0]:
+            raise AssertionError(f"{name}: {launched[1]} of {launched[0]} launches on the wide tile")
+        print(f"  {name}: bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}), "
+              f"{100 * rows[name]['bound_ms'] / rows[name]['ms']:.1f}% of the kernel's time")
     return rows
 
 
@@ -3202,9 +3247,10 @@ def main_paths(cfg, device, voc) -> tuple:
 
     from svc_inference_pipeline_tpu_torch import cli
     from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
-    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import make_denoise_fn
+    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import launches_per_call, make_denoise_fn
     from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
     from svc_inference_pipeline_tpu_torch.utils.audio_io import read_wav
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
     counters = Counters()
     paths = []
@@ -3241,12 +3287,13 @@ def main_paths(cfg, device, voc) -> tuple:
               {"K5 int8-w1": steps // 10 + 1, **common}, paths)
         pipe = built["pipeline"]
 
-        def convert(sampler, quantize, tail=0):
-            pipe.set_quantize(quantize, tail)
+        def convert(sampler, quantize, tail=0, target=None):
+            target = pipe if target is None else target
+            target.set_quantize(quantize, tail)
             gen = torch.Generator(device=device).manual_seed(0)
-            audio = pipe.convert(wav_in, SINGER, generator=gen, sampler=sampler)
+            audio = target.convert(wav_in, SINGER, generator=gen, sampler=sampler)
             check_audio(f"{sampler} {quantize}", audio, n_expected)
-            return dict(pipe.timings)
+            return dict(target.timings)
 
         drive("ddim@10 bf16", counters, lambda: convert("ddim", None), {"K5 bf16": steps // 10, **common}, paths)
         drive("dpmpp@10 int8", counters, lambda: convert("dpmpp", "int8"), {"K5 int8": steps // 10 + 1, **common},
@@ -3281,6 +3328,31 @@ def main_paths(cfg, device, voc) -> tuple:
         drive("cli plms@10 bf16 resblock 2", counters,
               lambda: run_cli("plms_rb2", "--config", cfg2, "--sampler", "plms", "--speedup", "10"),
               {"K5 bf16": steps // 10 + 1, "K4": 24, "K3": len(cfg.vocoder.upsample_rates) * n_act + 1}, paths)
+
+        # the denoiser at Amphion's BiDilConv widths: K1 and K5 on the wide tile
+        cfg_wide = os.path.join(tmp, "config_bidilconv.json")
+        with open(cfg_wide, "w") as f:
+            json.dump(bidilconv_config(cfg).to_dict(), f)
+        wide = {}
+        per_step = launches_per_call(BIDILCONV["residual_layer_num"])
+
+        def on_wide_tile(run, calls):
+            """run(), failing unless its ``calls`` K1/K5 calls launched all
+            their kernels on the wide tile."""
+            metrics = Metrics.default().counters
+            before = (metrics["denoiser/launches"], metrics["denoiser/launches_wide"])
+            timings = run()
+            got = (metrics["denoiser/launches"] - before[0], metrics["denoiser/launches_wide"] - before[1])
+            if got != (calls * per_step,) * 2:
+                raise AssertionError(f"launches, on the wide tile: {got} != {calls * per_step}")
+            return timings
+
+        drive(f"cli ddpm bf16 {WIDE_TAG}", counters,
+              lambda: on_wide_tile(lambda: run_cli("ddpm_wide", "--config", cfg_wide, keep=wide), steps),
+              {"K1 bf16": steps, **common}, paths)
+        drive(f"plms@10 bf16 {WIDE_TAG}", counters,
+              lambda: on_wide_tile(lambda: convert("plms", None, target=wide["pipeline"]), steps // 10 + 1),
+              {"K5 bf16": steps // 10 + 1, **common}, paths)
     checks = {"int8_w1_mel_corr": corr, "chunked_vocoder": chunked,
               "vocoder_per_block": vocoder_paths(cfg, voc, counters, paths, device, clip(cfg.fs, CLIP_SECONDS)),
               "harness": harness_paths(cfg, counters, paths, device)}
@@ -3336,6 +3408,8 @@ def main() -> int:
 
     k6_rows = [v for k, v in rows.items() if k.startswith("K6")]
     rows["K6"] = dict(rows["K6 int8-w1 K5 form"], max_abs_err=max(r["max_abs_err"] for r in k6_rows))
+    wide_launches = {k: sum(p["launches"][f"{k} bf16"] for p in paths if p["path"].endswith(WIDE_TAG))
+                     for k in ("K1", "K5")}
     launches = {
         "K1": total["K1 bf16"], "K5": total["K5 bf16"], "K4": total["K4"], "K2": total["K2"], "K3": total["K3"],
         "K6": sum(total[f"{k} {m}"] for k in ("K1", "K5") for m in ("int8", "int8-w1")),
@@ -3362,6 +3436,12 @@ def main() -> int:
                                              "conv_library_ms", "stages", "kernel_device_ms", "host_issue_ms",
                                              "batch2_ms")
                            if k in r}})
+        if key in wide_launches:
+            # the wide tile's share of the launches, and its checks at WIDE_SHAPES
+            kernels[-1]["wide_launches"] = wide_launches[key]
+            kernels[-1]["wide"] = {k[len(key) + 1:]: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                                          "bound_by", "gemm_library_ms") if f in v}
+                                   for k, v in rows.items() if k.startswith(f"{key} {WIDE_TAG}")}
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")

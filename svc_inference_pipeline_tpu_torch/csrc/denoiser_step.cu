@@ -40,10 +40,11 @@
 //
 // The bf16 launches (K1 and K5) keep the result in the wgmma accumulator
 //   registers and run their epilogue from there. All but the gate run on the
-//   prefetching tile below: the whole K (<= 384) of A resident in shared
-//   memory, B's first three chunks of 64 in shared memory and the rest in
-//   registers. Row tiles go per clip (b, 64-row t tile) and never straddle
-//   two clips.
+//   prefetching tile below: where C and M_pad are at most 384, the whole K of
+//   A resident in shared memory, B's first three chunks of 64 in shared
+//   memory and the rest in registers (PfNarrow); a wider stack (C, M_pad <=
+//   512) runs every launch on the wide tile (PfWide). Row tiles go per clip
+//   (b, 64-row t tile) and never straddle two clips.
 //   - The conv input is ready to copy: the epilogue that writes h (the
 //     prologue for layer 0, the residual epilogue of layer l for layer l+1)
 //     also writes y = bf16(h + step_row[l+1]) into a [B, T + 2*halo, C]
@@ -338,11 +339,31 @@ __global__ void __launch_bounds__(WG_THREADS) step_gemm_wg_kernel(const WgOp op,
 // that the launch just before it does not write in flight, waits, loads that
 // launch's output in one batch, multiplies, and runs its epilogue from the
 // accumulator registers.
-constexpr int PF_NK = 6;                            // chunks of 64 a tile holds: K <= 384
 constexpr int PF_BS = 3;                            // B chunks in shared memory; the rest wait in registers
 constexpr int PF_PIECES = WG_BM * 8 / WG_THREADS;   // 16-byte pieces of one chunk per thread
 constexpr int PF_F32_BATCH = 3;                     // f32 A chunks loaded per round
-constexpr int PF_SMEM_BYTES = (PF_NK + PF_BS) * WG_TILE_BYTES + 1024;  // 73 KB: 3 blocks an SM
+
+// A tile's shape: the whole K, up to NK chunks of 64, resident in A tiles,
+// the B chunks past the first PF_BS in registers; its shared memory and the
+// blocks an SM holds.
+template <int NK_>
+struct PfShape {
+  static constexpr int NK = NK_;
+  static constexpr int SMEM = (NK + PF_BS) * WG_TILE_BYTES + 1024;
+  static constexpr int BLOCKS_PER_SM = 228 * 1024 / (SMEM + 1024) < 3 ? 228 * 1024 / (SMEM + 1024) : 3;
+};
+// C, M_pad <= 384: 73 KB, 3 blocks an SM
+using PfNarrow = PfShape<6>;
+// C, M_pad <= 512: 89 KB, 2 blocks an SM. On an H100 (C = 512, L = 40) it
+// beat K streamed past 384 through a 73 KB tile at 3 blocks an SM (A chunks
+// 6-7 into the tiles of chunks 0-1, B chunks 6-7 reloaded into registers)
+// at B = 2, the served batches' size: 1.98-2.00 against 2.10-2.11 ms a step
+// at T = 960; it matched it at T = 960, B = 1 (1.18-1.20 against 1.18) and
+// lost only where the residual's grid fits one wave at 3 blocks an SM and
+// not at 2 (T = 384, B = 4: 1.76 against 1.60)
+using PfWide = PfShape<8>;
+constexpr int PF_NARROW_K = PfNarrow::NK * WG_BK;
+constexpr int PF_MAX_K = PfWide::NK * WG_BK;
 
 __device__ __forceinline__ uint32_t ldcg32(const void* p) { return __ldcg(static_cast<const unsigned int*>(p)); }
 __device__ __forceinline__ float2 ldcg64(const float* p) { return __ldcg(reinterpret_cast<const float2*>(p)); }
@@ -357,8 +378,10 @@ __device__ __forceinline__ void st64(float* p, float a, float b) { *reinterpret_
 __device__ __forceinline__ int pf_row() { return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2); }
 __device__ __forceinline__ int pf_col() { return 2 * (threadIdx.x & 3); }
 
-__device__ __forceinline__ void cp_async_wait_upto(int n) {  // n: commit groups left in flight, < PF_NK
+__device__ __forceinline__ void cp_async_wait_upto(int n) {  // n: commit groups left in flight, < 8
   switch (n) {
+    case 7: cp_async_wait<7>(); break;
+    case 6: cp_async_wait<6>(); break;
     case 5: cp_async_wait<5>(); break;
     case 4: cp_async_wait<4>(); break;
     case 3: cp_async_wait<3>(); break;
@@ -428,27 +451,27 @@ __device__ __forceinline__ void grid_dependency_trigger() {
 
 enum PfA { PF_A_BOX, PF_A_F32 };  // how load_a fills the A tiles
 
-// acc = A @ B over K = 64 nk (nk <= PF_NK), summed as wg_gemm_loop sums it:
+// acc = A @ B over K = 64 nk (nk <= S::NK), summed as wg_gemm_loop sums it:
 // chunk by chunk, four k16 products a chunk. Before the wait: B's first PF_BS
 // chunks by cp.async, the rest into registers. After it, load_a(As) puts
 // every chunk of A into its own tile at once: PF_A_BOX by cp.async, one
 // commit group a chunk; PF_A_F32 complete when load_a returns. With `early`
 // the launch lets its dependents start right after the wait. B chunk
-// k >= PF_BS goes from registers into the stage of chunk
-// k - PF_BS once every warp has seen that chunk's products complete; one
-// wgmma group stays in flight while the loop moves on.
-template <int AMODE, class LoadA>
+// k >= PF_BS goes from registers into the stage of chunk k - PF_BS once
+// every warp has seen that chunk's products complete; one wgmma group stays
+// in flight while the loop moves on.
+template <int AMODE, class S, class LoadA>
 __device__ __forceinline__ void pf_tile(const WgB& bw, int nk, bool early, uint8_t* smem, float (&acc)[32],
                                         LoadA load_a) {
   uint8_t* As = smem;
-  uint8_t* Bs = smem + PF_NK * WG_TILE_BYTES;
+  uint8_t* Bs = smem + S::NK * WG_TILE_BYTES;
 #pragma unroll
   for (int s = 0; s < PF_BS; ++s)
     if (s < nk) wg_load_b(bw, s * WG_BK, Bs + s * WG_TILE_BYTES);
   cp_async_commit();
-  uint4 breg[PF_NK - PF_BS][PF_PIECES];
+  uint4 breg[S::NK - PF_BS][PF_PIECES];
 #pragma unroll
-  for (int s = 0; s < PF_NK - PF_BS; ++s)
+  for (int s = 0; s < S::NK - PF_BS; ++s)
     if (PF_BS + s < nk) pf_load_b_regs(bw, PF_BS + s, breg[s]);
   grid_dependency_wait();
   if (early) grid_dependency_trigger();
@@ -456,13 +479,13 @@ __device__ __forceinline__ void pf_tile(const WgB& bw, int nk, bool early, uint8
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
 #pragma unroll
-  for (int kt = 0; kt < PF_NK; ++kt) {
+  for (int kt = 0; kt < S::NK; ++kt) {
     if (kt < nk) {
-      cp_async_wait_upto(AMODE == PF_A_BOX ? PF_NK - 1 - kt : 0);  // this thread's copies: A chunk kt, B 0..2
+      cp_async_wait_upto(AMODE == PF_A_BOX ? S::NK - 1 - kt : 0);  // this thread's copies: A chunk kt, B 0..2
       fence_proxy_async();  // ... and its stores, visible to wgmma's async proxy
       __syncthreads();      // for every thread; every warp has seen chunk kt-2's products complete
 #pragma unroll
-      for (int s = 0; s < PF_NK - PF_BS; ++s)  // B chunk kt+1 into the stage of chunk kt-2
+      for (int s = 0; s < S::NK - PF_BS; ++s)  // B chunk kt+1 into the stage of chunk kt-2
         if (PF_BS + s == kt + 1 && kt + 1 < nk) pf_store_b(breg[s], Bs + ((kt + 1) % PF_BS) * WG_TILE_BYTES);
       const uint64_t da = wg_desc(As + kt * WG_TILE_BYTES, 16);
       const uint64_t db = wg_desc(Bs + (kt % PF_BS) * WG_TILE_BYTES, 1024);
@@ -485,8 +508,8 @@ __device__ __forceinline__ void pf_tile(const WgB& bw, int nk, bool early, uint8
 // fragment j + 4 the second half's column C + c. Each epilogue computes every
 // element as the ring tile's epilogue does, the same operations in the same
 // order, and stores two adjacent columns at once.
-template <bool A_F32, int EPI>
-__global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? 3 : 1)
+template <bool A_F32, int EPI, class S>
+__global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? S::BLOCKS_PER_SM : 1)
     step_pf_kernel(const WgOp op, const StepEpi e, const bool early) {
   extern __shared__ uint8_t wg_smem[];
   uint8_t* smem = align1024(wg_smem);
@@ -508,7 +531,7 @@ __global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? 3 : 1)
   const WgB bw{op.w, op.ldw, op.half > 0 ? bx * 32 : bx * WG_BN, op.half > 0 ? op.half + bx * 32 : bx * WG_BN + 32};
   auto box_a = [&](uint8_t* As) {  // A a 64-row box of bf16 rows
 #pragma unroll
-    for (int kt = 0; kt < PF_NK; ++kt) {
+    for (int kt = 0; kt < S::NK; ++kt) {
       if (kt < nk) wg_load_a<false>(a, kt * WG_BK, As + kt * WG_TILE_BYTES);
       cp_async_commit();  // group 1 + kt
     }
@@ -535,7 +558,7 @@ __global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? 3 : 1)
         }
       }
     }
-    pf_tile<PF_A_BOX>(bw, nk, early, smem, acc, box_a);
+    pf_tile<PF_A_BOX, S>(bw, nk, early, smem, acc, box_a);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = row + 8 * h;
@@ -578,17 +601,17 @@ __global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? 3 : 1)
     }
     uint32_t nrow[8] = {};  // the prologue's step row, after the wait
     if constexpr (A_F32) {  // the prologue and the skip projection
-      pf_tile<PF_A_F32>(bw, nk, early, smem, acc, [&](uint8_t* As) {
+      pf_tile<PF_A_F32, S>(bw, nk, early, smem, acc, [&](uint8_t* As) {
         if (e.y_out != nullptr) {
 #pragma unroll
           for (int j = 0; j < 8; ++j) nrow[j] = ldcg32(e.next_row + bx * WG_BN + 8 * j + col);
         }
 #pragma unroll
-        for (int k0 = 0; k0 < PF_NK; k0 += PF_F32_BATCH)
+        for (int k0 = 0; k0 < S::NK; k0 += PF_F32_BATCH)
           if (k0 < nk) pf_f32_chunks(a, k0, nk, As);
       });
     } else {
-      pf_tile<PF_A_BOX>(bw, nk, early, smem, acc, box_a);
+      pf_tile<PF_A_BOX, S>(bw, nk, early, smem, acc, box_a);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -965,14 +988,14 @@ int big_smem(Kernel kernel, int smem) {
   return resident_blocks(kernel, smem);
 }
 
-template <bool A_F32, int EPI>
+template <bool A_F32, int EPI, class S>
 void launch_pf(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
-  auto kernel = step_pf_kernel<A_F32, EPI>;
-  static const int resident = big_smem(kernel, PF_SMEM_BYTES);
+  auto kernel = step_pf_kernel<A_F32, EPI, S>;
+  static const int resident = big_smem(kernel, S::SMEM);
   const int ny = op.half > 0 ? op.half / 32 : op.N / WG_BN;
   const dim3 grid(B * cdiv(e.T, WG_BM), ny);
   const bool early = (int)(grid.x * grid.y) <= resident;
-  launch_ex(kernel, grid, dim3(WG_THREADS), PF_SMEM_BYTES, dim3(1), s, op, e, early);
+  launch_ex(kernel, grid, dim3(WG_THREADS), S::SMEM, dim3(1), s, op, e, early);
 }
 
 void launch_gate(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
@@ -1018,7 +1041,8 @@ struct Forward {
 };
 
 // Prologue, the L layers and the skip projection on a bf16 stack (the
-// prefetching tile): s1 is then ready for the output projection.
+// prefetching tile of shape S): s1 is then ready for the output projection.
+template <class S>
 void run_body_bf16(const Forward& f, cudaStream_t st) {
   const int M = f.B * f.T;
   const int C = f.C;
@@ -1029,7 +1053,7 @@ void run_body_bf16(const Forward& f, cudaStream_t st) {
   StepEpi pro{};
   pro.out = f.h; pro.ldo = C; pro.bias = f.bmel; pro.zero_f32 = f.skip; pro.T = f.T;
   pro.next_row = f.step_rows_t; pro.y_out = f.y; pro.halo = halo;
-  launch_pf<true, EPI_RELU>(plain_op(f.x_in, f.mp, f.wmel, C, 0, C, f.mp), pro, f.B, st);
+  launch_pf<true, EPI_RELU, S>(plain_op(f.x_in, f.mp, f.wmel, C, 0, C, f.mp), pro, f.B, st);
 
   for (int l = 0; l < f.L; ++l) {
     StepEpi ge{};
@@ -1042,13 +1066,28 @@ void run_body_bf16(const Forward& f, cudaStream_t st) {
     if (l + 1 < f.L) {
       re.next_row = f.step_rows_t + (size_t)(l + 1) * C; re.y_out = f.y; re.halo = halo;
     }
-    launch_pf<false, EPI_RESSKIP>(plain_op(f.g, C, wout + (size_t)l * C * 2 * C, 2 * C, C, 2 * C, C), re, f.B, st);
+    launch_pf<false, EPI_RESSKIP, S>(plain_op(f.g, C, wout + (size_t)l * C * 2 * C, 2 * C, C, 2 * C, C), re, f.B,
+                                     st);
   }
 
   StepEpi sk{};
   sk.out = f.s1; sk.ldo = C; sk.bias = f.bskip; sk.T = f.T;
   const float inv_sqrt_l = (float)(1.0 / sqrt((double)f.L));
-  launch_pf<true, EPI_RELU>(plain_op(f.skip, C, f.wskip, C, 0, C, C, inv_sqrt_l), sk, f.B, st);
+  launch_pf<true, EPI_RELU, S>(plain_op(f.skip, C, f.wskip, C, 0, C, C, inv_sqrt_l), sk, f.B, st);
+}
+
+// A bf16 stack's whole forward, ending with the output projection's
+// epilogue `oe` (DDPM update or eps): every launch but the gate on the
+// narrow tile where C, mp <= PF_NARROW_K, else on the wide one
+template <int EPI>
+void run_bf16(const Forward& f, const WgOp& out, const StepEpi& oe, cudaStream_t st) {
+  if (f.C <= PF_NARROW_K && f.mp <= PF_NARROW_K) {
+    run_body_bf16<PfNarrow>(f, st);
+    launch_pf<false, EPI, PfNarrow>(out, oe, f.B, st);
+  } else {
+    run_body_bf16<PfWide>(f, st);
+    launch_pf<false, EPI, PfWide>(out, oe, f.B, st);
+  }
 }
 
 // The same on an int8 stack (K6): the int8 GEMMs on the s8 tile, the bf16
@@ -1101,10 +1140,10 @@ void run_body_i8(const Forward& f, cudaStream_t st) {
 }
 
 // The widths a stack's tiles take: K = C <= W8_MAX_K for the int8 tile, and
-// K = C and K = mp <= PF_NK * 64 for the prefetching tile, which holds its
-// whole K (K6's bf16 launches run on the ring tile, which takes any K)
+// K = C and K = mp <= PF_MAX_K for the prefetching tiles (K6's bf16 launches
+// run on the ring tile, which takes any K)
 bool shapes_ok(const Forward& f) {
-  return f.w1s != nullptr ? f.C <= W8_MAX_K : f.C <= PF_NK * WG_BK && f.mp <= PF_NK * WG_BK;
+  return f.w1s != nullptr ? f.C <= W8_MAX_K : f.C <= PF_MAX_K && f.mp <= PF_MAX_K;
 }
 
 }  // namespace
@@ -1133,7 +1172,7 @@ using svc::bf16;
 // bf16 [L, B*T, 2C]; wout: bf16 [L, C, 2C], or the int8 K-major copy
 // [L, 2C, C] (then wouts f32 [L, 2C]); bout: bf16 [L, 2C]; wmel [mp, C], bmel
 // [C], wskip [C, C], bskip [C], wo [C, mp], bo [mp], all bf16. C and mp are
-// multiples of 64, C <= W8_MAX_K on an int8 stack and C, mp <= 384 on a bf16
+// multiples of 64, C <= W8_MAX_K on an int8 stack and C, mp <= 512 on a bf16
 // stack. s0..s4: this step's schedule scalars.
 extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SVC_FORWARD_PARAMS,
                              float s0, float s1c, float s2, float s3, float s4, void* stream) {
@@ -1149,8 +1188,7 @@ extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SV
     run_body_i8(f, st);
     launch_wg<false, EPI_DDPM>(out, dd, B, st);
   } else {
-    run_body_bf16(f, st);
-    launch_pf<false, EPI_DDPM>(out, dd, B, st);
+    run_bf16<EPI_DDPM>(f, out, dd, st);
   }
   return (int)cudaGetLastError();
 }
@@ -1170,8 +1208,7 @@ extern "C" int svc_denoise(const float* x_in, float* eps, SVC_FORWARD_PARAMS, in
     run_body_i8(f, st);
     launch_wg<false, EPI_EPS>(out, ee, B, st);
   } else {
-    run_body_bf16(f, st);
-    launch_pf<false, EPI_EPS>(out, ee, B, st);
+    run_bf16<EPI_EPS>(f, out, ee, st);
   }
   return (int)cudaGetLastError();
 }

@@ -66,7 +66,10 @@ LANE = 128  # mel channels padded to this width in the carry
 QUANTIZE_MODES = (None, "int8", "int8-w1")
 INV_127 = np.float32(1.0 / 127.0)
 INT8_MAX_CHANNELS = 1024  # the int8 tile holds a tap's whole K = C (csrc/gemm_wg_s8.cuh W8_MAX_K)
-BF16_MAX_K = 384  # the prefetching tile holds its whole K = C or M_pad (csrc/denoiser_step.cu PF_NK)
+# the prefetching tiles take K = C or M_pad up to this (csrc/denoiser_step.cu PF_MAX_K), the
+# narrow one up to BF16_NARROW_K (PF_NARROW_K); a wider stack runs on the wide tile
+BF16_MAX_K = 512
+BF16_NARROW_K = 384
 
 
 class StackedDenoiser(NamedTuple):
@@ -390,15 +393,24 @@ def launches_per_call(n_layers: int) -> int:
     return 2 * n_layers + 3
 
 
+def is_wide(st: StackedDenoiser) -> bool:
+    """Whether a bf16 stack runs on the wide prefetching tile: its K, C or
+    M_pad, past BF16_NARROW_K."""
+    return st.w1s is None and max(st.wskip.shape[0], st.wmel.shape[0]) > BF16_NARROW_K
+
+
 def _count_launches(st: StackedDenoiser, calls: int) -> None:
-    """``denoiser/launches`` of ``calls`` K1 or K5 calls on ``st``, and
+    """``denoiser/launches`` of ``calls`` K1 or K5 calls on ``st``;
     ``denoiser/launches_prefetched``, those on the prefetching tiles
     (``step_pf_kernel``, ``step_gate_kernel``): all of a bf16 stack's, none
-    of an int8 stack's (whose bf16 launches take the ring tile)."""
+    of an int8 stack's (whose bf16 launches take the ring tile); and
+    ``denoiser/launches_wide``, those of a stack whose K exceeds
+    BF16_NARROW_K (:func:`is_wide`)."""
     n = calls * launches_per_call(st.w1.shape[0])
     metrics = Metrics.default()
     metrics.incr("denoiser/launches", n)
     metrics.incr("denoiser/launches_prefetched", n if st.w1s is None else 0)
+    metrics.incr("denoiser/launches_wide", n if is_wide(st) else 0)
 
 
 class _StepChain:

@@ -34,7 +34,9 @@ and padded frames (``frames_true``, ``frames_padded``). They are read from
 the call's spans (``utils/observability.py``): ``pipeline.call``, and in it
 ``pipeline.load``, ``frontend.device``, ``frontend.f0_wait``,
 ``frontend.upload``, ``sampling``, ``vocoder`` and ``pipeline.download``,
-with ``frontend.f0`` a clip on the F0 thread.
+with ``frontend.f0`` a clip on the F0 thread. ``sampling`` carries the
+denoiser's ``channels`` and ``layers`` and the kernel launches its K1/K5
+calls issued (``launches``; 0 on the composed and GPipe routes).
 """
 
 from __future__ import annotations
@@ -594,12 +596,17 @@ class SVCPipeline:
         """This rank's conversion of a padded feature batch (see
         :meth:`_convert_core`)."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
-        with trace("sampling") as sampling:
+        mcfg = self.cfg.mapper
+        counters = Metrics.default().counters
+        with trace("sampling", channels=mcfg.residual_channels, layers=mcfg.residual_layer_num) as sampling:
+            launched = counters["denoiser/launches"]
             cond = self.cond_encoder(batch, self._tp_group)
             shape = (cond.shape[0], n_frames, self.cfg.mapper.n_mel)
             denoise_fn = self._denoise_fn(cond, composed)
             mel_norm = self._run_sampler(denoise_fn, cond, shape, sampler, speedup, generator, noise)
             _sync(self.device)
+            # the K1/K5 launches of this call: the device lock keeps other calls' out
+            sampling.attrs["launches"] = int(counters["denoiser/launches"] - launched)
         with trace("vocoder") as vocoding:
             lo, hi = self._mel_min, self._mel_max
             mel = (mel_norm + 1.0) / 2.0 * (hi - lo + 1e-12) + lo

@@ -300,14 +300,19 @@ def test_launch_counters_count_calls_and_the_prefetched_share(quantize):
 
 
 def test_bf16_tile_refuses_widths_past_its_resident_k():
-    """The prefetching tile holds its whole K: a bf16 stack wider than 384
-    channels is refused before any launch; an int8 stack of that width is
-    not (its tiles take C up to 1024)."""
+    """The prefetching tiles hold K up to 512: a bf16 stack of 512 channels
+    (the wide tile) passes the check, the first width past it (576) is
+    refused before any launch; an int8 stack of that width is not (its
+    tiles take C up to 1024)."""
+    assert denoiser_step.BF16_MAX_K == 512
+    x = torch.zeros((1, 16, 128))
+    st, condb, rows = _small_stack(None, c=512, layers=1)
+    denoiser_step._check_cuda_args("ddpm_step", st, condb, rows[3], x)
+    assert denoiser_step.is_wide(st)
     for quantize in (None, "int8-w1"):
-        st, condb, rows = _small_stack(quantize, c=448, layers=1)
-        x = torch.zeros((1, 16, 128))
+        st, condb, rows = _small_stack(quantize, c=576, layers=1)
         if quantize is None:
-            with pytest.raises(ValueError, match="bf16 tile needs C, M_pad <= 384"):
+            with pytest.raises(ValueError, match="bf16 tile needs C, M_pad <= 512"):
                 denoiser_step._check_cuda_args("ddpm_step", st, condb, rows[3], x)
         else:
             denoiser_step._check_cuda_args("ddpm_step", st, condb, rows[3], x)

@@ -94,7 +94,8 @@ def test_k1_ddpm_step(dev, b, t_len, c, layers):
             assert torch.all(got[..., 100:] == 0)
 
 
-def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=False, n_true=None):
+def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=False, n_true=None, fc=128,
+                       growth=8.0):
     """A random denoiser stacked for the kernels (bf16, or int8 with
     ``quantize``), its conditioner and step rows, and x [b, t_len, 100] f32
     whose element i is scaled by 8^i, so that a second element's int8 scale
@@ -103,10 +104,11 @@ def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=F
     init draws them (with n = 3 a deep stack is chaotic: bf16 rounding
     differences double from layer to layer). With ``n_true`` the condition
     of element i is 0 past its n_true[i] frames, as a batch's masked
-    features leave it."""
+    features leave it. ``fc``: the step encoder's width; ``growth``: the
+    factor between two elements' scales of x."""
     g = torch.Generator(device=dev).manual_seed(seed)
     cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
-                  diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
+                  diffusion_fc_size=fc, dilation_cycle_length=4, residual_kernel_size=3)
     with torch.device(dev):
         den = DiffSVCDenoiser(cfg, BF)
     with torch.no_grad():
@@ -120,7 +122,7 @@ def _denoiser_operands(dev, b, t_len, c, layers, quantize, seed=0, conv_fan_in=F
         cp, rows = den.precompute(cond, 10, BF)
         st = denoiser_step.stack_denoiser_params(den, BF, quantize)
         condb = denoiser_step.fold_conditioner(den, cp, BF)
-    scale = (8.0 ** torch.arange(b, device=dev)).view(b, 1, 1)
+    scale = (growth ** torch.arange(b, device=dev)).view(b, 1, 1)
     x = scale * torch.randn((b, t_len, 100), generator=g, device=dev)
     return st, condb, rows, x, g
 
@@ -368,13 +370,18 @@ def test_fused_sampler_equals_k1_step_by_step(dev, quantize, tail):
 
 
 # K1/K5 operands drawn on the card from a fixed seed: (B, T, true lengths or
-# None, L) at C = 384. The first two are the benchmark cells' shapes (a 10 s
-# clip, 960 frames; two clips of a served batch padded to 1536 frames).
+# None, L, C). The first two are the C = 384 benchmark cells' shapes (a 10 s
+# clip, 960 frames; two clips of a served batch padded to 1536 frames); the
+# c512 cases are the same shapes on the wide tile (C = 512, L = 40), whose
+# digests its first build on an H100 wrote.
 DIGEST_CASES = {
-    "b1_t960": (1, 960, None, 20),
-    "b2_t1536_masked": (2, 1536, (1500, 200), 20),
-    "b2_t9": (2, 9, None, 5),
-    "b2_t100": (2, 100, None, 5),
+    "b1_t960": (1, 960, None, 20, 384),
+    "b2_t1536_masked": (2, 1536, (1500, 200), 20, 384),
+    "b2_t9": (2, 9, None, 5, 384),
+    "b2_t100": (2, 100, None, 5, 384),
+    "c512_b1_t960": (1, 960, None, 40, 512),
+    "c512_b2_t1536_masked": (2, 1536, (1500, 200), 40, 512),
+    "c512_b2_t100": (2, 100, None, 5, 512),
 }
 DIGEST_SEED = 19
 DIGESTS = os.path.join(REPO, "tests", "data", "k1_k5_sha256.json")
@@ -392,8 +399,8 @@ def _sha256(*tensors):
 def _digest_operands(dev, case):
     """(st, condb, step row, x [B, T, 100], xp and z [B, T, 128]) of a
     DIGEST_CASES case; with true lengths the conditions are 0 past them."""
-    b, t_len, n_true, layers = DIGEST_CASES[case]
-    st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, 384, layers, None, seed=DIGEST_SEED,
+    b, t_len, n_true, layers, c = DIGEST_CASES[case]
+    st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, c, layers, None, seed=DIGEST_SEED,
                                                conv_fan_in=True, n_true=n_true)
     xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
     z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
@@ -415,9 +422,10 @@ def test_k1_k5_equal_the_recorded_outputs_bit_for_bit(dev, case):
     """K1 and K5 give the very bits that the kernels before the prefetching
     tile gave (``tests/data/k1_k5_sha256.json``, written by their build on
     an H100): the redesign changed where operands are loaded and how the
-    tile is kept, not any element's arithmetic. The operands' own digest is
-    checked first: a PyTorch whose generator or GEMMs draw other operands
-    fails there, not on the kernels."""
+    tile is kept, not any element's arithmetic. At C = 512 the digests are
+    the wide tile's own. The operands' own digest is checked first: a
+    PyTorch whose generator or GEMMs draw other operands fails there, not on
+    the kernels."""
     with open(DIGESTS) as f:
         want = json.load(f)[case]
     got = k1_k5_digests(dev, case)
@@ -448,6 +456,45 @@ def test_k1_k5_at_the_cells_shapes(dev, case):
     assert torch.equal(eps, denoiser_step.denoise(st, condb, row, x))
     assert torch.equal(step, denoiser_step.ddpm_step(st, condb, row, xp, z, srow))
     assert torch.all(step[..., 100:] == 0)
+
+
+# Amphion's BiDilConv at its published widths (C = 512, L = 40, step encoder
+# 512) on the wide tile: every 64-row tile whole at T in {64, 384, 960,
+# 1024}, and partial tiles at T = 9 and 1000
+_WIDE_SHAPES = [(b, t) for t in (64, 384, 960, 1024) for b in (1, 2, 8)] + [(2, 9), (2, 1000), (8, 1000)]
+
+
+@pytest.mark.parametrize("b,t_len", _WIDE_SHAPES)
+def test_k1_k5_at_the_bidilconv_widths(dev, b, t_len):
+    """K1 (on x' - x/2 - z/2 = eps) and K5 at C = 512, L = 40 against their
+    plain versions, each clip to 1e-2 of its range: the kernel and the plain
+    version round the same f32 sums to bf16 after summing them in another
+    order, and 40 layers carry those ulps on through h (as the 20-layer
+    cells' 1e-2 allows for). The second clip's result equals that clip alone
+    (its tiles and halos are its own), and the stack is counted as wide."""
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
+
+    st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, 512, 40, None, conv_fan_in=True, fc=512,
+                                               growth=2.0)
+    assert denoiser_step.is_wide(st)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
+    counters = Metrics.default().counters
+    before = counters["denoiser/launches_wide"]
+    eps = denoiser_step.denoise(st, condb, rows[3], x)
+    ref_eps = denoiser_step.denoise_plain(st, condb, rows[3], x)
+    for i in range(b):
+        _close(eps, ref_eps, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
+    srow = SROWS[0]
+    step = denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
+    ref_step = denoiser_step.ddpm_step_plain(st, condb, rows[3], xp, z, srow)
+    for i in range(b):
+        _close(step, ref_step, tol=lambda m: 1e-2 * m, view=lambda y, i=i: (y - 0.5 * xp - 0.5 * z)[i])
+    assert torch.all(step[..., 100:] == 0)
+    if b > 1:
+        one = (condb[:, 1:2].contiguous(), rows[3])
+        assert torch.equal(eps[1:2], denoiser_step.denoise(st, *one, x[1:2].contiguous()))
+    assert counters["denoiser/launches_wide"] - before == (2 + (b > 1)) * denoiser_step.launches_per_call(40)
 
 
 def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -355,10 +355,11 @@ def test_exported_start_matches_the_profiler_event():
 # The benchmark's readers of the new spans
 # ---------------------------------------------------------------------------
 
-NEW_METRICS = {"frontend.f0_ms_per_audio_s.tput": {"ddpm1000-offline-10s", "ddpm1000-serve-closed8"},
-               "frontend.f0_wait_ms_per_audio_s.tput": {"ddpm1000-offline-10s", "ddpm1000-serve-closed8"},
-               "server.queue_wait_ms.tput": {"ddpm1000-serve-closed8"},
-               "server.groups_per_drain.tput": {"ddpm1000-serve-closed8"}}
+WIDE = "bidil512x40-ddpm1000-serve-closed8"
+NEW_METRICS = {"frontend.f0_ms_per_audio_s.tput": {"ddpm1000-offline-10s", "ddpm1000-serve-closed8", WIDE},
+               "frontend.f0_wait_ms_per_audio_s.tput": {"ddpm1000-offline-10s", "ddpm1000-serve-closed8", WIDE},
+               "server.queue_wait_ms.tput": {"ddpm1000-serve-closed8", WIDE},
+               "server.groups_per_drain.tput": {"ddpm1000-serve-closed8", WIDE}}
 
 
 @pytest.mark.parametrize("cell", ["ddpm1000-offline-10s", "ddpm1000-serve-closed8"])
@@ -409,3 +410,88 @@ def test_readers_find_nothing_in_a_program_without_the_spans():
                  program_spans.queue_wait_ms, program_spans.groups_per_drain):
         assert read(run) is None
     assert program_spans.f0_ms_per_audio_s(SimpleNamespace(window_calls=lambda: [], fs=24000)) is None
+
+
+# ---------------------------------------------------------------------------
+# The wide tile's counter, the sampling span's attributes and their reader
+# ---------------------------------------------------------------------------
+
+
+def _stack(c, layers):
+    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
+    from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
+
+    cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
+                  diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
+    return denoiser_step.stack_denoiser_params(DiffSVCDenoiser(cfg, torch.bfloat16).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("c,layers,wide", [(512, 40, True), (384, 20, False)])
+def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatch, c, layers, wide):
+    """Ten K1 calls' counting on a 512 x 40 stack (the wide tile) and a
+    384 x 20 one, made inside a conversion's sampler: ``denoiser/launches``
+    and the ``sampling`` span's ``launches`` add 10 (2L + 3) each,
+    ``denoiser/launches_wide`` as many on the wide stack and none on the
+    other; the ``vocoder`` span after it counts nothing."""
+    from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
+
+    st = _stack(c, layers)
+    assert denoiser_step.is_wide(st) == wide
+    run_sampler = tiny_pipe._run_sampler
+
+    def counted(*args):
+        denoiser_step._count_launches(st, 10)
+        return run_sampler(*args)
+
+    monkeypatch.setattr(tiny_pipe, "_run_sampler", counted)
+    counters = obs.Metrics.default().counters
+    before = (counters["denoiser/launches"], counters["denoiser/launches_wide"])
+    t0 = time.perf_counter_ns()
+    tiny_pipe.convert(synth_clip(24000, 0.5), SINGER, generator=torch.Generator().manual_seed(0))
+    spans = _call_spans(t0)
+    n = 10 * denoiser_step.launches_per_call(layers)
+    assert n == 10 * (2 * layers + 3)
+    (sampling,), (vocoder,) = spans["sampling"], spans["vocoder"]
+    assert sampling.attrs == {"channels": 64, "layers": 2, "launches": n}
+    assert vocoder.attrs == {}
+    assert (counters["denoiser/launches"] - before[0], counters["denoiser/launches_wide"] - before[1]) == (
+        n, n if wide else 0)
+
+
+def test_sampling_span_carries_the_denoisers_widths(tiny_pipe):
+    """A conversion's ``sampling`` span names the denoiser's channels and
+    layers; on the CPU no kernel runs, so its launches are 0."""
+    t0 = time.perf_counter_ns()
+    tiny_pipe.convert(synth_clip(24000, 0.5), SINGER, generator=torch.Generator().manual_seed(0))
+    (sampling,) = _call_spans(t0)["sampling"]
+    assert sampling.attrs == {"channels": 64, "layers": 2, "launches": 0}
+
+
+def _us_per_launch():
+    from portbench.harness import load_module
+
+    return load_module(ROOT / "portbench" / "metrics" / "denoiser.us_per_launch.tput.py", "us_per_launch").read
+
+
+def test_us_per_launch_reader_on_synthetic_spans():
+    """``denoiser.us_per_launch.tput``: the window's ``sampling`` seconds
+    over their launches, counting only the spans that launched K1/K5; None
+    where no call of the window did, or where the spans carry no count (a
+    program before the attribute)."""
+    from types import SimpleNamespace
+
+    read = _us_per_launch()
+    now = time.perf_counter_ns()
+    t0 = now + 10**9  # a window of its own, past every span recorded so far
+    obs.record_span("sampling", t0 + 1 * US, t0 + 831 * US, launches=83)  # 10 us a launch
+    obs.record_span("sampling", t0 + 1000 * US, t0 + 1860 * US, launches=43 * 2)
+    obs.record_span("sampling", t0 + 2000 * US, t0 + 9000 * US, launches=0)  # the composed route
+    obs.record_span("vocoder", t0 + 9000 * US, t0 + 9500 * US, launches=7)
+    run = SimpleNamespace(t0=t0 / 1e9, t_close=(t0 + 10_000 * US) / 1e9)
+    assert read(run) == pytest.approx(1e6 * (830 + 860) * 1e-6 / (83 + 86))
+    empty = SimpleNamespace(t0=(t0 + 1500 * US) / 1e9, t_close=(t0 + 1600 * US) / 1e9)
+    assert read(empty) is None
+    t1 = t0 + 20_000 * US
+    obs.record_span("sampling", t1 + 1 * US, t1 + 500 * US)  # no launches attribute
+    obs.record_span("sampling", t1 + 600 * US, t1 + 900 * US, launches=0)
+    assert read(SimpleNamespace(t0=t1 / 1e9, t_close=(t1 + 1000 * US) / 1e9)) is None

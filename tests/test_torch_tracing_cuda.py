@@ -67,3 +67,34 @@ def test_cli_profile_puts_the_idle_time_under_spans(dev, tmp_path):
         idle = json.load(f)
     print(json.dumps(idle))
     assert idle["idle_s"] > 0 and idle["covered_share"] >= COVERED, idle
+
+
+@pytest.mark.parametrize("c,layers,fc,wide", [(512, 40, 512, True), (384, 20, 128, False)])
+def test_sampling_span_counts_the_k1_launches_of_a_conversion(dev, c, layers, fc, wide):
+    """A 1 s conversion over 4 DDPM steps on K1, with the denoiser at
+    Amphion's BiDilConv widths (512 x 40, the wide tile) and at the
+    reference's (384 x 20): its ``sampling`` span names the widths and
+    counts 4 (2L + 3) launches, ``denoiser/launches`` grows by as many, and
+    ``denoiser/launches_wide`` by as many on the wide stack, else by 0."""
+    from svc_inference_pipeline_tpu_torch.config import HParams, load_config
+    from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
+
+    d = load_config(os.path.join(REPO, "config", "config.json")).to_dict()
+    for k in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):
+        d[k] = os.path.join(REPO, d[k].lstrip("./"))
+    d["mapper"].update(noise_schedule_factors=[0.0001, 0.02, 4], residual_layer_num=layers, residual_channels=c,
+                       diffusion_fc_size=fc, sampler="ddpm")
+    d["vocoder"]["upsample_initial_channel"] = 512  # K2 takes multiples of 8 channels: 8 at the last stage
+    pipe = SVCPipeline.from_config(HParams(**d), random_weights=True, device="cuda")
+    counters = obs.Metrics.default().counters
+    clip = synth_clip(24000, 1.0)
+    pipe.convert(clip, "svcc_CDF1", generator=torch.Generator(device=dev).manual_seed(0))  # build, first calls
+    before = (counters["denoiser/launches"], counters["denoiser/launches_wide"])
+    t0 = time.perf_counter_ns()
+    pipe.convert(clip, "svcc_CDF1", generator=torch.Generator(device=dev).manual_seed(1))
+    (sampling,) = obs.spans(t0, name="sampling")
+    n = 4 * denoiser_step.launches_per_call(layers)
+    assert sampling.attrs == {"channels": c, "layers": layers, "launches": n}
+    assert (counters["denoiser/launches"] - before[0], counters["denoiser/launches_wide"] - before[1]) == (
+        n, n if wide else 0)
