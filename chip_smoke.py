@@ -30,10 +30,16 @@
    (``WIDE_SHAPES``: K1 at B=1, T=960 and B=2, T=1000, whose last tile is
    partial; K5 at B=2, T=1536 and 1000), each clip to 1e-2 of its range,
    every launch counted as wide (``denoiser/launches_wide``), with bounds
-   and ``torch.matmul`` on K1's 82 GEMM shapes timed beside it;
+   and ``torch.matmul`` on K1's 82 GEMM shapes timed beside it, and K9
+   (Praat F0 and the median shift) on synthetic tones of 10 s at B=1 and
+   10 s + 16 s at B=2, the batch bit for bit against its plain version and
+   against each clip alone, each clip against the host route's numpy
+   tracker (voicing and cents), which is timed beside it (``plain_ms``);
 4. drives the main paths, each with the launch counters set to 0 just before
    it and read just after, on a synthetic 4 s clip at full width (random
-   weights, Whisper-medium, DiffSVC 20x384, BigVGAN 1536):
+   weights, Whisper-medium, DiffSVC 20x384, BigVGAN 1536); each
+   conversion's front-end call below also launches K9 three times (j: 9 with its two
+   clips' solo melodies; k, l: 6; the multi-rank paths y and z: 3 a rank):
    a. the CLI with DDPM-1000 in bf16 (K1 x 1000, K4 x 24, K2 x 6, K3 x 1);
    b. the CLI with ``--sampler plms --speedup 10 --quantize int8-w1``
       (K5 int8-w1 x 101), whose pipeline then runs
@@ -54,7 +60,8 @@
    j. batch independence, PLMS@10 int8-w1: two 4 s clips 8x apart in
       loudness through ``_convert_core`` as a batch and each alone on the
       same x_T rows (K4 x 24, K5 int8-w1 x 303, K2 x 18, K3 x 3); each clip's
-      waveforms must correlate >= 0.9999;
+      waveforms must correlate >= 0.9999, and its melody from K9 in the
+      batch must equal K9's on the clip alone bit for bit;
    k. the HTTP server in process on 127.0.0.1: a burst of four PLMS@10 bf16
       requests, two 4 s and two 2 s clips, coalesced into two batches by
       length class (K5 x 202, K4 x 48, K2 x 12, K3 x 2), ``/metrics``,
@@ -252,14 +259,18 @@ VOCODER_MIN_CORR = 0.97  # per-block vs K2 waveform (the repo's bf16 tolerance, 
 FILES_MIN_CORR = 0.9999
 
 # Published peaks of one H100 SXM (dense): tensor-core bf16 and int8, f32
-# outside the tensor cores, HBM bandwidth. bound_ms is the largest of bytes /
-# bandwidth, the tensor-core time (bf16 and int8 operations share those
-# units, so their times add) and the f32 time (other units, which run at the
-# same time as the tensor cores).
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# and f64 outside the tensor cores (K9's float64 is DFMA on the vector units,
+# 33.5 TFLOP/s, not the 67 of the f64 tensor cores), HBM bandwidth. bound_ms
+# is the largest of bytes / bandwidth, the tensor-core time (bf16 and int8
+# operations share those units, so their times add) and the f32 time (other
+# units, which run at the same time as the tensor cores).
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "f64": 33.5e12}
 TENSOR_CORE_OPS = ("bf16", "int8")
 HBM_BYTES_PER_S = 3.35e12
 SNAKE_OPS = 58  # f32 operations per element of one anti-aliased SnakeBeta: 24 up-FIR, 10 snake, 24 down-FIR
+# K9 against the host tracker: voicing on this share of the frames, and this
+# share of the frames both voice within F0_CENTS
+F0_VOICING, F0_CENTS_SHARE, F0_CENTS = 0.995, 0.99, 5.0
 
 
 def card_line() -> str:
@@ -909,7 +920,83 @@ def check_kernels(cfg, device) -> tuple:
     print(f"  K3 activation: one wrapper call {rows['K3']['ms']:.4f} ms, kernel device time "
           f"{rows['K3']['kernel_device_ms']:.4f} ms")
     rows["K7"] = check_k7(voc, g, device, n_frames)
+    rows["K9"] = check_k9(cfg, device)
     return rows, voc
+
+
+def f0_agreement(ours, ref) -> tuple:
+    """(share of frames voiced alike, share of those both voice within F0_CENTS)."""
+    import numpy as np
+
+    both = (ours > 0) & (ref > 0)
+    cents = 1200 * np.abs(np.log2(ours[both] / ref[both]))
+    return float(np.mean((ours > 0) == (ref > 0))), float(np.mean(cents <= F0_CENTS)) if both.any() else 1.0
+
+
+def check_k9(cfg, device) -> dict:
+    """K9 on ``measure.synth_clip`` tones: one call at B=1 on 10 s and at B=2
+    on 10 s + 16 s; the batch bit for bit against the plain version (on the
+    CPU) and against each clip alone, each clip against the host route
+    (numpy ``get_f0_features`` + ``pitch_shift``) by voicing and cents. bound: the direct
+    autocorrelation's and the Viterbi's float64 operations and the framing's
+    float32 ones at their peaks; plain_ms: the host route on the 10 s clip."""
+    import numpy as np
+    import torch
+
+    from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.ops import f0
+    from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
+    from svc_inference_pipeline_tpu_torch.utils.artifacts import pitch_shift
+
+    clips = [clip(cfg.fs, s) for s in (10.0, 16.0)]
+    n = [len(c) for c in clips]
+    m = [mel_frame_count(cfg, k) for k in n]
+    padded = -(-max(m) // 64) * 64
+    block = torch.zeros((2, max(n)), device=device)
+    for i, c in enumerate(clips):
+        block[i, : len(c)] = torch.as_tensor(c, device=device)
+    solo = [block[i: i + 1, : n[i]].contiguous() for i in range(2)]
+    print("K9 praat_f0_device: 10 s at B=1, 10 s + 16 s at B=2")
+    got = f0.praat_f0_device(block, n, m, padded, cfg).cpu()
+    plain = f0.praat_f0_device(block.cpu(), n, m, padded, cfg)
+    row = {"max_abs_err": float((got - plain).abs().max()), "agreement": [], "batch_bits": []}
+    for i, c in enumerate(clips):
+        alone = f0.praat_f0_device(solo[i], [n[i]], [m[i]], padded, cfg).cpu()[0]
+        row["batch_bits"].append(bool(torch.equal(alone, got[i])))
+        host = pitch_shift(f0.get_f0_features(c, m[i], cfg)[0], cfg)
+        voicing, share = f0_agreement(got[i, : m[i]].numpy(), host)
+        row["agreement"].append({"host": (voicing, share)})
+        print(f"  K9 clip {n[i] / cfg.fs:g} s: (voicing, cents share) vs host {(voicing, share)}, "
+              f"batch equals alone {row['batch_bits'][-1]}")
+        if not (voicing >= F0_VOICING and share >= F0_CENTS_SHARE):
+            raise AssertionError(f"K9 clip {i} vs host: voicing {voicing}, cents share {share}")
+    if row["max_abs_err"] != 0.0:
+        raise AssertionError(f"K9 differs from its plain version: max |K9 - plain| {row['max_abs_err']} Hz")
+    if not all(row["batch_bits"]):
+        raise AssertionError(f"K9: a clip in the batch differs from the clip alone: {row['batch_bits']}")
+    row["ms"] = cuda_ms(lambda: f0.praat_f0_device(solo[0], n[:1], m[:1], padded, cfg), reps=20)
+    row["batch2_ms"] = cuda_ms(lambda: f0.praat_f0_device(block, n, m, padded, cfg), reps=20)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pitch_shift(f0.get_f0_features(clips[0], m[0], cfg)[0], cfg)
+        host_s.append(time.perf_counter() - t0)
+    row["plain_ms"] = 1e3 * statistics.median(host_s)
+    grid = f0.praat_grid(cfg.fs, cfg.hop_length, float(cfg.f0_min), float(cfg.f0_max))
+    w, lags = grid.nsamp_window, grid.max_lag + 1
+
+    def ops(k):  # a clip of k samples
+        frames = f0.praat_frames(k, grid)[0]
+        return frames * (2 * (lags * w - lags * (lags - 1) // 2) + 4 * f0.K * f0.K), frames * 4 * w
+
+    (f64_1, f32_1), (f64_2, f32_2) = ops(n[0]), ops(n[1])
+    row["bound_ms"] = 1e3 * (f64_1 / PEAK_OPS["f64"] + f32_1 / PEAK_OPS["f32"])
+    row["bound_by"] = "operations"
+    row["batch2_bound_ms"] = 1e3 * ((f64_1 + f64_2) / PEAK_OPS["f64"] + (f32_1 + f32_2) / PEAK_OPS["f32"])
+    print(f"  K9: B=1 10 s {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}), B=2 {row['batch2_ms']:.4f} ms "
+          f"(bound {row['batch2_bound_ms']:.4f}); host numpy tracker + shift on 10 s {row['plain_ms']:.1f} ms; "
+          f"max |K9 - plain| {row['max_abs_err']:.3e} Hz")
+    return row
 
 
 def synth_clip(path: str, fs: int, seconds: float) -> int:
@@ -924,16 +1011,17 @@ def synth_clip(path: str, fs: int, seconds: float) -> int:
 
 
 class Counters:
-    """The kernels' launch counters: K1 and K5 by stack mode, K4, K2, K3, K7, K8."""
+    """The kernels' launch counters: K1 and K5 by stack mode, K4, K2, K3, K7, K8, K9."""
 
     def __init__(self):
+        from svc_inference_pipeline_tpu_torch.ops import f0
         from svc_inference_pipeline_tpu_torch.ops.pallas import (
             amp_pair, amp_stage, attention, denoiser_step, denoiser_v2, snake)
 
         self.by_mode = {"K1": denoiser_step.ddpm_step, "K5": denoiser_step.denoise}
         self.plain = {"K4": attention.encoder_attention, "K2": amp_stage.fused_amp_stage,
                       "K3": snake.fused_activation1d, "K7": amp_pair.fused_amp_pair,
-                      "K8": denoiser_v2.denoise_v2}
+                      "K8": denoiser_v2.denoise_v2, "K9": f0.praat_f0_device}
 
     def reset(self) -> None:
         for fn in self.by_mode.values():
@@ -1111,6 +1199,7 @@ def batch_paths(cfg, counters, paths, device) -> dict:
 
     from svc_inference_pipeline_tpu_torch import cli, serving
     from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
+    from svc_inference_pipeline_tpu_torch.ops.f0 import praat_f0_device
     from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
     from svc_inference_pipeline_tpu_torch.pipeline.streaming import convert_streaming
     from svc_inference_pipeline_tpu_torch.sampling.ddpm import INIT_NOISE_STD
@@ -1145,15 +1234,16 @@ def batch_paths(cfg, counters, paths, device) -> dict:
             with open(timings_path) as f:
                 return json.load(f)
 
-        drive("cli batch of 2 ddpm bf16", counters, run_cli_batch, {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1},
-              paths)
+        drive("cli batch of 2 ddpm bf16", counters, run_cli_batch,
+              {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1, "K9": 3}, paths)
         pipe = built["pipeline"]
 
         # j. batch independence: each clip's waveform in the batch against the clip alone
         def run_independence():
             pipe.set_quantize("int8-w1")
             t0 = time.perf_counter()
-            batch, n_true = pipe.extract_features_batch([clips[4.0], 0.125 * clips[4.0]], singers[:2])
+            clip_pair = [clips[4.0], 0.125 * clips[4.0]]
+            batch, n_true = pipe.extract_features_batch(clip_pair, singers[:2])
             padded = batch["melody"].shape[1]
             g = torch.Generator(device=device).manual_seed(0)
             x_t = INIT_NOISE_STD * torch.randn((2, padded, cfg.mapper.n_mel), generator=g, device=device)
@@ -1162,6 +1252,12 @@ def batch_paths(cfg, counters, paths, device) -> dict:
             both = pipe._convert_core(batch, n_true, padded, noise=x_t, **core).double().cpu().numpy()
             out["batch_independence"] = []
             for i in range(2):
+                # K9's melody of this clip in the batch against K9 on the clip alone
+                k = int(n_true[i])
+                melody = praat_f0_device(torch.as_tensor(clip_pair[i], device=device)[None], [len(clip_pair[i])], [k],
+                                         padded, pipe.cfg)
+                if not torch.equal(batch["melody"][i], melody[0]):
+                    raise AssertionError(f"clip {i}: K9's melody in the batch differs from the clip's alone")
                 alone = pipe._convert_core({k: v[i:i + 1] for k, v in batch.items()}, n_true[i:i + 1], padded,
                                            noise=x_t[i:i + 1], **core)[0].double().cpu().numpy()
                 n = int(n_true[i]) * hop
@@ -1176,7 +1272,7 @@ def batch_paths(cfg, counters, paths, device) -> dict:
             return {"seconds": time.perf_counter() - t0}
 
         drive("batch independence plms@10 int8-w1", counters, run_independence,
-              {"K4": 24, "K5 int8-w1": 3 * evals, "K2": 18, "K3": 3}, paths)
+              {"K4": 24, "K5 int8-w1": 3 * evals, "K2": 18, "K3": 3, "K9": 9}, paths)
 
         # k, l. the server in this process
         httpd = serving.serve(pipe.cfg, pipe, "127.0.0.1", 0, coalesce_ms=3000.0)
@@ -1225,7 +1321,7 @@ def batch_paths(cfg, counters, paths, device) -> dict:
                 return {"burst_s": seconds}
 
             drive("server burst plms@10 bf16", counters, run_burst,
-                  {"K5 bf16": 2 * evals, "K4": 48, "K2": 12, "K3": 2}, paths)
+                  {"K5 bf16": 2 * evals, "K4": 48, "K2": 12, "K3": 2, "K9": 6}, paths)
 
             def run_stream():
                 pipe.set_quantize("int8-w1")
@@ -1246,7 +1342,7 @@ def batch_paths(cfg, counters, paths, device) -> dict:
                 return {"stream_s": seconds}
 
             drive("server stream plms@10 int8-w1", counters, run_stream,
-                  {"K5 int8-w1": 2 * evals, "K4": 48, "K2": 12, "K3": 2}, paths)
+                  {"K5 int8-w1": 2 * evals, "K4": 48, "K2": 12, "K3": 2, "K9": 6}, paths)
         finally:
             httpd.shutdown()
             httpd.server_close()
@@ -1273,8 +1369,8 @@ def batch_paths(cfg, counters, paths, device) -> dict:
             out["multi_singer_diffs"] = diffs
             return dict(pipe.timings)
 
-        drive("multi-singer x3 plms@10 bf16", counters, run_multi, {"K4": 24, "K5 bf16": evals, "K2": 6, "K3": 1},
-              paths)
+        drive("multi-singer x3 plms@10 bf16", counters, run_multi,
+              {"K4": 24, "K5 bf16": evals, "K2": 6, "K3": 1, "K9": 3}, paths)
     return out
 
 
@@ -1608,7 +1704,7 @@ def checkpoint_paths(cfg, counters, paths, device) -> dict:
     from flac_fixture import write_flac
 
     steps = int(cfg.mapper.noise_schedule_factors[2])
-    expected = {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1}
+    expected = {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1, "K9": 3}
     cd = torch.bfloat16
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2333,8 +2429,8 @@ def train_then_serve_path(cfg, counters, paths, device, held: dict) -> dict:
         check_audio("train then serve", audio, n_expected)
         return {**pipe.timings, "peak_gb": peak_gb()}
 
-    drive("train then serve plms@10", counters, run, {"K5 bf16": steps // 10 + 1, "K4": 24, "K2": 6, "K3": 1},
-          paths)
+    drive("train then serve plms@10", counters, run,
+          {"K5 bf16": steps // 10 + 1, "K4": 24, "K2": 6, "K3": 1, "K9": 3}, paths)
     trained, untrained = final_mel(pipe), final_mel(build(held["untrained"]))
     out = {"build_s": build_s, "conversion_s": paths[-1]["total_s"], "peak_gb": paths[-1]["peak_gb"],
            "mel_max_abs_diff": float(np.abs(trained - untrained).max()), "mel_max": float(np.abs(untrained).max())}
@@ -3025,9 +3121,9 @@ def mesh_paths(cfg, counters, paths, batch) -> dict:
     pp = spawn(_pp_rank, 1, args=(cfg, wavs[0]), backend="nccl", device="cuda:0", timeout=120, join_timeout=300)[0]
     pp_s = time.perf_counter() - t0
     steps = int(cfg.mapper.noise_schedule_factors[2])
-    want = {"y ddpm bf16": {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1},
-            "y plms@10 int8-w1": {"K5 int8-w1": steps // 10 + 1, "K4": 24, "K2": 6, "K3": 1},
-            "z tp plms@10": {"K4": 24, "K2": 6, "K3": 1}, "ab sp whisper": {},
+    want = {"y ddpm bf16": {"K1 bf16": steps, "K4": 24, "K2": 6, "K3": 1, "K9": 3},
+            "y plms@10 int8-w1": {"K5 int8-w1": steps // 10 + 1, "K4": 24, "K2": 6, "K3": 1, "K9": 3},
+            "z tp plms@10": {"K4": 24, "K2": 6, "K3": 1, "K9": 3}, "ab sp whisper": {},
             f"train mesh data {MESH_RANKS} model 1": {}, f"train mesh data 1 model {MESH_RANKS}": {},
             f"ac gan data {MESH_RANKS} model 1": {}, f"ac gan data 1 model {MESH_RANKS}": {}, "ad pp backward": {}}
     card = card_line()
@@ -3255,7 +3351,7 @@ def main_paths(cfg, device, voc) -> tuple:
     counters = Counters()
     paths = []
     steps = int(cfg.mapper.noise_schedule_factors[2])
-    common = {"K4": 24, "K2": 6, "K3": 1}
+    common = {"K4": 24, "K2": 6, "K3": 1, "K9": 3}
     with tempfile.TemporaryDirectory() as tmp:
         wav_in = os.path.join(tmp, "clip.wav")
         n_samples = synth_clip(wav_in, cfg.fs, CLIP_SECONDS)
@@ -3327,7 +3423,8 @@ def main_paths(cfg, device, voc) -> tuple:
         n_act = sum(len(rd) for rd in d["vocoder"]["resblock_dilation_sizes"])
         drive("cli plms@10 bf16 resblock 2", counters,
               lambda: run_cli("plms_rb2", "--config", cfg2, "--sampler", "plms", "--speedup", "10"),
-              {"K5 bf16": steps // 10 + 1, "K4": 24, "K3": len(cfg.vocoder.upsample_rates) * n_act + 1}, paths)
+              {"K5 bf16": steps // 10 + 1, "K4": 24, "K3": len(cfg.vocoder.upsample_rates) * n_act + 1, "K9": 3},
+              paths)
 
         # the denoiser at Amphion's BiDilConv widths: K1 and K5 on the wide tile
         cfg_wide = os.path.join(tmp, "config_bidilconv.json")
@@ -3413,7 +3510,7 @@ def main() -> int:
     launches = {
         "K1": total["K1 bf16"], "K5": total["K5 bf16"], "K4": total["K4"], "K2": total["K2"], "K3": total["K3"],
         "K6": sum(total[f"{k} {m}"] for k in ("K1", "K5") for m in ("int8", "int8-w1")),
-        "K7": total["K7"], "K8": total["K8"],
+        "K7": total["K7"], "K8": total["K8"], "K9": total["K9"],
     }
     sources = {
         "K1": ("ddpm_step", "denoiser_step.cu", f"{TPU_KERNELS}/denoiser_step.py:376"),
@@ -3424,6 +3521,8 @@ def main() -> int:
         "K6": ("ddpm_step/denoise on an int8 stack", "denoiser_step.cu", f"{TPU_KERNELS}/denoiser_step.py:204"),
         "K7": ("fused_amp_pair", "amp_stage.cu", f"{TPU_KERNELS}/amp_pair.py:156"),  # entry point svc_amp_pair
         "K8": ("denoise_v2", "denoiser_v2.cu", "perf_kernel3.py:170"),
+        # no Pallas counterpart: the JAX package runs this tracker on the host
+        "K9": ("praat_f0_device", "f0.cu", "none (svc_inference_pipeline_tpu/ops/f0.py:86 praat_pitch_ac, host)"),
     }
     kernels = []
     for key, (name, source, replaces) in sources.items():
@@ -3434,7 +3533,7 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms",
                                              "conv_library_ms", "stages", "kernel_device_ms", "host_issue_ms",
-                                             "batch2_ms")
+                                             "batch2_ms", "batch2_bound_ms", "agreement", "batch_bits")
                            if k in r}})
         if key in wide_launches:
             # the wide tile's share of the launches, and its checks at WIDE_SHAPES

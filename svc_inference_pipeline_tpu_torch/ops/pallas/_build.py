@@ -45,6 +45,7 @@ _SIGNATURES = {
     "svc_amp_stage": [_P] * 9 + [_I, _P] + [_I] * 4 + [_P],
     "svc_amp_pair": [_P] * 13 + [_I] * 5 + [_P],
     "svc_denoise_v2": [_P] * 18 + [_I] * 6 + [_P, _P],
+    "svc_praat_f0": [_P, _I, _I] + [_P] * 5 + [_I, _I] + [_P] * 5 + [_I] + [_P] * 8,
 }
 
 _lock = threading.Lock()

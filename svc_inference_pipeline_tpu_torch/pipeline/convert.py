@@ -10,11 +10,12 @@ Counterpart of ``svc_inference_pipeline_tpu/pipeline/convert.py``:
     wavs = pipe.convert_multi_singer("clip.wav", ["svcc_CDF1", "svcc_CDM1"])
     for chunk in pipe.convert_streaming("long.wav", "svcc_CDF1"): ...
 
-Stages: load -> [host thread: Praat F0 + median shift to the target singer]
-overlapping [device: mel energy, 24->16 kHz resample, Whisper log-mel and
-encoder (30 s windows), 480->256 hop remap] -> condition encoder -> the
-sampler -> mel denormalisation -> BigVGAN (K2 per stage, K3 for the last
-activation) -> fade-out and trim at the true length. Frame counts are padded
+Stages: load -> Praat F0 + median shift to the target singer (on a CUDA
+device K9, issued first on the uploaded waveform; else a host thread
+overlapping the device work) and [device: mel energy, 24->16 kHz resample,
+Whisper log-mel and encoder (30 s windows), 480->256 hop remap] ->
+condition encoder -> the sampler -> mel denormalisation -> BigVGAN (K2 per
+stage, K3 for the last activation) -> fade-out and trim at the true length. Frame counts are padded
 to a multiple of ``bucket`` frames, as in the JAX pipeline. A batch pads every
 clip to the longest one's bucket, stacks their Whisper windows into one
 encode and masks each clip's features past its true length; every kernel
@@ -28,15 +29,22 @@ the last K DDPM steps on the unquantised stack.
 
 ``self.timings`` holds the wall seconds of the last conversion's phases
 (front-end, sampling ``ddpm_s`` whichever sampler ran it, vocoder, total),
-each closed by a device synchronisation, and of its host F0 (``f0_s``, the
-clips' F0 summed) and the wait on it (``f0_wait_s``), with the clips' true
-and padded frames (``frames_true``, ``frames_padded``). They are read from
-the call's spans (``utils/observability.py``): ``pipeline.call``, and in it
+each closed by a device synchronisation, and of its F0 (``f0_s``) and the
+wait on it (``f0_wait_s``), with the clips' true and padded frames
+(``frames_true``, ``frames_padded``). They are read from the call's spans
+(``utils/observability.py``): ``pipeline.call``, and in it
 ``pipeline.load``, ``frontend.device``, ``frontend.f0_wait``,
-``frontend.upload``, ``sampling``, ``vocoder`` and ``pipeline.download``,
-with ``frontend.f0`` a clip on the F0 thread. ``sampling`` carries the
-denoiser's ``channels`` and ``layers`` and the kernel launches its K1/K5
-calls issued (``launches``; 0 on the composed and GPipe routes).
+``frontend.upload``, ``sampling``, ``vocoder`` and ``pipeline.download``.
+On the host route ``frontend.f0`` is a clip on the F0 thread, ``f0_s`` the
+clips' spans summed and ``f0_wait_s`` the ``frontend.f0_wait`` span; on the
+device route ``frontend.f0`` is K9's issue on the driving thread (in
+``frontend.device``), ``f0_s`` K9's device seconds between two CUDA events
+read after the front-end's sync, and ``f0_wait_s`` 0.0: nothing waits. The
+``route`` attribute of ``frontend.f0`` and the counters
+``frontend/f0_clips_device`` and ``frontend/f0_clips_host`` tell the two
+apart. ``sampling`` carries the denoiser's ``channels`` and ``layers`` and
+the kernel launches its K1/K5 calls issued (``launches``; 0 on the composed
+and GPipe routes).
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from svc_inference_pipeline_tpu_torch.models.bigvgan import BigVGANGenerator, vo
 from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser, make_composed_denoise_fn
 from svc_inference_pipeline_tpu_torch.models.encoder import ConditionEncoder
 from svc_inference_pipeline_tpu_torch.models.whisper import WhisperDims
-from svc_inference_pipeline_tpu_torch.ops.f0 import get_f0_features
+from svc_inference_pipeline_tpu_torch.ops.f0 import get_f0_features, praat_f0_device
 from svc_inference_pipeline_tpu_torch.ops.mel import extract_mel_features
 from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import QUANTIZE_MODES, denoiser_stacks, make_denoise_fn
 from svc_inference_pipeline_tpu_torch.ops.remap import remap_features_device
@@ -143,6 +151,7 @@ class SVCPipeline:
         self._mel_min = torch.as_tensor(mel_min, device=self.device)
         self._mel_max = torch.as_tensor(mel_max, device=self.device)
         self.timings: Dict[str, float] = {}
+        self._f0_events = None  # K9's CUDA events, read in _frontend_done
         self.sampler = cfg.mapper.get("sampler", "ddpm")
         self.plms_speedup = int(cfg.mapper.get("plms_speedup", 10))
         self.set_quantize(cfg.get("denoiser_quantize", None), int(cfg.get("denoiser_quantize_tail", 0)))
@@ -338,10 +347,7 @@ class SVCPipeline:
     def _frontend_device(self, audio24: torch.Tensor, n_windows: int, n_frames: int,
                          padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Mel energy + resample + Whisper log-mel + encoder (30 s windows)
-        + hop remap + bucket padding, on the device. An int16 waveform (the
-        PCM16 upload) is scaled by 1/32768 there."""
-        if audio24.dtype == torch.int16:
-            audio24 = audio24.float() * (1.0 / 32768.0)
+        + hop remap + bucket padding, on the device."""
         _, energy = extract_mel_features(audio24, self.cfg)
         audio16 = _resample_conv(audio24, self.cfg.fs, 16000, "kaiser_best")
         audio16 = F.pad(audio16, (0, n_windows * N_SAMPLES - audio16.shape[-1]))
@@ -372,52 +378,95 @@ class SVCPipeline:
         energy = F.pad(energy[:, :padded], (0, max(0, padded - energy.shape[-1])))
         return torch.where(mask, energy, 0.0), torch.where(mask[..., None], content, 0.0)
 
+    def _features(self, audios: Sequence[np.ndarray], frame_counts: Sequence[int], padded: int, upload,
+                  frontend, pitch_factor: Optional[float] = None):
+        """(melody [B, padded], energy, content) of the clips ``audios``:
+        ``frontend(upload())`` is the device front-end on the uploaded
+        waveform, and F0 with the median shift (or ``pitch_factor``) runs on
+        a CUDA pipeline as K9 (``ops/f0.py::praat_f0_device``) on that
+        waveform [B, L], issued first; elsewhere as numpy, clip by clip, on
+        a thread overlapping the device front-end. Sets
+        ``timings``' ``f0_s`` (on the device route in :meth:`_frontend_done`,
+        from the CUDA events kept in ``_f0_events``, which the host route
+        clears) and ``f0_wait_s``."""
+        cfg, metrics = self.cfg, Metrics.default()
+        if self.device.type == "cuda":
+            metrics.incr("frontend/f0_clips_device", len(audios))
+            with trace("frontend.device"):
+                wave = upload()
+                with trace("frontend.f0", samples=sum(len(a) for a in audios), frames=sum(frame_counts),
+                           route="device"):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    melody = praat_f0_device(wave.reshape(len(audios), -1), [len(a) for a in audios], frame_counts,
+                                             padded, cfg, pitch_factor)
+                    end.record()
+                energy, content = frontend(wave)
+            self._f0_events = (start, end)
+            self.timings["f0_wait_s"] = 0.0
+            return melody, energy, content
+        metrics.incr("frontend/f0_clips_host", len(audios))
+        self._f0_events = None
+        caller = current_span()
+
+        def f0_job():
+            f0s, f0_s = np.zeros((len(audios), padded), np.float32), 0.0
+            for i, (a, n) in enumerate(zip(audios, frame_counts)):
+                with trace("frontend.f0", parent=caller, samples=len(a), frames=n, route="host") as span:
+                    f0, _ = get_f0_features(a, n, cfg)
+                    f0s[i, :n] = (f0 * pitch_factor if pitch_factor is not None else pitch_shift(f0, cfg))[:n]
+                f0_s += span.seconds
+            return f0s, f0_s
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            f0_future = pool.submit(f0_job)
+            with trace("frontend.device"):
+                energy, content = frontend(upload())
+            with trace("frontend.f0_wait") as wait:
+                melody, f0_s = f0_future.result()
+        self.timings.update(f0_s=f0_s, f0_wait_s=wait.seconds)
+        return melody, energy, content
+
     def extract_features(self, wav: Union[str, np.ndarray], singer_name: str,
                          upload_pcm16: bool = False, pitch_factor: Optional[float] = None):
-        """(batch dict padded to the bucket, true frame count). F0 runs on a
-        host thread while the device computes the Whisper chain.
-        ``upload_pcm16`` sends the waveform to the device as int16 (the host
-        F0 still sees the float signal); ``pitch_factor`` replaces the median
-        pitch shift with a fixed multiplier (streaming pins it per stream)."""
+        """(batch dict padded to the bucket, true frame count). On a CUDA
+        device F0 runs as K9 on the uploaded waveform before the device
+        front-end; else on a host thread while the device computes the
+        Whisper chain (:meth:`_features`). ``upload_pcm16`` sends the
+        waveform to the device as int16, scaled back by 1/32768 there (K9
+        reads that signal, the host thread the float one); ``pitch_factor``
+        replaces the median pitch shift with a fixed multiplier (streaming
+        pins it per stream)."""
         cfg = self.cfg
         audio = self._load(wav)
         singer = get_singer_id(cfg, singer_name)
         n_frames, n_windows = self._frame_counts(len(audio))
         padded = pad_to_bucket(n_frames, self.bucket)
-        caller = current_span()
 
-        def f0_job():
-            with trace("frontend.f0", parent=caller, samples=len(audio), frames=n_frames) as span:
-                f0, _ = get_f0_features(audio, n_frames, cfg)
-                f0 = f0 * pitch_factor if pitch_factor is not None else pitch_shift(f0, cfg)
-            return np.pad(f0[:n_frames], (0, padded - n_frames)).astype(np.float32), span.seconds
+        def upload():
+            if upload_pcm16 and audio.dtype == np.float32:
+                pcm = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
+                return torch.as_tensor(pcm, device=self.device).float() * (1.0 / 32768.0)
+            return torch.as_tensor(audio, device=self.device)
 
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            f0_future = pool.submit(f0_job)
-            with trace("frontend.device"):
-                if upload_pcm16 and audio.dtype == np.float32:
-                    dev_audio = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
-                else:
-                    dev_audio = audio
-                energy, content = self._frontend_device(torch.as_tensor(dev_audio, device=self.device),
-                                                        n_windows, n_frames, padded)
-            with trace("frontend.f0_wait") as wait:
-                f0, f0_s = f0_future.result()
+        melody, energy, content = self._features(
+            [audio], [n_frames], padded, upload, lambda wave: self._frontend_device(wave, n_windows, n_frames, padded),
+            pitch_factor)
         with trace("frontend.upload"):
             batch = {
                 "content_whisper": content,
-                "melody": torch.as_tensor(f0, device=self.device)[None],
+                "melody": torch.as_tensor(melody, device=self.device),
                 "loudness": energy,
                 "singer": torch.as_tensor(singer[None].astype(np.int64), device=self.device),
             }
-        self.timings.update(f0_s=f0_s, f0_wait_s=wait.seconds)
         return batch, n_frames
 
     def extract_features_batch(self, wavs: Sequence[Union[str, np.ndarray]],
                                singer_names: Sequence[str]) -> Tuple[Dict[str, torch.Tensor], List[int]]:
         """Batched front-end: (batch dict [B, padded, ...], true frame
-        counts). One device pass for the whole batch, overlapped with the
-        per-clip host F0 on a worker thread."""
+        counts). One device pass for the whole batch; F0 as K9 for the whole
+        batch on a CUDA device, else clip by clip on a host thread overlapped
+        with the device pass (:meth:`_features`)."""
         cfg = self.cfg
         if len(wavs) != len(singer_names) or not wavs:
             raise ValueError(f"need one singer per clip and at least one clip: {len(wavs)} clips, "
@@ -429,36 +478,25 @@ class SVCPipeline:
         padded = pad_to_bucket(max(frame_counts), self.bucket)
         # enough windows that the remap's source span covers `padded`
         n_windows = max(max(window_counts), -(-(padded * 8 // 15 + 1) // 1500))
-        caller = current_span()
 
-        def f0_job():
-            f0s, f0_s = np.zeros((len(audios), padded), np.float32), 0.0
-            for i, (a, n) in enumerate(zip(audios, frame_counts)):
-                with trace("frontend.f0", parent=caller, samples=len(a), frames=n) as span:
-                    f0, _ = get_f0_features(a, n, cfg)
-                    f0s[i, :n] = pitch_shift(f0, cfg)[:n]
-                f0_s += span.seconds
-            return f0s, f0_s
+        def upload():
+            block = np.zeros((len(audios), max(len(a) for a in audios)), np.float32)
+            for i, a in enumerate(audios):
+                block[i, : len(a)] = a
+            return torch.as_tensor(block, device=self.device)
 
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            f0_future = pool.submit(f0_job)
-            with trace("frontend.device"):
-                block = np.zeros((len(audios), max(len(a) for a in audios)), np.float32)
-                for i, a in enumerate(audios):
-                    block[i, : len(a)] = a
-                energy, content = self._frontend_device_batch(
-                    torch.as_tensor(block, device=self.device),
-                    torch.tensor(frame_counts, device=self.device), n_windows, padded)
-            with trace("frontend.f0_wait") as wait:
-                f0s, f0_s = f0_future.result()
+        def frontend(block):
+            return self._frontend_device_batch(block, torch.tensor(frame_counts, device=self.device), n_windows,
+                                               padded)
+
+        melody, energy, content = self._features(audios, frame_counts, padded, upload, frontend)
         with trace("frontend.upload"):
             batch = {
                 "content_whisper": content,
-                "melody": torch.as_tensor(f0s, device=self.device),
+                "melody": torch.as_tensor(melody, device=self.device),
                 "loudness": energy,
                 "singer": torch.as_tensor(singer_ids, device=self.device),
             }
-        self.timings.update(f0_s=f0_s, f0_wait_s=wait.seconds)
         return batch, frame_counts
 
     # ------------------------------------------------------------------
@@ -693,6 +731,10 @@ class SVCPipeline:
         _sync(self.device)
         self.timings.update(frontend_s=(time.perf_counter_ns() - call.start_ns) / 1e9,
                             frames_true=int(frames_true), frames_padded=int(frames_padded))
+        if self._f0_events is not None:  # K9's device seconds, done by the sync above
+            start, end = self._f0_events
+            self._f0_events = None
+            self.timings["f0_s"] = start.elapsed_time(end) / 1e3
         metrics = Metrics.default()
         metrics.incr("pipeline/frames_true", frames_true)
         metrics.incr("pipeline/frames_padded", frames_padded)

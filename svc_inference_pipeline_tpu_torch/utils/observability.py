@@ -86,7 +86,8 @@ class Span:
     Its parent is the span open on this thread, or ``parent`` (a
     :class:`Span`) for work handed to another thread; its ``trace_id`` is
     the parent's, else ``trace_id``, else its own id. Keyword arguments are
-    its integer attributes (``span.attrs``, which the block may add to).
+    its attributes (``span.attrs``, which the block may add to): integers,
+    or a short string such as ``frontend.f0``'s ``route``.
     While a ``torch.profiler`` records on this thread the span is also a
     ``record_function`` range of its trace. When the block ends, the span
     goes into the ring and its seconds into ``Metrics.default()`` under
