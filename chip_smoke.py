@@ -29,7 +29,8 @@
    (C=512, L=40, step encoder 512) at the served cell's shapes
    (``WIDE_SHAPES``: K1 at B=1, T=960 and B=2, T=1000, whose last tile is
    partial; K5 at B=2, T=1536 and 1000), each clip to 1e-2 of its range,
-   every launch counted as wide (``denoiser/launches_wide``), with bounds
+   every ``step_pf_kernel`` launch of a call on the wide tile by the kernel
+   names the profiler reports (``PfShape<8>``; ``PfShape<6>`` at 384), with bounds
    and ``torch.matmul`` on K1's 82 GEMM shapes timed beside it, and K9
    (Praat F0 and the median shift) on synthetic tones of 10 s at B=1 and
    10 s + 16 s at B=2, the batch bit for bit against its plain version and
@@ -161,7 +162,9 @@
    ag. (after f) the CLI with the denoiser at Amphion's BiDilConv widths
       (512 x 40, step encoder 512), DDPM-1000 in bf16 (K1 x 1000, K4 x 24,
       K2 x 6, K3 x 1), whose pipeline then runs ah. PLMS@10 in bf16 (K5 x
-      101): each launch of their K1/K5 calls (83 a call) on the wide tile;
+      101), each under the profiler: every ``step_pf_kernel`` launch of
+      their K1/K5 calls (43 a call, beside 40 of the gate) named with the
+      wide tile, ``PfShape<8>``;
    y-ad and the train step on a mesh (after af): first which of the port's
       collectives gloo takes on CUDA tensors (``gloo_cuda_probe``: 2 ranks on
       cuda:0; NCCL refuses two ranks on one card). Then one spawn of 2 ranks on
@@ -527,17 +530,27 @@ def int8_library_ms(st, b: int, t_len: int, g, device) -> float:
     return cuda_ms(run)
 
 
+def on_tile(rows: dict, name: str, tile: str, layers: int) -> None:
+    """Fails unless row ``name``'s one profiled K1/K5 call on ``layers``
+    layers launched all its L + 3 ``step_pf_kernel`` on ``tile`` (the kernel
+    names, ``denoiser_step.launched_tiles``), beside its L gate launches."""
+    want = {tile: layers + 3, "gate": layers}
+    print(f"  {name}: one call's launches by tile {rows[name]['tiles']}")
+    if rows[name]["tiles"] != want:
+        raise AssertionError(f"{name}: launches by tile {rows[name]['tiles']} != {want}")
+
+
 def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     """K1, K5 and K6 at B=1, T=n_frames, C=384, L=20, bf16 compute; K6 also at
     B=2 with the second clip's mel (so its int8 scale) 8x the first's; K8 at
     B=1, T=HARNESS_FRAMES; K1 and K5 on the wide tile at C=512, L=40 (fc 512)
-    at WIDE_SHAPES, each clip to its own range, as rows "K1 512x40 B=b T=t"."""
+    at WIDE_SHAPES, each clip to its own range, as rows "K1 512x40 B=b T=t".
+    Each K1/K5/K6 row keeps one profiled call's launches by tile (``tiles``)."""
     import torch
 
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step as ds
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_v2 as dv2
     from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
-    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
     bf = torch.bfloat16
     n_mel = cfg.mapper.n_mel
@@ -587,6 +600,7 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
         # atomics: two calls agree bit for bit
         if not torch.equal(ds.ddpm_step(st, condb, srow, x, z, probe), ds.ddpm_step(st, condb, srow, x, z, probe)):
             raise AssertionError(f"{name}: two calls on the same operands differ")
+        _, row["tiles"] = ds.launched_tiles(lambda: ds.ddpm_step(st, condb, srow, x, z, probe))
         if quantize is None:
             row["gemm_library_ms"] = gemm_library_ms(st, b, t_len, g, device)
             print(f"  {name}: torch.matmul on the step's {2 + 2 * st.w1.shape[0]} GEMM shapes "
@@ -614,6 +628,7 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
                       EPS_TOL if quantize is None else INT8_TOL[quantize], views=views,
                       frames=layers is not None)
         row["bound_ms"], row["bound_by"] = denoiser_bound(st, condb, b, t_len, 2 * x.nbytes)
+        _, row["tiles"] = ds.launched_tiles(lambda: ds.denoise(st, condb, srow, x))
         if quantize is not None and layers is None:
             library(name, row, st, b)
         if b > 1:
@@ -631,6 +646,8 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
 
     rows["K1"] = ddpm_form("K1", None)
     rows["K5"] = eps_form("K5", None)
+    on_tile(rows, "K1", "PfShape<6>", cfg.mapper.residual_layer_num)
+    on_tile(rows, "K5", "PfShape<6>", cfg.mapper.residual_layer_num)
     rows["K6 int8-w1 K5 form"] = eps_form("K6", "int8-w1")
     rows["K6 int8 K5 form"] = eps_form("K6", "int8")
     rows["K6 int8-w1 K1 form"] = ddpm_form("K6", "int8-w1")
@@ -661,15 +678,11 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
 
     # the wide tile: every launch of a 512-channel stack but the gate runs on it
     wide = random_denoiser(bidilconv_config(cfg), g, device)
-    counters = Metrics.default().counters
     for form, b, t_len in WIDE_SHAPES:
         name = f"{form} 512x40 B={b} T={t_len}"
-        before = (counters["denoiser/launches"], counters["denoiser/launches_wide"])
         check = ddpm_form if form == "K1" else eps_form
         rows[name] = check(name, None, b=b, t_len=t_len, net=wide)
-        launched = (counters["denoiser/launches"] - before[0], counters["denoiser/launches_wide"] - before[1])
-        if launched[0] == 0 or launched[1] != launched[0]:
-            raise AssertionError(f"{name}: {launched[1]} of {launched[0]} launches on the wide tile")
+        on_tile(rows, name, "PfShape<8>", BIDILCONV["residual_layer_num"])
         print(f"  {name}: bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}), "
               f"{100 * rows[name]['bound_ms'] / rows[name]['ms']:.1f}% of the kernel's time")
     return rows
@@ -3343,10 +3356,9 @@ def main_paths(cfg, device, voc) -> tuple:
 
     from svc_inference_pipeline_tpu_torch import cli
     from svc_inference_pipeline_tpu_torch.measure import synth_clip as clip
-    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import launches_per_call, make_denoise_fn
+    from svc_inference_pipeline_tpu_torch.ops.pallas.denoiser_step import launched_tiles, make_denoise_fn
     from svc_inference_pipeline_tpu_torch.pipeline.convert import mel_frame_count
     from svc_inference_pipeline_tpu_torch.utils.audio_io import read_wav
-    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
     counters = Counters()
     paths = []
@@ -3431,17 +3443,17 @@ def main_paths(cfg, device, voc) -> tuple:
         with open(cfg_wide, "w") as f:
             json.dump(bidilconv_config(cfg).to_dict(), f)
         wide = {}
-        per_step = launches_per_call(BIDILCONV["residual_layer_num"])
+        layers = BIDILCONV["residual_layer_num"]
 
         def on_wide_tile(run, calls):
-            """run(), failing unless its ``calls`` K1/K5 calls launched all
-            their kernels on the wide tile."""
-            metrics = Metrics.default().counters
-            before = (metrics["denoiser/launches"], metrics["denoiser/launches_wide"])
-            timings = run()
-            got = (metrics["denoiser/launches"] - before[0], metrics["denoiser/launches_wide"] - before[1])
-            if got != (calls * per_step,) * 2:
-                raise AssertionError(f"launches, on the wide tile: {got} != {calls * per_step}")
+            """run() under the profiler, failing unless its ``calls`` K1/K5
+            calls launched every ``step_pf_kernel`` on the wide tile, by the
+            kernel names (``launched_tiles``)."""
+            timings, tiles = launched_tiles(run)
+            want = {"PfShape<8>": calls * (layers + 3), "gate": calls * layers}
+            print(f"  launches by tile {tiles}")
+            if tiles != want:
+                raise AssertionError(f"launches by tile: {tiles} != {want}")
             return timings
 
         drive(f"cli ddpm bf16 {WIDE_TAG}", counters,
@@ -3533,13 +3545,14 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms",
                                              "conv_library_ms", "stages", "kernel_device_ms", "host_issue_ms",
-                                             "batch2_ms", "batch2_bound_ms", "agreement", "batch_bits")
+                                             "batch2_ms", "batch2_bound_ms", "agreement", "batch_bits", "tiles")
                            if k in r}})
         if key in wide_launches:
             # the wide tile's share of the launches, and its checks at WIDE_SHAPES
             kernels[-1]["wide_launches"] = wide_launches[key]
             kernels[-1]["wide"] = {k[len(key) + 1:]: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                                          "bound_by", "gemm_library_ms") if f in v}
+                                                                          "bound_by", "gemm_library_ms", "tiles")
+                                                      if f in v}
                                    for k, v in rows.items() if k.startswith(f"{key} {WIDE_TAG}")}
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "

@@ -1,25 +1,23 @@
 """Warm conversion times of the port on one GPU, by sampler and int8 mode.
 
-    python -m svc_inference_pipeline_tpu_torch.measure [--profile | --steps | --k2 | --batch | --decode | --train |
-                                                       --k6-ties | --spans]
+    python -m svc_inference_pipeline_tpu_torch.measure [--steps | --k2 | --decode | --train | --k6-ties | --spans]
 
 Builds one pipeline at the width of ``config/config.json`` with random
 weights (Whisper-medium), converts synthetic 4 s and 10 s clips with every
 sampler and int8 mode of the port, three times each, and prints one JSON
 line per (clip, path): the median over runs 2-3 of each phase's wall seconds
-(``SVCPipeline.timings``) and the RTF. ``--profile`` adds, for one warm 4 s
-conversion per path, the device time by kernel from ``torch.profiler`` and
-the device's busy share of the conversion. ``--steps`` times K1 steps alone
+(``SVCPipeline.timings``) and the RTF. ``--steps`` times K1 steps alone
 instead (:func:`step_times`), ``--k2`` the vocoder's AMP stages
-(:func:`k2_times`), ``--batch`` warm ``convert_batch`` calls on B copies of
-the 4 s clip (:func:`batch_times`), ``--decode`` the Whisper text
-decoder's steps at medium width (:func:`decode_times`), ``--train`` the
-training steps at full width (:func:`train_times`), ``--k6-ties`` where
-K6 int8-w1 parts from its plain version on a card test's operands
-(:func:`k6_ties`), ``--spans`` the cost of a span and a warm 10 s
-conversion's spans and device idle time by span (:func:`span_costs`).
-Every line names the
-card (``nvidia-smi`` name and power limit). Needs a CUDA device.
+(:func:`k2_times`), ``--decode`` the Whisper text decoder's steps at medium
+width (:func:`decode_times`), ``--train`` the training steps at full width
+(:func:`train_times`), ``--k6-ties`` where K6 int8-w1 parts from its plain
+version on a card test's operands (:func:`k6_ties`), ``--spans`` the cost
+of a span and a warm 10 s conversion's spans and device idle time by span
+(:func:`span_costs`). Every line names the card (``nvidia-smi`` name and
+power limit). Needs a CUDA device; run from the repository's root
+(``--decode`` and ``--train`` read the profiler trace with
+``portbench/profiling.py``). The device time by kernel of the benchmark's
+cells, and their batched conversions, come from ``portbench/run.py --trace 1``.
 """
 
 from __future__ import annotations
@@ -64,95 +62,6 @@ def path_name(sampler: str, speedup: int, quantize, tail: int) -> str:
     name = sampler if sampler == "ddpm" else f"{sampler}@{speedup}"
     name += f" {quantize or 'bf16'}"
     return name + (f" tail {tail}" if tail else "")
-
-
-def busy_ms(spans) -> float:
-    """Milliseconds covered by the union of (start_us, end_us) spans."""
-    total, end = 0.0, -float("inf")
-    for s, e in sorted(spans):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total / 1e3
-
-
-def profile_conversion(pipe, wav, sampler, speedup) -> dict:
-    """Device milliseconds by kernel over one warm conversion under
-    ``torch.profiler``, and the device's busy share of it: the time covered
-    by at least one device span (kernel, copy or fill) over the
-    conversion's wall time, both under the profiler. The denoiser's kernels
-    run with programmatic dependent launch, so a kernel's span starts while
-    the one before it ends: it includes its weight prefetch and its wait.
-    ``device_span_overlap_ms`` is the summed span time less the covered
-    time, the part counted twice in the per-kernel times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.convert(wav, "svcc_CDF1", generator=torch.Generator(device=pipe.device).manual_seed(0),
-                     sampler=sampler, speedup=speedup)
-        torch.cuda.synchronize()
-    return device_breakdown(prof, pipe.timings["total_s"] * 1e3)
-
-
-def device_breakdown(prof, wall_ms: float, top_n: int = 12) -> dict:
-    """Device ms by kernel (the ``top_n`` largest, with their launch counts)
-    of a ``torch.profiler`` run whose wall time was ``wall_ms``, the device's
-    covered time and its share of the wall time. Kernels are the device-side
-    events (copies and fills count in the covered time only); the host-side
-    events that carry device time (operators, autograd nodes) and the
-    device-side ranges of ``record_function`` annotations (AdamW's step) are
-    left out, so nothing is counted twice."""
-    from torch.autograd import DeviceType
-
-    device_events = [ev for ev in prof.events()
-                     if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False)]
-    by_kernel = {}
-    for ev in device_events:
-        if not ev.name.startswith(("Memcpy", "Memset")):
-            ms, n = by_kernel.get(ev.name[:90], (0.0, 0))
-            by_kernel[ev.name[:90]] = (ms + (ev.time_range.end - ev.time_range.start) / 1e3, n + 1)
-    by_kernel = {k: (round(ms, 3), n) for k, (ms, n) in by_kernel.items()}
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top_n])
-    kernel_ms = sum(ms for ms, _ in by_kernel.values())
-    spans = [(ev.time_range.start, ev.time_range.end) for ev in device_events]
-    covered_ms = busy_ms(spans)
-    return {"device_ms_by_kernel": top, "device_kernel_ms": round(kernel_ms, 3),
-            "device_launches": sum(n for _, n in by_kernel.values()),
-            "device_busy_ms": round(covered_ms, 3),
-            "device_span_overlap_ms": round(sum(e - s for s, e in spans) / 1e3 - covered_ms, 3),
-            "profiled_total_ms": round(wall_ms, 3), "device_busy_share": round(covered_ms / wall_ms, 4)}
-
-
-BATCH_SIZES = (1, 2, 4, 8)
-# (sampler, speedup, int8 mode) of every path --batch measures
-BATCH_PATHS = (("ddpm", 1, None), ("ddpm", 1, "int8-w1"), ("plms", 10, None))
-
-
-def batch_times(pipe, gpu: str) -> None:
-    """``--batch``: ``convert_batch`` on B copies of the 4 s clip (one singer),
-    B in BATCH_SIZES, on each of BATCH_PATHS, three times: one JSON line per
-    (path, B) with the median over runs 2-3 of each phase's wall seconds,
-    seconds per clip and the peak device memory of the three runs."""
-    import torch
-
-    wav = synth_clip(pipe.cfg.fs, CLIP_SECONDS[0])
-    for sampler, speedup, quantize in BATCH_PATHS:
-        pipe.set_quantize(quantize)
-        for b in BATCH_SIZES:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            runs = []
-            for _ in range(RUNS):
-                t0 = time.perf_counter()
-                pipe.convert_batch([wav] * b, ["svcc_CDF1"] * b, sampler=sampler, speedup=speedup,
-                                   generator=torch.Generator(device=pipe.device).manual_seed(0))
-                runs.append(dict(pipe.timings, wall_s=time.perf_counter() - t0))
-            med = {k: statistics.median(r[k] for r in runs[1:]) for k in runs[0]}
-            print(json.dumps({"card": gpu, "clip_s": CLIP_SECONDS[0], "path": path_name(sampler, speedup, quantize, 0),
-                              "batch": b, **med, "s_per_clip": med["total_s"] / b,
-                              "rtf_per_clip": med["total_s"] / (b * CLIP_SECONDS[0]),
-                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
 
 
 def step_times(cfg, gpu: str) -> None:
@@ -331,6 +240,7 @@ def decode_times(gpu: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench import profiling
     from svc_inference_pipeline_tpu_torch.models import whisper_decoding as wd
     from svc_inference_pipeline_tpu_torch.ops.resample import resample_host
     from svc_inference_pipeline_tpu_torch.ops.whisper_mel import N_FRAMES, log_mel_spectrogram_frames, pad_or_trim
@@ -375,7 +285,7 @@ def decode_times(gpu: str) -> None:
             steps(DECODE_STEPS)
             torch.cuda.synchronize()
         kernels = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-        busy = busy_ms([(ev.time_range.start, ev.time_range.end) for ev in kernels])
+        busy = profiling.busy_ms([(ev.time_range.start, ev.time_range.end) for ev in kernels])
         host = statistics.median(h for h, _, _ in timed)
         step = statistics.median(s for _, _, s in timed)
         print(json.dumps({
@@ -398,10 +308,12 @@ def train_times(cfg, gpu: str) -> None:
     generator steps (B = 2 segments of 32 frames of the synthetic clip and
     their log-mels). One JSON line each: the median wall ms of runs 3-7 to
     a synchronisation, the peak device memory, and one more step under
-    ``torch.profiler`` (:func:`device_breakdown`)."""
+    ``torch.profiler`` (``portbench/profiling.py``'s busy time and device
+    seconds by kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench.profiling import summarize
     from svc_inference_pipeline_tpu_torch.ops.mel import mel_spectrogram
     from svc_inference_pipeline_tpu_torch.training.diffusion import (
         init_diffusion_train_state, make_diffusion_train_step)
@@ -462,7 +374,7 @@ def train_times(cfg, gpu: str) -> None:
             wall_ms = 1e3 * (time.perf_counter() - t0)
         line = {"card": gpu, "path": name, "shape": shape, "ms": 1e3 * statistics.median(runs[2:]),
                 "first_ms": 1e3 * runs[0], "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                "profiled_ms": wall_ms, **device_breakdown(prof, wall_ms, top_n=10)}
+                "profiled_ms": wall_ms, **summarize(prof, wall_ms / 1e3)}
         print(json.dumps(line), flush=True)
 
 
@@ -647,10 +559,8 @@ def span_costs(pipe, gpu: str, spans_timed: int = 100_000) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--profile", action="store_true")
     p.add_argument("--steps", action="store_true")
     p.add_argument("--k2", action="store_true")
-    p.add_argument("--batch", action="store_true")
     p.add_argument("--decode", action="store_true")
     p.add_argument("--train", action="store_true")
     p.add_argument("--k6-ties", action="store_true")
@@ -687,9 +597,6 @@ def main(argv=None) -> int:
     for key in ("singer_file", "min_mel_file", "max_mel_file", "target_f0_file"):
         cfg[key] = os.path.join(root, cfg[key].lstrip("./"))
     pipe = SVCPipeline.from_config(cfg, random_weights=True, whisper_size="medium", seed=0)
-    if args.batch:
-        batch_times(pipe, gpu)
-        return 0
     if args.spans:
         span_costs(pipe, gpu)
         return 0
@@ -708,8 +615,6 @@ def main(argv=None) -> int:
             line = {"card": gpu, "clip_s": seconds, "path": path_name(sampler, speedup, quantize, tail),
                     **med, "rtf": med["total_s"] / seconds,
                     "first_total_s": runs[0]["total_s"]}
-            if args.profile and seconds == CLIP_SECONDS[0]:
-                line.update(profile_conversion(pipe, wav, sampler, speedup))
             print(json.dumps(line), flush=True)
     return 0
 

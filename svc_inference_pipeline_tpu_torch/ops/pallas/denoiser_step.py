@@ -50,8 +50,10 @@ compute only) or raise.
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import NamedTuple, Optional, Sequence, Tuple
+import re
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,10 +68,9 @@ LANE = 128  # mel channels padded to this width in the carry
 QUANTIZE_MODES = (None, "int8", "int8-w1")
 INV_127 = np.float32(1.0 / 127.0)
 INT8_MAX_CHANNELS = 1024  # the int8 tile holds a tap's whole K = C (csrc/gemm_wg_s8.cuh W8_MAX_K)
-# the prefetching tiles take K = C or M_pad up to this (csrc/denoiser_step.cu PF_MAX_K), the
-# narrow one up to BF16_NARROW_K (PF_NARROW_K); a wider stack runs on the wide tile
+# the prefetching tiles take K = C or M_pad up to this (csrc/denoiser_step.cu PF_MAX_K; the
+# kernel picks the narrow or the wide tile by K itself)
 BF16_MAX_K = 512
-BF16_NARROW_K = 384
 
 
 class StackedDenoiser(NamedTuple):
@@ -393,24 +394,34 @@ def launches_per_call(n_layers: int) -> int:
     return 2 * n_layers + 3
 
 
-def is_wide(st: StackedDenoiser) -> bool:
-    """Whether a bf16 stack runs on the wide prefetching tile: its K, C or
-    M_pad, past BF16_NARROW_K."""
-    return st.w1s is None and max(st.wskip.shape[0], st.wmel.shape[0]) > BF16_NARROW_K
-
-
 def _count_launches(st: StackedDenoiser, calls: int) -> None:
-    """``denoiser/launches`` of ``calls`` K1 or K5 calls on ``st``;
-    ``denoiser/launches_prefetched``, those on the prefetching tiles
-    (``step_pf_kernel``, ``step_gate_kernel``): all of a bf16 stack's, none
-    of an int8 stack's (whose bf16 launches take the ring tile); and
-    ``denoiser/launches_wide``, those of a stack whose K exceeds
-    BF16_NARROW_K (:func:`is_wide`)."""
-    n = calls * launches_per_call(st.w1.shape[0])
-    metrics = Metrics.default()
-    metrics.incr("denoiser/launches", n)
-    metrics.incr("denoiser/launches_prefetched", n if st.w1s is None else 0)
-    metrics.incr("denoiser/launches_wide", n if is_wide(st) else 0)
+    """``denoiser/launches`` of ``calls`` K1 or K5 calls on ``st``."""
+    Metrics.default().incr("denoiser/launches", calls * launches_per_call(st.w1.shape[0]))
+
+
+def launched_tiles(run) -> Tuple[Any, Dict[str, int]]:
+    """(``run()``, the K1/K5 kernels it launched by tile) on a CUDA device,
+    observed under ``torch.profiler``: ``"PfShape<NK>"`` counts the launches
+    of ``step_pf_kernel`` on the prefetching tile of NK resident K chunks of
+    64 (the C++ side's choice, read from the demangled kernel name), ``"gate"``
+    those of ``step_gate_kernel``. A bf16 K1/K5 call on L layers makes L + 3
+    of the first and L of the second."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    tiles: Dict[str, int] = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        if "step_gate_kernel" in ev.name:
+            tiles["gate"] += 1
+        elif "step_pf_kernel" in ev.name:
+            shape = re.search(r"PfShape<\d+>", ev.name)
+            tiles[shape.group(0) if shape else ev.name] += 1
+    return out, dict(tiles)
 
 
 class _StepChain:

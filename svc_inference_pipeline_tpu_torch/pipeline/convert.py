@@ -19,7 +19,8 @@ stage, K3 for the last activation) -> fade-out and trim at the true length. Fram
 to a multiple of ``bucket`` frames, as in the JAX pipeline. A batch pads every
 clip to the longest one's bucket, stacks their Whisper windows into one
 encode and masks each clip's features past its true length; every kernel
-runs once per call for the whole batch.
+runs once per call for the whole batch. One clip takes the same path as a
+batch of one.
 
 Samplers (``cfg.mapper.sampler``, ``plms_speedup``, or per call): "ddpm"
 runs one K1 launch per reverse step; "plms", "ddim" and "dpmpp" evaluate the
@@ -90,6 +91,7 @@ from svc_inference_pipeline_tpu_torch.utils.observability import Metrics, curren
 from svc_inference_pipeline_tpu_torch.utils.registry import get_singer_id
 
 DEFAULT_BUCKET = 64  # frame-count padding granularity
+WINDOW_FRAMES = 1500 * 15 // 8  # mel frames (hop 256) of one 30 s Whisper window (1500 frames, hop 480)
 
 
 def pad_to_bucket(n: int, bucket: int = DEFAULT_BUCKET) -> int:
@@ -330,7 +332,7 @@ class SVCPipeline:
         encoded window by window, and frames past the windows' span are cut."""
         len16 = _out_len(n_samples, 2, 3)  # 24 kHz -> 16 kHz length
         n_windows = max(1, -(-len16 // N_SAMPLES))
-        return min(self.mel_frame_count(n_samples), n_windows * 1500 * 15 // 8), n_windows
+        return min(self.mel_frame_count(n_samples), n_windows * WINDOW_FRAMES), n_windows
 
     def _load(self, wav: Union[str, np.ndarray]) -> np.ndarray:
         return load_audio(wav, self.cfg.fs)[0] if isinstance(wav, str) else np.asarray(wav, np.float32)
@@ -344,64 +346,67 @@ class SVCPipeline:
         return self.whisper.embed_audio(wmel)
 
     @torch.no_grad()
-    def _frontend_device(self, audio24: torch.Tensor, n_windows: int, n_frames: int,
-                         padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Mel energy + resample + Whisper log-mel + encoder (30 s windows)
-        + hop remap + bucket padding, on the device."""
-        _, energy = extract_mel_features(audio24, self.cfg)
-        audio16 = _resample_conv(audio24, self.cfg.fs, 16000, "kaiser_best")
-        audio16 = F.pad(audio16, (0, n_windows * N_SAMPLES - audio16.shape[-1]))
-        wmel = log_mel_spectrogram(audio16.reshape(n_windows, N_SAMPLES))
-        feats = self._whisper_encode(wmel)
-        feats = feats.reshape(-1, feats.shape[-1])
-        content = remap_features_device(feats.float(), n_frames)
-        energy = F.pad(energy[:n_frames], (0, padded - n_frames))
-        content = F.pad(content, (0, 0, 0, padded - n_frames))
-        return energy[None], content[None]
-
-    @torch.no_grad()
     def _frontend_device_batch(self, audios24: torch.Tensor, n_true: torch.Tensor, n_windows: int,
                                padded: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Batched device front-end of B zero-padded clips [B, L]: their
-        Whisper windows stack into one [B * W, 80, 3000] encode; features past
-        each clip's true length (``n_true`` [B]) are 0. Loudness of a shorter
-        clip's last frames sees the batch's zero padding instead of its
-        reflect padding, as in the JAX batch."""
+        """Device front-end of B zero-padded clips [B, L]: mel energy,
+        24->16 kHz resample, Whisper log-mel and encoder (the clips' W 30 s
+        windows each, stacked into one [B * W, 80, 3000] encode), hop remap
+        over the windows' span, bucket padding; features past each clip's
+        true length (``n_true`` [B]) are 0. Loudness of a shorter clip's last
+        frames sees the batch's zero padding instead of its reflect padding,
+        as in the JAX batch."""
         b = audios24.shape[0]
         _, energy = extract_mel_features(audios24, self.cfg)  # [B, T]
         audio16 = _resample_conv(audios24, self.cfg.fs, 16000, "kaiser_best")
         audio16 = F.pad(audio16, (0, n_windows * N_SAMPLES - audio16.shape[-1]))
         wmel = log_mel_spectrogram(audio16.reshape(b * n_windows, N_SAMPLES))
         feats = self._whisper_encode(wmel)
-        content = remap_features_device(feats.reshape(b, -1, feats.shape[-1]).float(), padded)
+        span = min(padded, n_windows * WINDOW_FRAMES)
+        content = remap_features_device(feats.reshape(b, -1, feats.shape[-1]).float(), span)
+        content = F.pad(content, (0, 0, 0, padded - span))
         mask = torch.arange(padded, device=audios24.device)[None, :] < n_true[:, None]
         energy = F.pad(energy[:, :padded], (0, max(0, padded - energy.shape[-1])))
         return torch.where(mask, energy, 0.0), torch.where(mask[..., None], content, 0.0)
 
-    def _features(self, audios: Sequence[np.ndarray], frame_counts: Sequence[int], padded: int, upload,
-                  frontend, pitch_factor: Optional[float] = None):
-        """(melody [B, padded], energy, content) of the clips ``audios``:
-        ``frontend(upload())`` is the device front-end on the uploaded
-        waveform, and F0 with the median shift (or ``pitch_factor``) runs on
-        a CUDA pipeline as K9 (``ops/f0.py::praat_f0_device``) on that
-        waveform [B, L], issued first; elsewhere as numpy, clip by clip, on
-        a thread overlapping the device front-end. Sets
-        ``timings``' ``f0_s`` (on the device route in :meth:`_frontend_done`,
-        from the CUDA events kept in ``_f0_events``, which the host route
-        clears) and ``f0_wait_s``."""
+    def _upload(self, audios: Sequence[np.ndarray], frame_counts: Sequence[int],
+                pcm16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the clips zero-padded into one block [B, L], their true frame
+        counts [B]) on the device; with ``pcm16`` the block is sent as int16
+        and scaled back by 1/32768 there. Both are blocking copies, made
+        before the front-end issues any work, so they wait on nothing."""
+        block = np.zeros((len(audios), max(len(a) for a in audios)), np.float32)
+        for i, a in enumerate(audios):
+            block[i, : len(a)] = a
+        n_true = torch.tensor(frame_counts, device=self.device)
+        if pcm16:
+            pcm = np.clip(np.round(block * 32768.0), -32768, 32767).astype(np.int16)
+            return torch.as_tensor(pcm, device=self.device).float() * (1.0 / 32768.0), n_true
+        return torch.as_tensor(block, device=self.device), n_true
+
+    def _features(self, audios: Sequence[np.ndarray], frame_counts: Sequence[int], n_windows: int, padded: int,
+                  upload_pcm16: bool, pitch_factor: Optional[float]):
+        """(melody [B, padded], energy, content) of the clips ``audios``: the
+        device front-end (:meth:`_frontend_device_batch`) on their block as
+        :meth:`_upload` sends it, and F0 with the median shift (or
+        ``pitch_factor``) on a CUDA pipeline as K9
+        (``ops/f0.py::praat_f0_device``) on that block, issued first;
+        elsewhere as numpy on the float clips, clip by clip, on a thread
+        overlapping the device front-end. Sets ``timings``' ``f0_s`` (on the
+        device route in :meth:`_frontend_done`, from the CUDA events kept in
+        ``_f0_events``, which the host route clears) and ``f0_wait_s``."""
         cfg, metrics = self.cfg, Metrics.default()
         if self.device.type == "cuda":
             metrics.incr("frontend/f0_clips_device", len(audios))
             with trace("frontend.device"):
-                wave = upload()
+                wave, n_true = self._upload(audios, frame_counts, upload_pcm16)
                 with trace("frontend.f0", samples=sum(len(a) for a in audios), frames=sum(frame_counts),
                            route="device"):
                     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                     start.record()
-                    melody = praat_f0_device(wave.reshape(len(audios), -1), [len(a) for a in audios], frame_counts,
-                                             padded, cfg, pitch_factor)
+                    melody = praat_f0_device(wave, [len(a) for a in audios], frame_counts, padded, cfg,
+                                             pitch_factor)
                     end.record()
-                energy, content = frontend(wave)
+                energy, content = self._frontend_device_batch(wave, n_true, n_windows, padded)
             self._f0_events = (start, end)
             self.timings["f0_wait_s"] = 0.0
             return melody, energy, content
@@ -421,7 +426,8 @@ class SVCPipeline:
         with ThreadPoolExecutor(max_workers=1) as pool:
             f0_future = pool.submit(f0_job)
             with trace("frontend.device"):
-                energy, content = frontend(upload())
+                energy, content = self._frontend_device_batch(*self._upload(audios, frame_counts, upload_pcm16),
+                                                              n_windows, padded)
             with trace("frontend.f0_wait") as wait:
                 melody, f0_s = f0_future.result()
         self.timings.update(f0_s=f0_s, f0_wait_s=wait.seconds)
@@ -429,44 +435,23 @@ class SVCPipeline:
 
     def extract_features(self, wav: Union[str, np.ndarray], singer_name: str,
                          upload_pcm16: bool = False, pitch_factor: Optional[float] = None):
-        """(batch dict padded to the bucket, true frame count). On a CUDA
-        device F0 runs as K9 on the uploaded waveform before the device
-        front-end; else on a host thread while the device computes the
-        Whisper chain (:meth:`_features`). ``upload_pcm16`` sends the
-        waveform to the device as int16, scaled back by 1/32768 there (K9
-        reads that signal, the host thread the float one); ``pitch_factor``
-        replaces the median pitch shift with a fixed multiplier (streaming
-        pins it per stream)."""
-        cfg = self.cfg
-        audio = self._load(wav)
-        singer = get_singer_id(cfg, singer_name)
-        n_frames, n_windows = self._frame_counts(len(audio))
-        padded = pad_to_bucket(n_frames, self.bucket)
-
-        def upload():
-            if upload_pcm16 and audio.dtype == np.float32:
-                pcm = np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
-                return torch.as_tensor(pcm, device=self.device).float() * (1.0 / 32768.0)
-            return torch.as_tensor(audio, device=self.device)
-
-        melody, energy, content = self._features(
-            [audio], [n_frames], padded, upload, lambda wave: self._frontend_device(wave, n_windows, n_frames, padded),
-            pitch_factor)
-        with trace("frontend.upload"):
-            batch = {
-                "content_whisper": content,
-                "melody": torch.as_tensor(melody, device=self.device),
-                "loudness": energy,
-                "singer": torch.as_tensor(singer[None].astype(np.int64), device=self.device),
-            }
+        """(batch dict padded to the bucket, true frame count) of one clip:
+        :meth:`extract_features_batch` on it alone."""
+        batch, (n_frames,) = self.extract_features_batch([wav], [singer_name], upload_pcm16=upload_pcm16,
+                                                         pitch_factor=pitch_factor)
         return batch, n_frames
 
-    def extract_features_batch(self, wavs: Sequence[Union[str, np.ndarray]],
-                               singer_names: Sequence[str]) -> Tuple[Dict[str, torch.Tensor], List[int]]:
-        """Batched front-end: (batch dict [B, padded, ...], true frame
-        counts). One device pass for the whole batch; F0 as K9 for the whole
-        batch on a CUDA device, else clip by clip on a host thread overlapped
-        with the device pass (:meth:`_features`)."""
+    def extract_features_batch(self, wavs: Sequence[Union[str, np.ndarray]], singer_names: Sequence[str], *,
+                               upload_pcm16: bool = False, pitch_factor: Optional[float] = None
+                               ) -> Tuple[Dict[str, torch.Tensor], List[int]]:
+        """The front-end: (batch dict [B, padded, ...], true frame counts),
+        every clip padded to the longest one's bucket. One device pass for
+        the whole batch; F0 as K9 for the whole batch on a CUDA device, else
+        clip by clip on a host thread overlapped with the device pass
+        (:meth:`_features`). ``upload_pcm16`` sends the waveforms to the
+        device as int16 (K9 reads that signal, the host thread the float
+        one); ``pitch_factor`` replaces the median pitch shift with a fixed
+        multiplier (streaming pins it per stream)."""
         cfg = self.cfg
         if len(wavs) != len(singer_names) or not wavs:
             raise ValueError(f"need one singer per clip and at least one clip: {len(wavs)} clips, "
@@ -476,20 +461,8 @@ class SVCPipeline:
         frame_counts, window_counts = zip(*(self._frame_counts(len(a)) for a in audios))
         frame_counts = list(frame_counts)
         padded = pad_to_bucket(max(frame_counts), self.bucket)
-        # enough windows that the remap's source span covers `padded`
-        n_windows = max(max(window_counts), -(-(padded * 8 // 15 + 1) // 1500))
-
-        def upload():
-            block = np.zeros((len(audios), max(len(a) for a in audios)), np.float32)
-            for i, a in enumerate(audios):
-                block[i, : len(a)] = a
-            return torch.as_tensor(block, device=self.device)
-
-        def frontend(block):
-            return self._frontend_device_batch(block, torch.tensor(frame_counts, device=self.device), n_windows,
-                                               padded)
-
-        melody, energy, content = self._features(audios, frame_counts, padded, upload, frontend)
+        melody, energy, content = self._features(audios, frame_counts, max(window_counts), padded, upload_pcm16,
+                                                  pitch_factor)
         with trace("frontend.upload"):
             batch = {
                 "content_whisper": content,
@@ -668,21 +641,14 @@ class SVCPipeline:
         """Convert one utterance to the target singer -> waveform at cfg.fs.
         ``sampler``/``speedup`` override the pipeline defaults for this call.
         ``pcm16`` finalises on the device (peak 0.9, int16) and returns int16;
-        ``upload_pcm16`` and ``pitch_factor`` as in :meth:`extract_features`;
-        ``output_path`` also writes the WAV."""
-        sampler, speedup = self._resolve_sampler(sampler, speedup)
-        with trace("pipeline.call", clips=1) as call:
-            self.timings = {}
-            (audio,) = self._load_clips(call, [wav])
-            batch, n_frames = self.extract_features(audio, singer_name, upload_pcm16, pitch_factor)
-            padded = batch["melody"].shape[1]
-            self._frontend_done(call, n_frames, padded)
-            n_true = torch.tensor([n_frames], device=self.device)
-            wave = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup,
-                                      pcm16=pcm16)
-            with trace("pipeline.download"):
-                audio = wave[0, : n_frames * self.cfg.hop_length].cpu().numpy().copy()
-                self._total_done(call)
+        ``upload_pcm16`` and ``pitch_factor`` as in
+        :meth:`extract_features_batch`; ``output_path`` also writes the WAV."""
+
+        def features(audios, names):
+            batch, n_frames = self.extract_features(audios[0], names[0], upload_pcm16, pitch_factor)
+            return batch, [n_frames]
+
+        (audio,) = self._call([wav], [singer_name], features, generator, sampler, speedup, pcm16)
         if output_path is not None:
             save_audio(output_path, audio, self.cfg.fs, turn_up=not pcm16)
         return audio
@@ -694,24 +660,34 @@ class SVCPipeline:
         batch padded to the longest one's bucket -> one waveform per clip,
         each of its own true length. ``sampler``/``speedup`` as in
         :meth:`convert`."""
+        return self._call(wavs, singer_names, self.extract_features_batch, generator, sampler, speedup)
+
+    def _call(self, wavs, singer_names, features, generator, sampler, speedup, pcm16: bool = False
+              ) -> List[np.ndarray]:
+        """One conversion call (``pipeline.call``): the clips loaded,
+        ``features(audios, singer_names)`` -> (batch, true frame counts), the
+        core, and one waveform per clip at its true length downloaded. A
+        batch that divides by the data axis is split first: this data rank
+        converts its slice, as one device would, and the waves are gathered."""
         sampler, speedup = self._resolve_sampler(sampler, speedup)
         with trace("pipeline.call", clips=len(wavs)) as call:
             self.timings = {}
             split = self._data_split(len(wavs))
-            if split:  # this data rank converts its slice, as one device would
+            if split:
                 mine = np.array_split(np.arange(len(wavs)), self._dp_size)[axis_rank(self.mesh, self._data_axis)]
                 wavs, singer_names = [wavs[i] for i in mine], [singer_names[i] for i in mine]
-            batch, frame_counts = self.extract_features_batch(self._load_clips(call, wavs), singer_names)
+            batch, frame_counts = features(self._load_clips(call, wavs), singer_names)
             padded = batch["melody"].shape[1]
             self._frontend_done(call, sum(frame_counts), len(frame_counts) * padded)
             n_true = torch.tensor(frame_counts, device=self.device)
             if split:
                 waves = self._core(batch, n_true, padded, self.rank_generator(generator), None, sampler, speedup,
-                                   False)
+                                   pcm16)
                 waves, n_true = self._gather_waves(waves, n_true)
                 frame_counts = n_true.tolist()
             else:
-                waves = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup)
+                waves = self._convert_core(batch, n_true, padded, generator, sampler=sampler, speedup=speedup,
+                                           pcm16=pcm16)
             with trace("pipeline.download"):
                 waves = waves.cpu().numpy()
                 self._total_done(call)

@@ -138,7 +138,7 @@ def test_plain_k1_k5_of_the_512_stack_match_the_module(stacked, operands):
     equal to the plain K1 form's eps."""
     st, condb, rows, den_bf, cond_projs = stacked
     _, x, z = operands
-    assert denoiser_step.is_wide(st) and st.w1.shape == (40, 1536, 1024)
+    assert st.w1.shape == (40, 1536, 1024)
     k = 3
     xp = torch.nn.functional.pad(x, (0, 28))
     with torch.no_grad():

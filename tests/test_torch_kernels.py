@@ -340,7 +340,7 @@ def test_fused_sampler_equals_k1_step_by_step(dev, quantize, tail):
     once per stack and alternates two carries: over 10 steps (the last
     ``tail`` on the bf16 stack of an int8 one) it equals ``ddpm_step``
     called step by step on the same draws, bit for bit. Its counters: 10 K1
-    calls and 10 (2L + 3) launches, the bf16 stack's all prefetched."""
+    calls and 10 (2L + 3) launches."""
     from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
     from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
@@ -351,14 +351,10 @@ def test_fused_sampler_equals_k1_step_by_step(dev, quantize, tail):
     x_t = torch.randn(x.shape, generator=g, device=dev)
     z = torch.randn((10,) + x.shape, generator=g, device=dev)
     counters = Metrics.default().counters
-    before = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"],
-              counters["denoiser/launches_prefetched"])
+    before = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"])
     got = denoiser_step.ddpm_sample_fused(st, condb, rows, sched, x.shape, noise=(x_t, z), st_fp=st_fp, tail=tail)
-    after = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"],
-             counters["denoiser/launches_prefetched"])
-    per_call = denoiser_step.launches_per_call(5)
-    prefetched = 10 if quantize is None else tail
-    assert tuple(a - b for a, b in zip(after, before)) == (10, 10 * per_call, prefetched * per_call)
+    after = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"])
+    assert tuple(a - b for a, b in zip(after, before)) == (10, 10 * denoiser_step.launches_per_call(5))
     pad = (0, 28)
     want = torch.nn.functional.pad(x_t, pad).contiguous()
     srows = denoiser_step.schedule_rows(sched)
@@ -471,22 +467,23 @@ def test_k1_k5_at_the_bidilconv_widths(dev, b, t_len):
     version round the same f32 sums to bf16 after summing them in another
     order, and 40 layers carry those ulps on through h (as the 20-layer
     cells' 1e-2 allows for). The second clip's result equals that clip alone
-    (its tiles and halos are its own), and the stack is counted as wide."""
-    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
-
+    (its tiles and halos are its own). Under the profiler, every launch of
+    ``step_pf_kernel`` in the K1 and K5 calls is on the wide tile,
+    ``PfShape<8>``: 43 a call, beside 40 of the gate."""
     st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, 512, 40, None, conv_fan_in=True, fc=512,
                                                growth=2.0)
-    assert denoiser_step.is_wide(st)
     xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
     z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
-    counters = Metrics.default().counters
-    before = counters["denoiser/launches_wide"]
-    eps = denoiser_step.denoise(st, condb, rows[3], x)
+    srow = SROWS[0]
+
+    def k5_k1():
+        return denoiser_step.denoise(st, condb, rows[3], x), denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
+
+    (eps, step), tiles = denoiser_step.launched_tiles(k5_k1)
+    assert tiles == {"PfShape<8>": 2 * 43, "gate": 2 * 40}
     ref_eps = denoiser_step.denoise_plain(st, condb, rows[3], x)
     for i in range(b):
         _close(eps, ref_eps, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
-    srow = SROWS[0]
-    step = denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
     ref_step = denoiser_step.ddpm_step_plain(st, condb, rows[3], xp, z, srow)
     for i in range(b):
         _close(step, ref_step, tol=lambda m: 1e-2 * m, view=lambda y, i=i: (y - 0.5 * xp - 0.5 * z)[i])
@@ -494,7 +491,6 @@ def test_k1_k5_at_the_bidilconv_widths(dev, b, t_len):
     if b > 1:
         one = (condb[:, 1:2].contiguous(), rows[3])
         assert torch.equal(eps[1:2], denoiser_step.denoise(st, *one, x[1:2].contiguous()))
-    assert counters["denoiser/launches_wide"] - before == (2 + (b > 1)) * denoiser_step.launches_per_call(40)
 
 
 def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -426,17 +426,15 @@ def _stack(c, layers):
     return denoiser_step.stack_denoiser_params(DiffSVCDenoiser(cfg, torch.bfloat16).to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("c,layers,wide", [(512, 40, True), (384, 20, False)])
-def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatch, c, layers, wide):
+@pytest.mark.parametrize("c,layers", [(512, 40), (384, 20)])
+def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatch, c, layers):
     """Ten K1 calls' counting on a 512 x 40 stack (the wide tile) and a
     384 x 20 one, made inside a conversion's sampler: ``denoiser/launches``
-    and the ``sampling`` span's ``launches`` add 10 (2L + 3) each,
-    ``denoiser/launches_wide`` as many on the wide stack and none on the
-    other; the ``vocoder`` span after it counts nothing."""
+    and the ``sampling`` span's ``launches`` add 10 (2L + 3) each; the
+    ``vocoder`` span after it counts nothing."""
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
 
     st = _stack(c, layers)
-    assert denoiser_step.is_wide(st) == wide
     run_sampler = tiny_pipe._run_sampler
 
     def counted(*args):
@@ -445,7 +443,7 @@ def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatc
 
     monkeypatch.setattr(tiny_pipe, "_run_sampler", counted)
     counters = obs.Metrics.default().counters
-    before = (counters["denoiser/launches"], counters["denoiser/launches_wide"])
+    before = counters["denoiser/launches"]
     t0 = time.perf_counter_ns()
     tiny_pipe.convert(synth_clip(24000, 0.5), SINGER, generator=torch.Generator().manual_seed(0))
     spans = _call_spans(t0)
@@ -454,8 +452,7 @@ def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatc
     (sampling,), (vocoder,) = spans["sampling"], spans["vocoder"]
     assert sampling.attrs == {"channels": 64, "layers": 2, "launches": n}
     assert vocoder.attrs == {}
-    assert (counters["denoiser/launches"] - before[0], counters["denoiser/launches_wide"] - before[1]) == (
-        n, n if wide else 0)
+    assert counters["denoiser/launches"] - before == n
 
 
 def test_sampling_span_carries_the_denoisers_widths(tiny_pipe):

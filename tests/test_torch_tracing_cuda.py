@@ -69,13 +69,15 @@ def test_cli_profile_puts_the_idle_time_under_spans(dev, tmp_path):
     assert idle["idle_s"] > 0 and idle["covered_share"] >= COVERED, idle
 
 
-@pytest.mark.parametrize("c,layers,fc,wide", [(512, 40, 512, True), (384, 20, 128, False)])
-def test_sampling_span_counts_the_k1_launches_of_a_conversion(dev, c, layers, fc, wide):
+@pytest.mark.parametrize("c,layers,fc,tile", [(512, 40, 512, "PfShape<8>"), (384, 20, 128, "PfShape<6>")])
+def test_sampling_span_counts_the_k1_launches_of_a_conversion(dev, c, layers, fc, tile):
     """A 1 s conversion over 4 DDPM steps on K1, with the denoiser at
-    Amphion's BiDilConv widths (512 x 40, the wide tile) and at the
-    reference's (384 x 20): its ``sampling`` span names the widths and
-    counts 4 (2L + 3) launches, ``denoiser/launches`` grows by as many, and
-    ``denoiser/launches_wide`` by as many on the wide stack, else by 0."""
+    Amphion's BiDilConv widths (512 x 40) and at the reference's (384 x 20):
+    its ``sampling`` span names the widths and counts 4 (2L + 3) launches,
+    ``denoiser/launches`` grows by as many, and under the profiler every
+    launch of ``step_pf_kernel`` is on the tile the kernel picks for the
+    width (``PfShape<8>``, the wide one, at 512; ``PfShape<6>`` at 384): 4 (L
+    + 3) of them, beside 4 L of the gate."""
     from svc_inference_pipeline_tpu_torch.config import HParams, load_config
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
     from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
@@ -90,11 +92,12 @@ def test_sampling_span_counts_the_k1_launches_of_a_conversion(dev, c, layers, fc
     counters = obs.Metrics.default().counters
     clip = synth_clip(24000, 1.0)
     pipe.convert(clip, "svcc_CDF1", generator=torch.Generator(device=dev).manual_seed(0))  # build, first calls
-    before = (counters["denoiser/launches"], counters["denoiser/launches_wide"])
+    before = counters["denoiser/launches"]
     t0 = time.perf_counter_ns()
-    pipe.convert(clip, "svcc_CDF1", generator=torch.Generator(device=dev).manual_seed(1))
+    _, tiles = denoiser_step.launched_tiles(
+        lambda: pipe.convert(clip, "svcc_CDF1", generator=torch.Generator(device=dev).manual_seed(1)))
     (sampling,) = obs.spans(t0, name="sampling")
     n = 4 * denoiser_step.launches_per_call(layers)
     assert sampling.attrs == {"channels": c, "layers": layers, "launches": n}
-    assert (counters["denoiser/launches"] - before[0], counters["denoiser/launches_wide"] - before[1]) == (
-        n, n if wide else 0)
+    assert counters["denoiser/launches"] - before == n
+    assert tiles == {tile: 4 * (layers + 3), "gate": 4 * layers}
