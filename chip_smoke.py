@@ -28,9 +28,11 @@
    and K5), and K1 and K5 on the wide tile at Amphion's BiDilConv widths
    (C=512, L=40, step encoder 512) at the served cell's shapes
    (``WIDE_SHAPES``: K1 at B=1, T=960 and B=2, T=1000, whose last tile is
-   partial; K5 at B=2, T=1536 and 1000), each clip to 1e-2 of its range,
-   every ``step_pf_kernel`` launch of a call on the wide tile by the kernel
-   names the profiler reports (``PfShape<8>``; ``PfShape<6>`` at 384), with bounds
+   partial; K5 at B=2, T=1536 and 1000) and, at both widths, K1 and K5 on
+   a short solo clip (``SHORT_SHAPES``: B=1, T=128, 2 row tiles), each clip
+   to 1e-2 of its range,
+   every ``step_pf_kernel`` launch of a call on the wide tile as the C entry
+   points report their launches (``PfShape<8>``; ``PfShape<6>`` at 384), with bounds
    and ``torch.matmul`` on K1's 82 GEMM shapes timed beside it, and K9
    (Praat F0 and the median shift) on synthetic tones of 10 s at B=1 and
    10 s + 16 s at B=2, the batch bit for bit against its plain version and
@@ -162,9 +164,9 @@
    ag. (after f) the CLI with the denoiser at Amphion's BiDilConv widths
       (512 x 40, step encoder 512), DDPM-1000 in bf16 (K1 x 1000, K4 x 24,
       K2 x 6, K3 x 1), whose pipeline then runs ah. PLMS@10 in bf16 (K5 x
-      101), each under the profiler: every ``step_pf_kernel`` launch of
-      their K1/K5 calls (43 a call, beside 40 of the gate) named with the
-      wide tile, ``PfShape<8>``;
+      101), each with every ``step_pf_kernel`` launch of their K1/K5 calls
+      (3 a call, beside 40 of the fused layer) on the wide tile,
+      ``PfShape<8>``, as the C entry points report them;
    y-ad and the train step on a mesh (after af): first which of the port's
       collectives gloo takes on CUDA tensors (``gloo_cuda_probe``: 2 ranks on
       cuda:0; NCCL refuses two ranks on one card). Then one spawn of 2 ranks on
@@ -250,6 +252,14 @@ HARNESS_FRAMES = 944  # the TPU harness's clip (perf_kernel3.main)
 # Amphion's DiffWaveNetSVC decoder, which runs on K1's wide tile (K = 512)
 BIDILCONV = {"residual_channels": 512, "residual_layer_num": 40, "diffusion_fc_size": 512}
 WIDE_TAG = "512x40"  # ends the names of the main paths on it
+# K1's step times (``step_ms``, chained steps between CUDA events) at each
+# width, B = 1: a 1.4 s clip (2 row tiles, a served cell's short solo clip),
+# a 4 s clip and the offline cell's 10 s clip
+STEP_FRAMES = (128, 384, 960)
+# (form, B, T) of the checks of a short solo clip at each width (2 row tiles,
+# the fewest clusters a layer launch takes at a served cell's lengths)
+SHORT_SHAPES = (("K1", 1, 128), ("K5", 1, 128))
+NARROW_TAG = "384x20"
 # (form, B, T) of the wide tile's checks: the served cell's shapes, a clip of
 # 10 s and a batch of two padded to 1536 frames, and two clips of 1000 frames,
 # whose last 64-row tile holds 40 rows
@@ -531,10 +541,11 @@ def int8_library_ms(st, b: int, t_len: int, g, device) -> float:
 
 
 def on_tile(rows: dict, name: str, tile: str, layers: int) -> None:
-    """Fails unless row ``name``'s one profiled K1/K5 call on ``layers``
-    layers launched all its L + 3 ``step_pf_kernel`` on ``tile`` (the kernel
-    names, ``denoiser_step.launched_tiles``), beside its L gate launches."""
-    want = {tile: layers + 3, "gate": layers}
+    """Fails unless row ``name``'s one counted K1/K5 call on ``layers``
+    layers launched 3 ``step_pf_kernel`` on ``tile`` (prologue, skip and
+    output projections) beside one fused layer a layer (as the C entry
+    points report them, ``denoiser_step.launched_tiles``)."""
+    want = {tile: 3, "layer": layers}
     print(f"  {name}: one call's launches by tile {rows[name]['tiles']}")
     if rows[name]["tiles"] != want:
         raise AssertionError(f"{name}: launches by tile {rows[name]['tiles']} != {want}")
@@ -544,8 +555,9 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     """K1, K5 and K6 at B=1, T=n_frames, C=384, L=20, bf16 compute; K6 also at
     B=2 with the second clip's mel (so its int8 scale) 8x the first's; K8 at
     B=1, T=HARNESS_FRAMES; K1 and K5 on the wide tile at C=512, L=40 (fc 512)
-    at WIDE_SHAPES, each clip to its own range, as rows "K1 512x40 B=b T=t".
-    Each K1/K5/K6 row keeps one profiled call's launches by tile (``tiles``)."""
+    at WIDE_SHAPES, each clip to its own range, as rows "K1 512x40 B=b T=t";
+    K1 and K5 at both widths at SHORT_SHAPES, as rows "K1 384x20 B=b T=t".
+    Each K1/K5/K6 row keeps one counted call's launches by tile (``tiles``)."""
     import torch
 
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step as ds
@@ -671,13 +683,39 @@ def check_denoiser(cfg, g, device, n_frames: int) -> dict:
     k5 = compare("K8 vs K5 eps", lambda: dv2.denoise_v2(st, condb, srow, x),
                  lambda: ds.denoise(st, condb, srow, x), EPS_TOL)
     print(f"  K8 {k5['ms']:.4f} ms in one launch of {dv2.denoise_v2.grid} blocks; "
-          f"K5 {k5['plain_ms']:.4f} ms in {2 + 2 * st.w1.shape[0]} launches, T={HARNESS_FRAMES}")
+          f"K5 {k5['plain_ms']:.4f} ms in {3 + st.w1.shape[0]} launches, T={HARNESS_FRAMES}")
     k8.update(k5_ms=k5["plain_ms"], k5_err=k5["max_abs_err"], grid=dv2.denoise_v2.grid)
     k8["bound_ms"], k8["bound_by"] = denoiser_bound(st, condb, 1, HARNESS_FRAMES, 2 * x.nbytes)
     rows["K8"] = k8
 
-    # the wide tile: every launch of a 512-channel stack but the gate runs on it
+    # the wide tile: the prologue, skip and output projections of a 512-channel stack run on it
     wide = random_denoiser(bidilconv_config(cfg), g, device)
+    # a K1 step in a chain (the sampler's form) at both widths: CUDA events over ten steps,
+    # kept with K1's row as ``steps``
+    steps = rows["K1"]["steps"] = {}
+    for net, width, tile in ((den, NARROW_TAG, "PfShape<6>"), (wide, WIDE_TAG, "PfShape<8>")):
+        for t_len in STEP_FRAMES:
+            st, condb, srow = operands(1, None, t_len=t_len, net=net)
+            x = torch.nn.functional.pad(mel(1, t_len), (0, st.wmel.shape[0] - n_mel)).contiguous()
+            z = torch.zeros_like(x)
+            chain = ds._StepChain(st, condb, srow[None].contiguous(), x, z)
+            carry = (x.clone(), torch.empty_like(x))
+
+            def ten_steps():
+                for i in range(10):
+                    chain.step(0, carry[i % 2], z, carry[(i + 1) % 2], probe)
+
+            name = f"{width} T={t_len}"
+            torch.cuda.synchronize()
+            _, tiles = ds.launched_tiles(lambda: ds.ddpm_step(st, condb, srow, x, z, probe))
+            steps[name] = {"step_ms": cuda_ms(ten_steps) / 10, "tiles": tiles}
+            print(f"K1 step {name}: {steps[name]['step_ms']:.4f} ms in a chain (B=1)")
+            on_tile(steps, name, tile, st.w1.shape[0])
+        for form, b, t_len in SHORT_SHAPES:
+            name = f"{form} {width} B={b} T={t_len}"
+            check = ddpm_form if form == "K1" else eps_form
+            rows[name] = check(name, None, b=b, t_len=t_len, net=net)
+            on_tile(rows, name, tile, st.w1.shape[0])
     for form, b, t_len in WIDE_SHAPES:
         name = f"{form} 512x40 B={b} T={t_len}"
         check = ddpm_form if form == "K1" else eps_form
@@ -3446,11 +3484,11 @@ def main_paths(cfg, device, voc) -> tuple:
         layers = BIDILCONV["residual_layer_num"]
 
         def on_wide_tile(run, calls):
-            """run() under the profiler, failing unless its ``calls`` K1/K5
-            calls launched every ``step_pf_kernel`` on the wide tile, by the
-            kernel names (``launched_tiles``)."""
+            """run(), failing unless its ``calls`` K1/K5 calls launched
+            every ``step_pf_kernel`` on the wide tile and one fused layer a
+            layer, as the C entry points report them (``launched_tiles``)."""
             timings, tiles = launched_tiles(run)
-            want = {"PfShape<8>": calls * (layers + 3), "gate": calls * layers}
+            want = {"PfShape<8>": calls * 3, "layer": calls * layers}
             print(f"  launches by tile {tiles}")
             if tiles != want:
                 raise AssertionError(f"launches by tile: {tiles} != {want}")
@@ -3545,7 +3583,8 @@ def main() -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                         **{k: r[k] for k in ("library_ratio", "gemm_library_ms", "int8_library_ms",
                                              "conv_library_ms", "stages", "kernel_device_ms", "host_issue_ms",
-                                             "batch2_ms", "batch2_bound_ms", "agreement", "batch_bits", "tiles")
+                                             "batch2_ms", "batch2_bound_ms", "agreement", "batch_bits", "tiles",
+                                             "steps")
                            if k in r}})
         if key in wide_launches:
             # the wide tile's share of the launches, and its checks at WIDE_SHAPES
@@ -3554,6 +3593,10 @@ def main() -> int:
                                                                           "bound_by", "gemm_library_ms", "tiles")
                                                       if f in v}
                                    for k, v in rows.items() if k.startswith(f"{key} {WIDE_TAG}")}
+            # its checks at the narrow width beside the main row's shape
+            kernels[-1]["narrow"] = {k[len(key) + 1:]: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms", "tiles")
+                                                        if f in v}
+                                     for k, v in rows.items() if k.startswith(f"{key} {NARROW_TAG}")}
     for key, r in rows.items():
         print(f"summary {key}: err {r['max_abs_err']:.3e}, {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")

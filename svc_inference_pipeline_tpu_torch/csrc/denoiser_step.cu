@@ -13,55 +13,55 @@
 //   skip sum in VMEM across a sequential (batch, layer) grid.
 //
 // What bounds it here: ~18 GFLOP per call at T=384, C=384, L=20 (18 us at
-//   the tensor cores' peak), but at batch 1 a launch has 72 output tiles of
-//   64 x 64 for 132 SMs (216 blocks for a gate split over its taps), so one
-//   block's path, from its start to its last store, sets a launch's time, and
-//   a call is 2L + 3 such launches in a dependent chain. With the epilogue
-//   reading its operands after the wait, one global load per element, that
-//   path was 8-17 us on an H100 at T = 960 (globaltimer stamps per block):
-//   3-15 us the epilogue's serial L2 round trips, 2-5 us a K loop that drained
-//   every chunk. The activations (h [T,C] bf16, skip [T,C] f32: ~2.2 MB at
-//   T = 960) stay in the 50 MB L2 between launches. 227 KB of shared memory
-//   cannot hold a sequential layer loop over the whole clip, and CUDA blocks
-//   do not run in order, so the TPU's single resident kernel does not carry
-//   over (K8, one cooperative launch with grid barriers, is no faster).
+//   the tensor cores' peak), but at batch 1 a layer has 6-15 row tiles of 64
+//   rows for 132 SMs, so one block's path, from its start to its last store,
+//   sets a launch's time, and a call is a chain of dependent launches. On an
+//   H100 a global load right after a dependent-launch wait takes microseconds
+//   (an epilogue reading its operands then took 3-15 us a launch), a block's
+//   chunk loop pays ~0.6 us a chunk in its own latency where one warpgroup
+//   runs on an SM, and each grid-wide dependency costs what a launch does
+//   (K8, one cooperative launch with grid barriers, is no faster). The
+//   activations (h [T,C] bf16, skip [T,C] f32: ~2.2 MB at T = 960) stay in the
+//   50 MB L2 between launches.
 //
-// Design: 2L + 3 launches per call, each one GEMM tile with its own fused
-//   epilogue:
-//   1. prologue: h = relu(bf16(x) @ wmel + bmel), skip = 0;
-//   2. per layer: gate g = sigmoid . tanh of (taps(y) @ w1 + cond_block);
-//      then (h + yo_res)/sqrt2 and skip += yo_skip from g @ wout + bout;
+// Design on a bf16 stack (K1, K5): L + 3 launches per call:
+//   1. prologue: h = relu(bf16(x) @ wmel + bmel), skip = 0, and y_0 =
+//      bf16(h + step_row[0]) into the conv-input buffer;
+//   2. per layer, one launch (step_layer_kernel): the gate g = sigmoid . tanh
+//      of (taps(y) @ w1 + cond_block), then (h + yo_res)/sqrt2, skip +=
+//      yo_skip from g @ wout + bout, and y for the next layer;
 //   3. skip projection: s1 = relu(bf16(skip/sqrt L) @ wskip + bskip);
 //   4. output projection with either the DDPM update
 //      x0 = clamp(s0 x - s1 eps, +-1); x' = s2 x0 + s3 x + s4 z (K1),
 //      or the store of eps = acc + bo in f32 for the n_mel columns (K5).
 //   Numerics follow the TPU kernel: bf16 operands, f32 accumulation, f32
 //   gates, f32 skip, h stored bf16, f32 carry x, sigma (s4) = 0 at t = 0.
-//
-// The bf16 launches (K1 and K5) keep the result in the wgmma accumulator
-//   registers and run their epilogue from there. All but the gate run on the
-//   prefetching tile below: where C and M_pad are at most 384, the whole K of
-//   A resident in shared memory, B's first three chunks of 64 in shared
-//   memory and the rest in registers (PfNarrow); a wider stack (C, M_pad <=
-//   512) runs every launch on the wide tile (PfWide). Row tiles go per clip
-//   (b, 64-row t tile) and never straddle two clips.
-//   - The conv input is ready to copy: the epilogue that writes h (the
-//     prologue for layer 0, the residual epilogue of layer l for layer l+1)
-//     also writes y = bf16(h + step_row[l+1]) into a [B, T + 2*halo, C]
-//     buffer whose halo rows (halo = 2^(cycle-1), the largest dilation) are
-//     zero: the prologue's blocks at a clip's first and last row tile write
-//     the zeros of their columns, so the buffer needs no fill of its own.
+//   Row tiles go per clip (b, 64-row t tile) and never straddle two clips.
+//   - The conv input is ready to copy: the epilogue that writes h also
+//     writes y = bf16(h + step_row[l+1]) into one of two [B, T + 2*halo, C]
+//     buffers by layer parity (layer l reads buffer l % 2, so no launch
+//     overwrites rows that its neighbouring tiles still read), whose halo
+//     rows (halo = 2^(cycle-1), the largest dilation) are zero: the
+//     prologue's blocks at a clip's first and last row tile write the zeros
+//     of their columns in both, so the buffers need no fill of their own.
 //     Tap m of the gate is then the 64-row box at row t0 + (m-1)*d of the
-//     clip's rows: a pure cp.async source, with no gather arithmetic.
-//   - The gate is split over its 3 taps in a thread-block cluster of 3: each
-//     block multiplies one tap (K = C) for 64 rows, 64 gate columns and their
-//     64 filter columns, the three f32 partial tiles meet through distributed
-//     shared memory and are summed in the fixed order tap 0 + tap 1 + tap 2
-//     (no atomics: the same bits on every run, and a clip's rows never depend
-//     on another clip's), and each block runs the gated epilogue on a third
-//     of the tile's fragments. At T = 960 that is 270 blocks: one wave at 3
-//     blocks an SM. The gate is bound by L2's bandwidth: a wave moves ~39 MB
-//     of taps and weights into the SMs (step_gate_kernel).
+//     clip's rows, a TMA box with no gather arithmetic.
+//   - The layer launch (below, at step_layer_kernel) is a cluster of C/64
+//     blocks a row tile: a block's three warpgroups multiply the three taps
+//     side by side for its 64 gate and 64 filter columns, sum them in the
+//     order tap 0 + tap 1 + tap 2 (no atomics: the same bits on every run,
+//     and a clip's rows never depend on another clip's), run the gated
+//     epilogue, and exchange g through distributed shared memory; the
+//     residual GEMM then runs from it, so g never goes to device memory, and
+//     the gate -> residual dependency stays inside the cluster. Each tap is
+//     summed over its chunks in order from zero and the taps as (p0 + p1) +
+//     p2, each residual sum over its chunks in order, with the epilogues'
+//     roundings unchanged: K1 and K5 keep the bits of
+//     tests/data/k1_k5_sha256.json.
+//   - The prologue and the two projections run on the prefetching tile: the
+//     whole K of A resident in shared memory, B's first three chunks of 64 in
+//     shared memory and the rest in registers (PfNarrow, C and M_pad <= 384;
+//     PfWide to 512), the epilogue from the wgmma accumulator registers.
 //   - Programmatic dependent launch between the launches, and the rule for
 //     what a launch may read before grid_dependency_wait(): anything that the
 //     launch just before it does not write. Launch N's blocks start only when
@@ -69,27 +69,25 @@
 //     every one of those blocks triggers, if at all, after it has returned
 //     from its own wait on launch N-2; so whatever launch N-2 or an earlier
 //     one wrote is complete and visible when launch N starts. Each bf16
-//     launch therefore puts in flight before its wait: its weights (the gate:
-//     its first three chunks), and of its epilogue's operands the
-//     gate's conditioner tile, the biases, the residual's h and skip tiles
-//     (last written by the residual of the layer before, or the prologue: two
-//     launches back) and its next step row, and the DDPM update's x and z
-//     tiles (written before the step began). After the wait it loads, in one
-//     batch, only what the launch just before wrote: y for the gate, g for the
-//     residual, skip for the skip projection, s1 for the output projection;
-//     the prologue loads x and its step row there, because the first launch
-//     of a call follows whatever the caller ran last. Weights and biases
-//     belong to the stack, which the caller makes before the call and no
-//     launch writes. The early loads read through L2 (ld.global.cg), past the
-//     SMs' incoherent L1. A bf16 launch whose blocks are all resident at once
-//     triggers its dependents right after its wait, so that their blocks
-//     start and put their loads in flight while it runs; the gate triggers
-//     once its K loop is done, when every one of its blocks holds an SM, and
-//     any other launch of more than one wave triggers nothing: waiting blocks
-//     of the next launch must not take the SMs from the launch they wait for
+//     launch therefore puts in flight before its wait its weights (the layer:
+//     its rings' first chunks and the residual's), its biases and step rows,
+//     the layer's conditioner tile, and the DDPM update's x and z tiles
+//     (written before the step began). After the wait it loads only what the
+//     launch just before wrote: y's tap boxes, h and skip for the layer, skip
+//     for the skip projection, s1 for the output projection; the prologue
+//     loads x and its step row there, because the first launch of a call
+//     follows whatever the caller ran last. Weights and biases belong to the
+//     stack, which the caller makes before the call and no launch writes. The
+//     early loads read through L2 (ld.global.cg or TMA), past the SMs'
+//     incoherent L1. A launch whose blocks (the layer: clusters) are all
+//     resident at once triggers its dependents right after its wait, so that
+//     their blocks start and put their loads in flight while it runs; any
+//     other launch of more than one wave triggers nothing: waiting blocks of
+//     the next launch must not take the SMs from the launch they wait for
 //     (an explicit trigger at a kernel's start or right after its wait made
 //     the int8 steps, whose gate takes several waves, slower on an H100 than
-//     no PDL at all; K6 triggers nothing).
+//     no PDL at all; K6 triggers nothing). The layer's clusters never exceed
+//     those resident: where the row tiles do, each cluster walks several.
 //
 // int8 (K6): the conv input y = h + step_row is quantised in f32, not first
 //   rounded to bf16, with s_y = max(max|y|, 1e-12)/127 per batch element (the
@@ -103,8 +101,8 @@
 //   The int8 GEMMs run on the wgmma s8 tile (gemm_wg_s8.cuh), whose operands
 //   are K-major: the stack carries K-major copies of the int8 weights
 //   (w1 as [L, 3, 2C, C], wout as [L, 2C, C]).
-//   - The gate is split over its 3 taps as the bf16 gate, in a cluster of
-//     3 taps x 2 column tiles. Each block issues its tap's weight chunks,
+//   - The gate is split over its 3 taps, in a cluster of 3 taps x 2 column
+//     tiles. Each block issues its tap's weight chunks,
 //     waits for the launch before and reads s_y of its clip. The three taps'
 //     64-row boxes of y = h + step_row overlap: together they are the clip's
 //     rows [t0 - d, t0 + 64 + d). The cluster's six blocks quantise that
@@ -131,6 +129,9 @@
 //   (|sum| <= 3C * 127^2 < 2^31), and the int32 -> f32 conversion rounds to
 //   nearest as the plain version's float64 -> f32 does.
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its encoder's types (the encoder is fetched at run time)
+
+#include <algorithm>
 
 #include "gemm_wg.cuh"
 #include "gemm_wg_s8.cuh"
@@ -165,8 +166,9 @@ struct StepEpi {
   float s0, s1, s2, s3, s4;
   int n_out;             // EPS: columns stored (n_mel)
   const bf16* next_row;  // the next layer's step row [C] (for y_out or amax_out)
-  bf16* y_out;           // RELU/RESSKIP, bf16 mode: [B, T + 2*halo, ldo] next conv input, or null
+  bf16* y_out;           // RELU, bf16 mode: [B, T + 2*halo, ldo] layer 0's conv input, or null
   int halo;
+  size_t y_parity;       // RELU, bf16 mode: elements from y_out to the other parity buffer (its halo zeroed too)
   // int8 (K6)
   const float* col_scale;  // int8 GEMM: w1s (GATE) or wouts (RESSKIP) [2C]
   const float* amax_in;    // GATE on int8 taps: [B] abs max of this layer's conv input
@@ -307,10 +309,9 @@ __device__ __forceinline__ void cluster_epilogue(const StepEpi& e, const Acc* pa
 
 // --- K6's bf16 launches: gemm_wg.cuh's ring tile over per-clip row tiles.
 struct WgOp {
-  const void* a;  // bf16 (f32 when A_F32) rows [B, T + 2*halo, lda] (halo = 0: [B*T, lda])
-  int lda, halo;
-  int dil;        // the split gate: tap m reads rows shifted by (m - 1) * dil
-  const bf16* w;  // [K, ldw], or [3K, ldw] tap-major for the split gate
+  const void* a;  // bf16 (f32 when A_F32) rows [B*T, lda]
+  int lda;
+  const bf16* w;  // [K, ldw]
   int ldw, half, N, K;
   float scale;    // f32 A: multiplied before rounding
 };
@@ -344,23 +345,18 @@ constexpr int PF_PIECES = WG_BM * 8 / WG_THREADS;   // 16-byte pieces of one chu
 constexpr int PF_F32_BATCH = 3;                     // f32 A chunks loaded per round
 
 // A tile's shape: the whole K, up to NK chunks of 64, resident in A tiles,
-// the B chunks past the first PF_BS in registers; its shared memory and the
-// blocks an SM holds.
+// the B chunks past the first PF_BS in registers, and its shared memory.
 template <int NK_>
 struct PfShape {
   static constexpr int NK = NK_;
   static constexpr int SMEM = (NK + PF_BS) * WG_TILE_BYTES + 1024;
-  static constexpr int BLOCKS_PER_SM = 228 * 1024 / (SMEM + 1024) < 3 ? 228 * 1024 / (SMEM + 1024) : 3;
 };
-// C, M_pad <= 384: 73 KB, 3 blocks an SM
+// C, M_pad <= 384: 73 KB
 using PfNarrow = PfShape<6>;
-// C, M_pad <= 512: 89 KB, 2 blocks an SM. On an H100 (C = 512, L = 40) it
-// beat K streamed past 384 through a 73 KB tile at 3 blocks an SM (A chunks
-// 6-7 into the tiles of chunks 0-1, B chunks 6-7 reloaded into registers)
-// at B = 2, the served batches' size: 1.98-2.00 against 2.10-2.11 ms a step
-// at T = 960; it matched it at T = 960, B = 1 (1.18-1.20 against 1.18) and
-// lost only where the residual's grid fits one wave at 3 blocks an SM and
-// not at 2 (T = 384, B = 4: 1.76 against 1.60)
+// C, M_pad <= 512: 89 KB. On an H100 (C = 512, L = 40, the residual layers
+// then on this tile too) it beat K streamed past 384 through a 73 KB tile
+// (A chunks 6-7 into the tiles of chunks 0-1, B chunks 6-7 reloaded into
+// registers) at B = 2: 1.98-2.00 against 2.10-2.11 ms a step at T = 960
 using PfWide = PfShape<8>;
 constexpr int PF_NARROW_K = PfNarrow::NK * WG_BK;
 constexpr int PF_MAX_K = PfWide::NK * WG_BK;
@@ -502,15 +498,13 @@ __device__ __forceinline__ void pf_tile(const WgB& bw, int nk, bool early, uint8
   wg_fence_acc(acc);
 }
 
-// The bf16 launches but the gate. Tile columns are weight columns bx*64 ..
-// +63, or, for the residual (op.half = C), bx*32 .. +31 of each half: then
-// fragment j < 4 holds the first half's column c = bx*32 + 8j + pf_col() and
-// fragment j + 4 the second half's column C + c. Each epilogue computes every
-// element as the ring tile's epilogue does, the same operations in the same
-// order, and stores two adjacent columns at once.
+// The bf16 launches but the fused layer: the prologue (RELU), the skip
+// projection (RELU) and the output projection (DDPM or EPS). Tile columns
+// are weight columns bx*64 .. +63. Each epilogue computes every element as
+// the ring tile's epilogue does, the same operations in the same order, and
+// stores two adjacent columns at once.
 template <bool A_F32, int EPI, class S>
-__global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? S::BLOCKS_PER_SM : 1)
-    step_pf_kernel(const WgOp op, const StepEpi e, const bool early) {
+__global__ void __launch_bounds__(WG_THREADS, 1) step_pf_kernel(const WgOp op, const StepEpi e, const bool early) {
   extern __shared__ uint8_t wg_smem[];
   uint8_t* smem = align1024(wg_smem);
   const int tile = blockIdx.x;
@@ -519,7 +513,6 @@ __global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? S::BLOCKS_PER
   const int t0 = (tile - b * tpc) * WG_BM;
   const int nvalid = min(WG_BM, e.T - t0);
   const int bx = blockIdx.y;
-  const int C = op.half;
   const int r0 = b * e.T + t0;
   const int row = pf_row();
   const int col = pf_col();
@@ -528,7 +521,7 @@ __global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? S::BLOCKS_PER
   const WgA a{A_F32 ? static_cast<const void*>(static_cast<const float*>(op.a) + arow * op.lda)
                     : static_cast<const void*>(static_cast<const bf16*>(op.a) + arow * op.lda),
               op.lda, nvalid, op.scale};
-  const WgB bw{op.w, op.ldw, op.half > 0 ? bx * 32 : bx * WG_BN, op.half > 0 ? op.half + bx * 32 : bx * WG_BN + 32};
+  const WgB bw{op.w, op.ldw, bx * WG_BN, bx * WG_BN + 32};
   auto box_a = [&](uint8_t* As) {  // A a 64-row box of bf16 rows
 #pragma unroll
     for (int kt = 0; kt < S::NK; ++kt) {
@@ -538,281 +531,545 @@ __global__ void __launch_bounds__(WG_THREADS, EPI == EPI_RESSKIP ? S::BLOCKS_PER
   };
   float acc[32];
 
-  if constexpr (EPI == EPI_RESSKIP) {
-    // h and skip: last written two launches back; biases and the next step row: by no launch
-    bf16* hp = static_cast<bf16*>(e.out);
-    uint32_t bres[4], bskp[4], nrow[4] = {}, hv[2][4] = {};
-    float2 sk[2][4] = {};
+  // tile columns bx*64 + 8j + col
+  uint32_t bias[8];
+  float2 xv[2][8] = {}, zv[2][8] = {};  // DDPM: x and z, written before the step
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = bx * 32 + 8 * j + col;
-      bres[j] = ldcg32(e.bias + c);
-      bskp[j] = ldcg32(e.bias + C + c);
-      if (e.y_out != nullptr) nrow[j] = ldcg32(e.next_row + c);
+  for (int j = 0; j < 8; ++j) {
+    const int c = bx * WG_BN + 8 * j + col;
+    bias[j] = ldcg32(e.bias + c);
+    if constexpr (EPI == EPI_DDPM) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (row + 8 * h < nvalid) {
           const size_t o = (size_t)(r0 + row + 8 * h) * e.ldo + c;
-          hv[h][j] = ldcg32(hp + o);
-          sk[h][j] = ldcg64(e.skip + o);
+          xv[h][j] = ldcg64(e.x + o);
+          zv[h][j] = ldcg64(e.z + o);
         }
       }
     }
-    pf_tile<PF_A_BOX, S>(bw, nk, early, smem, acc, box_a);
+  }
+  uint32_t nrow[8] = {};  // the prologue's step row, after the wait
+  if constexpr (A_F32) {  // the prologue and the skip projection
+    pf_tile<PF_A_F32, S>(bw, nk, early, smem, acc, [&](uint8_t* As) {
+      if (e.y_out != nullptr) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = row + 8 * h;
-      if (i >= nvalid) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = bx * 32 + 8 * j + col;
-        const size_t o = (size_t)(r0 + i) * e.ldo + c;
-        const float res0 = __fadd_rn(acc[4 * j + 2 * h], bf_lo(bres[j]));
-        const float res1 = __fadd_rn(acc[4 * j + 2 * h + 1], bf_hi(bres[j]));
-        const float sk0 = __fadd_rn(acc[4 * (j + 4) + 2 * h], bf_lo(bskp[j]));
-        const float sk1 = __fadd_rn(acc[4 * (j + 4) + 2 * h + 1], bf_hi(bskp[j]));
-        const uint32_t hn = pack_bf16x2((bf_lo(hv[h][j]) + res0) * 0.70710678118654752f,
-                                        (bf_hi(hv[h][j]) + res1) * 0.70710678118654752f);
-        st32(hp + o, hn);
-        st64(e.skip + o, sk[h][j].x + sk0, sk[h][j].y + sk1);
-        if (e.y_out != nullptr)
-          st32(e.y_out + ((size_t)b * (e.T + 2 * e.halo) + e.halo + t0 + i) * e.ldo + c,
-               pack_bf16x2(bf_lo(hn) + bf_lo(nrow[j]), bf_hi(hn) + bf_hi(nrow[j])));
+        for (int j = 0; j < 8; ++j) nrow[j] = ldcg32(e.next_row + bx * WG_BN + 8 * j + col);
       }
-    }
+#pragma unroll
+      for (int k0 = 0; k0 < S::NK; k0 += PF_F32_BATCH)
+        if (k0 < nk) pf_f32_chunks(a, k0, nk, As);
+    });
   } else {
-    // RELU, DDPM, EPS: plain tile columns bx*64 + 8j + col
-    uint32_t bias[8];
-    float2 xv[2][8] = {}, zv[2][8] = {};  // DDPM: x and z, written before the step
+    pf_tile<PF_A_BOX, S>(bw, nk, early, smem, acc, box_a);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row + 8 * h;
+    if (i >= nvalid) continue;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = bx * WG_BN + 8 * j + col;
-      bias[j] = ldcg32(e.bias + c);
-      if constexpr (EPI == EPI_DDPM) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (row + 8 * h < nvalid) {
-            const size_t o = (size_t)(r0 + row + 8 * h) * e.ldo + c;
-            xv[h][j] = ldcg64(e.x + o);
-            zv[h][j] = ldcg64(e.z + o);
-          }
+      const size_t o = (size_t)(r0 + i) * e.ldo + c;
+      const float v0 = acc[4 * j + 2 * h] + bf_lo(bias[j]);
+      const float v1 = acc[4 * j + 2 * h + 1] + bf_hi(bias[j]);
+      if constexpr (EPI == EPI_RELU) {
+        const uint32_t hv = pack_bf16x2(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+        st32(static_cast<bf16*>(e.out) + o, hv);
+        if (e.zero_f32 != nullptr) st64(e.zero_f32 + o, 0.0f, 0.0f);
+        if (e.y_out != nullptr)
+          st32(e.y_out + ((size_t)b * (e.T + 2 * e.halo) + e.halo + t0 + i) * e.ldo + c,
+               pack_bf16x2(bf_lo(hv) + bf_lo(nrow[j]), bf_hi(hv) + bf_hi(nrow[j])));
+      } else if constexpr (EPI == EPI_DDPM) {
+        const float2 x = xv[h][j], z = zv[h][j];
+        const float x00 = fminf(fmaxf(e.s0 * x.x - e.s1 * v0, -1.0f), 1.0f);
+        const float x01 = fminf(fmaxf(e.s0 * x.y - e.s1 * v1, -1.0f), 1.0f);
+        st64(static_cast<float*>(e.out) + o, e.s2 * x00 + e.s3 * x.x + e.s4 * z.x,
+             e.s2 * x01 + e.s3 * x.y + e.s4 * z.y);
+      } else {
+        float* eps = static_cast<float*>(e.out) + (size_t)(r0 + i) * e.n_out + c;
+        if (c + 1 < e.n_out && (e.n_out & 1) == 0) {
+          st64(eps, v0, v1);
+        } else if (c < e.n_out) {
+          eps[0] = v0;
+          if (c + 1 < e.n_out) eps[1] = v1;
         }
       }
     }
-    uint32_t nrow[8] = {};  // the prologue's step row, after the wait
-    if constexpr (A_F32) {  // the prologue and the skip projection
-      pf_tile<PF_A_F32, S>(bw, nk, early, smem, acc, [&](uint8_t* As) {
-        if (e.y_out != nullptr) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) nrow[j] = ldcg32(e.next_row + bx * WG_BN + 8 * j + col);
-        }
-#pragma unroll
-        for (int k0 = 0; k0 < S::NK; k0 += PF_F32_BATCH)
-          if (k0 < nk) pf_f32_chunks(a, k0, nk, As);
-      });
-    } else {
-      pf_tile<PF_A_BOX, S>(bw, nk, early, smem, acc, box_a);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = row + 8 * h;
-      if (i >= nvalid) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = bx * WG_BN + 8 * j + col;
-        const size_t o = (size_t)(r0 + i) * e.ldo + c;
-        const float v0 = acc[4 * j + 2 * h] + bf_lo(bias[j]);
-        const float v1 = acc[4 * j + 2 * h + 1] + bf_hi(bias[j]);
-        if constexpr (EPI == EPI_RELU) {
-          const uint32_t hv = pack_bf16x2(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
-          st32(static_cast<bf16*>(e.out) + o, hv);
-          if (e.zero_f32 != nullptr) st64(e.zero_f32 + o, 0.0f, 0.0f);
-          if (e.y_out != nullptr)
-            st32(e.y_out + ((size_t)b * (e.T + 2 * e.halo) + e.halo + t0 + i) * e.ldo + c,
-                 pack_bf16x2(bf_lo(hv) + bf_lo(nrow[j]), bf_hi(hv) + bf_hi(nrow[j])));
-        } else if constexpr (EPI == EPI_DDPM) {
-          const float2 x = xv[h][j], z = zv[h][j];
-          const float x00 = fminf(fmaxf(e.s0 * x.x - e.s1 * v0, -1.0f), 1.0f);
-          const float x01 = fminf(fmaxf(e.s0 * x.y - e.s1 * v1, -1.0f), 1.0f);
-          st64(static_cast<float*>(e.out) + o, e.s2 * x00 + e.s3 * x.x + e.s4 * z.x,
-               e.s2 * x01 + e.s3 * x.y + e.s4 * z.y);
-        } else {
-          float* eps = static_cast<float*>(e.out) + (size_t)(r0 + i) * e.n_out + c;
-          if (c + 1 < e.n_out && (e.n_out & 1) == 0) {
-            st64(eps, v0, v1);
-          } else if (c < e.n_out) {
-            eps[0] = v0;
-            if (c + 1 < e.n_out) eps[1] = v1;
-          }
-        }
-      }
-    }
-    if constexpr (EPI == EPI_RELU) {
-      // the prologue: the halo rows of y above a clip's first tile and below
-      // its last, for this block's 64 columns
-      if (e.y_out != nullptr && (t0 == 0 || t0 + WG_BM >= e.T)) {
-        bf16* clip = e.y_out + (size_t)b * (e.T + 2 * e.halo) * e.ldo + bx * WG_BN;
-        const bf16 zero = __float2bfloat16(0.0f);
-        for (int idx = threadIdx.x; idx < e.halo * WG_BN; idx += WG_THREADS) {
-          const int i = idx / WG_BN;
-          const int j = idx % WG_BN;
-          if (t0 == 0) clip[(size_t)i * e.ldo + j] = zero;
-          if (t0 + WG_BM >= e.T) clip[(size_t)(e.halo + e.T + i) * e.ldo + j] = zero;
-        }
+  }
+  if constexpr (EPI == EPI_RELU) {
+    // the prologue: the halo rows of both parity buffers of y above a
+    // clip's first tile and below its last, for this block's 64 columns
+    if (e.y_out != nullptr && (t0 == 0 || t0 + WG_BM >= e.T)) {
+      bf16* clip = e.y_out + (size_t)b * (e.T + 2 * e.halo) * e.ldo + bx * WG_BN;
+      const bf16 zero = __float2bfloat16(0.0f);
+      for (int idx = threadIdx.x; idx < 2 * e.halo * WG_BN; idx += WG_THREADS) {
+        bf16* buf = clip + (idx >= e.halo * WG_BN ? e.y_parity : 0);
+        const int i = idx % (e.halo * WG_BN) / WG_BN;
+        const int j = idx % WG_BN;
+        if (t0 == 0) buf[(size_t)i * e.ldo + j] = zero;
+        if (t0 + WG_BM >= e.T) buf[(size_t)(e.halo + e.T + i) * e.ldo + j] = zero;
       }
     }
   }
 }
 
-// The gate: a cluster of 3 blocks, one a tap, computes a tile of 64 rows by
-// 64 gate columns c = bx*64 .. +63 and their 64 filter columns C + c, as
-// two m64n64 accumulators: gate column c and filter column C + c sit in the
-// same place of each, so one thread pairs them. Twice the ring tile's width:
-// the cluster count halves (270 clusters' blocks at T = 960 fit in one wave of
-// 3 blocks an SM, where 540 took two) and so do the reads of each tap's box
-// of y. A stage holds a chunk of 64 of K: A and both B halves, 24 KB; three
-// stages. The first three chunks of B go in flight before the wait, A's after
-// it; later chunks, three at a time, once the stages are free. Each chunk's
-// products are the ring tile's, in the same order. The three partial tiles
-// meet through distributed shared memory and are summed in the fixed order
-// tap 0 + tap 1 + tap 2; each block runs the gated epilogue on a third of
-// the tile's fragments.
-constexpr int GATE_STAGE_BYTES = 3 * WG_TILE_BYTES;
-constexpr int GATE_SMEM_BYTES = 3 * GATE_STAGE_BYTES + 1024;  // 73 KB: 3 blocks an SM
+// d += A (64 x 16, shared memory) @ B (16 x 128, MN-major in shared memory: two
+// 64-column swizzle atoms 8 KB apart, the descriptor's leading byte offset),
+// f32. Element (i, j) is the m64n64k16 tile's dot product, in the same order.
+#define SVC_WG128_D "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define SVC_WG128_OUT "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+__device__ __forceinline__ void wgmma_64x128x16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SVC_WG128_D ", %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SVC_WG128_OUT
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef SVC_WG128_D
+#undef SVC_WG128_OUT
 
-__global__ void __launch_bounds__(WG_THREADS, 3) step_gate_kernel(const WgOp op, const StepEpi e) {
+// d += A (64 x 16, this thread's fragments in registers) @ B (16 x 64, MN-major in shared
+// memory). A's fragments are those of an m64 accumulator's columns 16kk .. 16kk + 15 packed
+// to bf16 in pairs: a.x = (d[8kk], d[8kk + 1]), a.y = (d[8kk + 2], d[8kk + 3]), and so on.
+__device__ __forceinline__ void wgmma_64x64x16_ra(float (&d)[32], const uint4& a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence_acc64(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One residual layer of a bf16 stack as one launch: a cluster of C/64
+// blocks owns one 64-row tile of one clip, and block rank q owns gate
+// columns c0 = 64q .. c0 + 63, their filter columns C + c0, and the same
+// residual and skip columns. 64 columns a half because B, the weights as
+// stored ([K, 2C], read MN-major), needs whole 64-column swizzle atoms; the
+// cluster takes C/64 blocks (6 at C = 384, 8 at 512). A block is three
+// consumer warpgroups and one producer warp, alone on its SM (226 KB):
+//   - Warpgroup m multiplies tap m: its box of y (the clip's rows shifted by
+//     (m - 1) d) by the tap's rows of w1, gate and filter columns as one
+//     m64n128 accumulator, over the C/64 chunks in order from zero. Each tap
+//     has its own ring of LAYER_STAGES stages, which the producer warp fills
+//     by TMA (one mbarrier a stage filled, one a stage emptied). On an H100
+//     one warpgroup running the three taps in turn took ~0.7 us a chunk, most
+//     of it the loop's own latency at one warp a scheduler (fences, barrier
+//     waits, four dependent wgmmas); three warpgroups overlap it.
+//   - The three partials meet in shared memory, each in its tap's ring, and
+//     each warpgroup sums a third of the fragments, (p0 + p1) + p2, and runs
+//     the gated epilogue on them into this block's
+//     exchange buffer: g as the A fragments of the residual GEMM (an
+//     accumulator's column pairs are an A fragment's).
+//   - After a cluster barrier the producer bulk-copies the exchange buffer
+//     into every other rank's shared memory (the other ranks' chunks land in
+//     tap 2's ring and the conditioner's tiles, read by then), completing on
+//     the receiver's mbarrier: reading g's chunks from the other ranks with
+//     loads instead cost ~0.9 us a chunk. Warpgroup 0 then multiplies g by
+//     the residual columns and warpgroup 1 by the skip columns, K chunk kc of
+//     g being rank kc's fragments; g never goes to device memory.
+//   - The residual's weight chunks: the first LAYER_STAGES before the wait,
+//     the rest into taps 0 and 1's rings once the partials there are read.
+//   - The residual epilogue writes h and skip in place,
+//     and the next layer's y into the other parity buffer. Box rows at or
+//     past the tile's nvalid read whatever lies there (TMA fills only rows
+//     past the tensor with zeros); they make only result rows that are not
+//     stored.
+// Before the wait: the first ring chunks' weights, the residual's, the
+// conditioner tile, the biases and the next step row (no launch writes
+// them); after it, y's tap boxes and the h and skip tiles (written by the
+// launch before).
+constexpr int LAYER_STAGES = 2;                                     // a tap ring's stages
+constexpr int LAYER_STAGE_BYTES = 3 * WG_TILE_BYTES;                // A box chunk, gate and filter B chunks
+constexpr int LAYER_RING_BYTES = LAYER_STAGES * LAYER_STAGE_BYTES;  // a tap's ring, then its partial
+constexpr int LAYER_RES_OFF = 2 * LAYER_RING_BYTES;                 // the residual's ring: res and skip B
+constexpr int LAYER_RING2_OFF = LAYER_RES_OFF + LAYER_STAGES * 2 * WG_TILE_BYTES;  // tap 2's ring
+constexpr int LAYER_COND_OFF = LAYER_RING2_OFF + LAYER_RING_BYTES;  // gate and filter tiles
+constexpr int LAYER_XBUF_OFF = LAYER_COND_OFF + 2 * WG_TILE_BYTES;  // this rank's g fragments: 8 KB
+constexpr int LAYER_HS_OFF = LAYER_XBUF_OFF + 4 * WG_THREADS * 16;   // h, then skip's two 32-column halves
+constexpr int LAYER_ROWS_OFF = LAYER_HS_OFF + 3 * WG_TILE_BYTES;       // res and skip biases, next step row
+constexpr int LAYER_BAR_OFF = LAYER_ROWS_OFF + 3 * WG_BN * 2;        // the mbarriers
+constexpr int LAYER_NBARS = 7 * LAYER_STAGES + 5;  // tap full/empty, residual full; rest, cond, h, g, partials read
+constexpr int LAYER_SMEM_BYTES = LAYER_BAR_OFF + LAYER_NBARS * 8 + 1024;  // 226 KB: one block an SM
+constexpr int LAYER_THREADS = 3 * WG_THREADS + 32;
+static_assert(WG_BM * 2 * WG_BN * 4 <= LAYER_RING_BYTES, "a tap's f32 partial fits its ring");
+static_assert((PF_MAX_K / WG_BK - LAYER_STAGES) * 2 * WG_TILE_BYTES <= 2 * LAYER_RING_BYTES,
+              "the residual's chunks past its ring fit taps 0 and 1's rings");
+static_assert((PF_MAX_K / WG_BK - 1) * WG_TILE_BYTES <= LAYER_XBUF_OFF - LAYER_RING2_OFF,
+              "the other ranks' g fragments fit tap 2's ring and the conditioner's tiles");
+
+struct LayerOp {
+  bf16* y_next;          // the next layer's conv input (the other parity buffer), or null after the last layer
+  const bf16* bout;      // [2C]
+  const bf16* next_row;  // [C] the next layer's step row (with y_next)
+  bf16* h;               // [B*T, C], in place
+  float* skip;           // [B*T, C], in place
+  int T, C, halo, dil;
+  int y_row0;            // row of the y map where this layer's parity buffer starts
+  int cond_row0;         // row of the cond map where this layer's block starts
+  int layer;             // w1's rows layer * 3C .., wout's layer * C ..
+  int tiles;             // row tiles: B * ceil(T / 64); cluster y walks tiles y, y + gridDim.y, ...
+};
+
+// The layer's tensor maps, boxes of 64 rows by 128 bytes in the 128-byte
+// swizzle the wgmma tiles read: y's two parity buffers as rows [2 B (T + 2
+// halo), C], w1 [3 L C, 2C], wout [L C, 2C], the conditioner blocks [L B T,
+// 2C] and h [B T, C] in bf16, skip [B T, C] in f32
+struct LayerMaps {
+  CUtensorMap y, w1, wout, cond, h, skip;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// box (x = column, y = row) of `map` into dst, completing on bar
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(map), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+// the bytes at row i, byte offset o (< 128, within one 16-byte chunk) of a 128-byte-swizzled tile
+template <typename V>
+__device__ __forceinline__ V sw_ld(const uint8_t* tile, int i, int o) {
+  return *reinterpret_cast<const V*>(tile + sw128(i, o >> 4) + (o & 15));
+}
+// the shared::cluster address of this CTA's shared address a in cluster rank r
+__device__ __forceinline__ uint32_t mapa_shared(uint32_t a, int r) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(r));
+  return d;
+}
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"); }
+
+__global__ void __launch_bounds__(LAYER_THREADS, 1)
+    step_layer_kernel(const __grid_constant__ LayerMaps maps, const LayerOp op, const bool early) {
   extern __shared__ uint8_t wg_smem[];
   uint8_t* smem = align1024(wg_smem);
-  const int tap = (int)(blockIdx.x % 3);  // == the block's rank in its cluster of 3
-  const int tile = blockIdx.x / 3;
-  const int tpc = cdiv(e.T, WG_BM);
-  const int b = tile / tpc;
-  const int t0 = (tile - b * tpc) * WG_BM;
-  const int nvalid = min(WG_BM, e.T - t0);
-  const int c0 = blockIdx.y * WG_BN;  // the tile's first gate column
-  const int C = op.half;
-  const int r0 = b * e.T + t0;
-  const int row = pf_row();
-  const int col = pf_col();
-  const int nk = op.K / WG_BK;
-  const long arow = (long)b * (e.T + 2 * op.halo) + op.halo + t0 + (tap - 1) * op.dil;
-  const WgA a{static_cast<const bf16*>(op.a) + arow * op.lda, op.lda, nvalid, 1.0f};
-  const bf16* w = op.w + (size_t)tap * op.K * op.ldw;
-  const WgB bg{w, op.ldw, c0, c0 + 32};          // gate columns
-  const WgB bf{w, op.ldw, C + c0, C + c0 + 32};  // filter columns
-  auto stage = [&](int s) { return smem + s * GATE_STAGE_BYTES; };
-
-  // this rank's fragments: (j, h) = (u / 2, u % 2) for u = tap + 3m below 16
-  uint32_t cgate[6] = {}, cfilt[6] = {};
+  const uint8_t* cond = smem + LAYER_COND_OFF;  // gate columns' tile, then the filter columns'
+  uint32_t* xbuf = reinterpret_cast<uint32_t*>(smem + LAYER_XBUF_OFF);
+  bf16* rows = reinterpret_cast<bf16*>(smem + LAYER_ROWS_OFF);  // res bias [64], skip bias [64], next row [64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + LAYER_BAR_OFF);  // [tap][stage]
+  uint64_t* empty = full + 3 * LAYER_STAGES;                            // [tap][stage]
+  uint64_t* rfull = empty + 3 * LAYER_STAGES;                           // the residual's [stage]
+  uint64_t* rbar = rfull + LAYER_STAGES;   // the residual's chunks past its ring
+  uint64_t* cbar = rbar + 1;               // the conditioner tile
+  uint64_t* hbar = cbar + 1;               // h and skip
+  uint64_t* gbar = hbar + 1;               // the other ranks' g fragments
+  uint64_t* pbar = gbar + 1;               // every partial read: taps 0 and 1's rings are free
+  const int C = op.C;
+  const int nk = C / WG_BK;  // == the cluster's size
+  const int c0 = blockIdx.x * WG_BN;
+  const int tpc = cdiv(op.T, WG_BM);
+  const int wg = threadIdx.x / WG_THREADS;  // 0-2: the consumer warpgroups; 3: the producer warp
+  const int t = threadIdx.x % WG_THREADS;
+  const int row = 16 * (t >> 5) + ((t & 31) >> 2);  // this thread's accumulator rows row, row + 8
+  const int col = 2 * (t & 3);                       // ... and columns 8j + col, +1
+  auto ring = [&](int m) { return smem + (m < 2 ? m * LAYER_RING_BYTES : LAYER_RING2_OFF); };
+  // K chunk kc of g: this rank's exchange buffer, or the other ranks' pushed copies in slots
+  // 0 .. nk - 2 from tap 2's ring on
+  auto g_chunk = [&](int kc) {
+    const int q = blockIdx.x;
+    return kc == q ? smem + LAYER_XBUF_OFF : smem + LAYER_RING2_OFF + (kc - (kc > q)) * WG_TILE_BYTES;
+  };
+  // the residual's chunk kc: the first LAYER_STAGES in its own ring, loaded before the wait;
+  // the rest in taps 0 and 1's rings once the partials there are read
+  auto res_chunk = [&](int kc) {
+    return kc < LAYER_STAGES ? smem + LAYER_RES_OFF + kc * 2 * WG_TILE_BYTES
+                             : smem + (kc - LAYER_STAGES) * 2 * WG_TILE_BYTES;
+  };
+  if (threadIdx.x == 3 * WG_THREADS) {
+    const CUtensorMap* all[6] = {&maps.y, &maps.w1, &maps.wout, &maps.cond, &maps.h, &maps.skip};
 #pragma unroll
-  for (int m = 0; m < 6; ++m) {
-    const int u = tap + 3 * m;
-    const int i = row + 8 * (u & 1);
-    if (u < 16 && i < nvalid) {
-      const bf16* cb = e.cond + (size_t)(r0 + i) * 2 * C + c0 + 8 * (u >> 1) + col;
-      cgate[m] = ldcg32(cb);
-      cfilt[m] = ldcg32(cb + C);
-    }
+    for (int m = 0; m < 6; ++m) asm volatile("prefetch.tensormap [%0];\n" ::"l"(all[m]) : "memory");
   }
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    if (s < nk) {
-      wg_load_b(bg, s * WG_BK, stage(s) + WG_TILE_BYTES);
-      wg_load_b(bf, s * WG_BK, stage(s) + 2 * WG_TILE_BYTES);
+  if (threadIdx.x == 0) {
+    for (int m = 0; m < 3 * LAYER_STAGES; ++m) {
+      mbar_init(full + m, 1);
+      mbar_init(empty + m, WG_THREADS);
     }
+    for (int s = 0; s < LAYER_STAGES; ++s) mbar_init(rfull + s, 1);
+    mbar_init(rbar, 1);
+    mbar_init(cbar, 1);
+    mbar_init(hbar, 1);
+    mbar_init(gbar, 1);
+    mbar_init(pbar, 3 * WG_THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
-  grid_dependency_wait();
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-    if (s < nk) wg_load_a<false>(a, s * WG_BK, stage(s));
-  cp_async_commit();
+  // the biases and the next step row of this rank's columns (no launch writes them)
+  if (threadIdx.x < 24) {
+    const int part = threadIdx.x >> 3;  // 0: res bias, 1: skip bias, 2: next row
+    const bf16* src = part == 0 ? op.bout + c0 : part == 1 ? op.bout + C + c0 : op.next_row + c0;
+    if (part < 2 || op.y_next != nullptr) cp_async16(rows + 64 * part + 8 * (threadIdx.x & 7), src + 8 * (threadIdx.x & 7));
+  }
+  cp_async_commit();  // waited for before the first cluster barrier, which publishes them
+  __syncthreads();
 
-  float accg[32], accf[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) accg[i] = accf[i] = 0.0f;
-  for (int k0 = 0; k0 < nk; k0 += 3) {
-    if (k0 > 0) {
-      __syncthreads();  // every warp's products of the last three chunks are complete: the stages are free
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        if (k0 + s < nk) {
-          wg_load_b(bg, (k0 + s) * WG_BK, stage(s) + WG_TILE_BYTES);
-          wg_load_b(bf, (k0 + s) * WG_BK, stage(s) + 2 * WG_TILE_BYTES);
-          wg_load_a<false>(a, (k0 + s) * WG_BK, stage(s));
+  for (int it = 0, tile = blockIdx.y; tile < op.tiles; ++it, tile += gridDim.y) {
+    const int b = tile / tpc;
+    const int t0 = (tile - b * tpc) * WG_BM;
+    const int nvalid = min(WG_BM, op.T - t0);
+    const int r0 = b * op.T + t0;
+    const int slot0 = it * nk;  // chunk kc of a ring is its slot slot0 + kc
+    if (wg == 3) {
+      // the producer: lane 0 issues, the warp takes part in the cluster barriers
+      const int ybox = op.y_row0 + b * (op.T + 2 * op.halo) + op.halo + t0;  // tap 1's box
+      auto wait_free = [&](uint64_t* bars, int kc) {  // a stage's previous chunk is consumed
+        const int u = (slot0 + kc) / LAYER_STAGES;
+        if (u > 0) mbar_wait(bars + (slot0 + kc) % LAYER_STAGES, (u - 1) & 1);
+      };
+      auto tap_b = [&](int m, int kc) {  // tap m's chunk kc of w1, after its barrier expects it whole
+        const int s = (slot0 + kc) % LAYER_STAGES;
+        uint64_t* bar = full + m * LAYER_STAGES + s;
+        mbar_expect(bar, LAYER_STAGE_BYTES);
+        uint8_t* st = ring(m) + s * LAYER_STAGE_BYTES;
+        const int k0 = (op.layer * 3 + m) * C + kc * WG_BK;
+        tma_box(st + WG_TILE_BYTES, &maps.w1, c0, k0, bar);
+        tma_box(st + 2 * WG_TILE_BYTES, &maps.w1, C + c0, k0, bar);
+      };
+      auto tap_a = [&](int m, int kc) {  // tap m's box of y, chunk kc
+        const int s = (slot0 + kc) % LAYER_STAGES;
+        tma_box(ring(m) + s * LAYER_STAGE_BYTES, &maps.y, kc * WG_BK, ybox + (m - 1) * op.dil,
+                full + m * LAYER_STAGES + s);
+      };
+      auto res_b = [&](int kc, uint64_t* bar) {  // the residual's chunk kc of wout: res and skip columns
+        tma_box(res_chunk(kc), &maps.wout, c0, op.layer * C + kc * WG_BK, bar);
+        tma_box(res_chunk(kc) + WG_TILE_BYTES, &maps.wout, C + c0, op.layer * C + kc * WG_BK, bar);
+      };
+      const bool issuer = (threadIdx.x & 31) == 0;
+      if (issuer) {
+        // the other ranks' g fragments, due once every rank is past the exchange barrier (a copy
+        // may complete before this, which the barrier's transaction count allows)
+        mbar_expect(gbar, (nk - 1) * WG_TILE_BYTES);
+        const int pre = min(LAYER_STAGES, nk);
+        for (int kc = 0; kc < pre; ++kc) {
+          for (int m = 0; m < 3; ++m) {
+            wait_free(empty + m * LAYER_STAGES, kc);
+            tap_b(m, kc);
+          }
+          mbar_expect(rfull + kc, 2 * WG_TILE_BYTES);
+          res_b(kc, rfull + kc);
+        }
+        mbar_expect(cbar, 2 * WG_TILE_BYTES);
+        tma_box(smem + LAYER_COND_OFF, &maps.cond, c0, op.cond_row0 + r0, cbar);
+        tma_box(smem + LAYER_COND_OFF + WG_TILE_BYTES, &maps.cond, C + c0, op.cond_row0 + r0, cbar);
+        grid_dependency_wait();
+        if (early) grid_dependency_trigger();
+        for (int kc = 0; kc < pre; ++kc)
+          for (int m = 0; m < 3; ++m) tap_a(m, kc);
+        // h and skip, written by the launch before, for the epilogue
+        mbar_expect(hbar, 3 * WG_TILE_BYTES);
+        tma_box(smem + LAYER_HS_OFF, &maps.h, c0, r0, hbar);
+        tma_box(smem + LAYER_HS_OFF + WG_TILE_BYTES, &maps.skip, c0, r0, hbar);
+        tma_box(smem + LAYER_HS_OFF + 2 * WG_TILE_BYTES, &maps.skip, c0 + 32, r0, hbar);
+        for (int kc = pre; kc < nk; ++kc) {
+          for (int m = 0; m < 3; ++m) {
+            wait_free(empty + m * LAYER_STAGES, kc);
+            tap_b(m, kc);
+            tap_a(m, kc);
+          }
         }
       }
-      cp_async_commit();
-    }
-    cp_async_wait<0>();  // this thread's copies of the three chunks
-    fence_proxy_async();
-    __syncthreads();     // ... and every thread's
-    wg_fence_acc(accg);
-    wg_fence_acc(accf);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      if (k0 + s < nk) {
-        const uint64_t da = wg_desc(stage(s), 16);
-        const uint64_t dg = wg_desc(stage(s) + WG_TILE_BYTES, 1024);
-        const uint64_t df = wg_desc(stage(s) + 2 * WG_TILE_BYTES, 1024);
-#pragma unroll
-        for (int kk = 0; kk < WG_BK / 16; ++kk) {
-          wgmma_64x64x16(accg, da + 2 * kk, dg + 128 * kk);
-          wgmma_64x64x16(accf, da + 2 * kk, df + 128 * kk);
+      __syncwarp();
+      cluster_arrive();  // the g exchange
+      if (issuer) {
+        // every partial is read: the residual's other chunks into taps 0 and 1's rings
+        mbar_wait(pbar, it & 1);
+        if (nk > LAYER_STAGES) {
+          mbar_expect(rbar, (nk - LAYER_STAGES) * 2 * WG_TILE_BYTES);
+          for (int kc = LAYER_STAGES; kc < nk; ++kc) res_b(kc, rbar);
         }
       }
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    wg_fence_acc(accg);
-    wg_fence_acc(accf);
-  }
-  // every block of the launch holds its SM now, later waves' too: the next
-  // launch's blocks may take what SMs come free
-  grid_dependency_trigger();
-
-  __syncthreads();  // every warp's products are complete: the stages become the partial tile
-  // fragment u = 2j + h of thread t at u * WG_THREADS + t: its two gate and two filter columns
-  float4* part = reinterpret_cast<float4*>(smem);
-#pragma unroll
-  for (int u = 0; u < 16; ++u) {
-    const int k = 4 * (u >> 1) + 2 * (u & 1);
-    part[u * WG_THREADS + threadIdx.x] = make_float4(accg[k], accg[k + 1], accf[k], accf[k + 1]);
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // the three partial tiles are complete
-  const float4* pt[3] = {cluster.map_shared_rank(part, 0), cluster.map_shared_rank(part, 1),
-                         cluster.map_shared_rank(part, 2)};
-  float4 v[6][3];  // [this rank's fragment m][tap]
-#pragma unroll
-  for (int m = 0; m < 6; ++m) {
-    const int u = tap + 3 * m;
-    if (u < 16) {
-#pragma unroll
-      for (int t = 0; t < 3; ++t) v[m][t] = pt[t][u * WG_THREADS + threadIdx.x];
-    }
-  }
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");  // done with the others' tiles
-#pragma unroll
-  for (int m = 0; m < 6; ++m) {
-    const int u = tap + 3 * m;
-    const int i = row + 8 * (u & 1);
-    if (u < 16 && i < nvalid) {
-      const float g0 = (v[m][0].x + v[m][1].x) + v[m][2].x, g1 = (v[m][0].y + v[m][1].y) + v[m][2].y;
-      const float f0 = (v[m][0].z + v[m][1].z) + v[m][2].z, f1 = (v[m][0].w + v[m][1].w) + v[m][2].w;
-      float y[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float gate = __fadd_rn(q ? g1 : g0, q ? bf_hi(cgate[m]) : bf_lo(cgate[m]));
-        const float filt = __fadd_rn(q ? f1 : f0, q ? bf_hi(cfilt[m]) : bf_lo(cfilt[m]));
-        y[q] = (1.0f / (1.0f + expf(-gate))) * tanhf(filt);
+      __syncwarp();
+      cluster_wait();  // every rank's fragments are in place, and every rank's slots for them free
+      if (issuer) {
+        // this rank's fragments into each other rank's slot for them, completing on its gbar
+        const int q = blockIdx.x;
+        for (int r = 0; r < nk; ++r) {
+          if (r == q) continue;
+          const uint32_t dst = mapa_shared(smem_u32(smem + LAYER_RING2_OFF + (q - (q > r)) * WG_TILE_BYTES), r);
+          asm volatile(
+              "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+              "r"(smem_u32(smem + LAYER_XBUF_OFF)), "r"(WG_TILE_BYTES), "r"(mapa_shared(smem_u32(gbar), r))
+              : "memory");
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the exchange buffer is read
       }
-      st32(static_cast<bf16*>(e.out) + (size_t)(r0 + i) * e.ldo + c0 + 8 * (u >> 1) + col, pack_bf16x2(y[0], y[1]));
+    } else {
+      // consumer warpgroup wg: tap wg's partial, summed over its chunks in order from zero
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      for (int kc = 0; kc < nk; ++kc) {
+        const int s = (slot0 + kc) % LAYER_STAGES;
+        mbar_wait(full + wg * LAYER_STAGES + s, (slot0 + kc) / LAYER_STAGES & 1);
+        const uint8_t* st = ring(wg) + s * LAYER_STAGE_BYTES;
+        const uint64_t da = wg_desc(st, 16);
+        const uint64_t db = wg_desc(st + WG_TILE_BYTES, WG_TILE_BYTES);  // both B tiles: 128 columns
+        wg_fence_acc64(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk) wgmma_64x128x16(acc, da + 2 * kk, db + 128 * kk);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        wg_fence_acc64(acc);
+        mbar_arrive(empty + wg * LAYER_STAGES + s);
+      }
+      // the partial into this tap's ring (its chunks are all consumed): fragment k of thread t
+      float* part = reinterpret_cast<float*>(ring(wg));
+#pragma unroll
+      for (int k = 0; k < 64; ++k) part[k * WG_THREADS + t] = acc[k];
+      asm volatile("bar.sync 1, %0;\n" ::"n"(3 * WG_THREADS) : "memory");  // the three partials are in place
+
+      // the tap sum, (p0 + p1) + p2, and the gated epilogue for fragments u = wg, wg + 3, ... of
+      // every thread slot t: u = 2j + h is row row + 8h, gate columns c0 + 8j + col, +1 in
+      // accumulator entries 4j + 2h, +1, and their filter columns 32 further; g's fragment u
+      // of slot t is word u % 4 of the exchange buffer's uint4 (u / 4) * 128 + t
+      {
+        const float* p0 = reinterpret_cast<const float*>(ring(0));
+        const float* p1 = reinterpret_cast<const float*>(ring(1));
+        const float* p2 = reinterpret_cast<const float*>(ring(2));
+        mbar_wait(cbar, it & 1);
+#pragma unroll
+        for (int m = 0; m < 6; ++m) {
+          const int u = wg + 3 * m;
+          if (u >= 16) break;
+          const int k = 4 * (u >> 1) + 2 * (u & 1);
+          const int i = row + 8 * (u & 1);
+          const int o = 2 * (8 * (u >> 1) + col);
+          const uint32_t cg2 = sw_ld<uint32_t>(cond, i, o), cf2 = sw_ld<uint32_t>(cond + WG_TILE_BYTES, i, o);
+          float y[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int g = (k + q) * WG_THREADS + t, f = (32 + k + q) * WG_THREADS + t;
+            const float sg = (p0[g] + p1[g]) + p2[g], sf = (p0[f] + p1[f]) + p2[f];
+            const float gate = __fadd_rn(sg, q ? bf_hi(cg2) : bf_lo(cg2));
+            const float filt = __fadd_rn(sf, q ? bf_hi(cf2) : bf_lo(cf2));
+            y[q] = (1.0f / (1.0f + expf(-gate))) * tanhf(filt);
+          }
+          xbuf[((u >> 2) * WG_THREADS + t) * 4 + (u & 3)] = pack_bf16x2(y[0], y[1]);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the partials' reads, before TMA refills
+        mbar_arrive(pbar);
+      }
+      cp_async_wait<0>();  // this thread's copies of the biases and the next row
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the fragments, for the bulk copies
+      cluster_arrive();    // every rank's fragments are in place (and every thread's copies)
+      cluster_wait();
+
+      // the residual: warpgroup 0 the res columns, 1 the skip columns (B tile wg of a stage)
+      float racc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) racc[i] = 0.0f;
+      if (wg < 2) {
+        // warpgroup 0 the res columns, 1 the skip columns (B tile wg of a chunk); K chunk kc of
+        // g is rank kc's fragments, here once gbar completes
+        mbar_wait(gbar, it & 1);
+#pragma unroll 1
+        for (int kc = 0; kc < nk; ++kc) {
+          if (kc < LAYER_STAGES) {
+            mbar_wait(rfull + kc, it & 1);
+          } else if (kc == LAYER_STAGES) {
+            mbar_wait(rbar, it & 1);
+          }
+          const uint4* g4 = reinterpret_cast<const uint4*>(g_chunk(kc));
+          uint4 ga[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ga[i] = g4[i * WG_THREADS + t];
+          const uint64_t db = wg_desc(res_chunk(kc) + wg * WG_TILE_BYTES, 1024);
+          wg_fence_acc(racc);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int kk = 0; kk < WG_BK / 16; ++kk) wgmma_64x64x16_ra(racc, ga[kk], db + 128 * kk);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          wg_fence_acc(racc);
+        }
+
+        // the residual epilogue: warpgroup 0 res column c (h and the next y), 1 skip
+        // column C + c; h and skip's halves in their tiles
+        mbar_wait(hbar, it & 1);
+        const uint8_t* hs = smem + LAYER_HS_OFF;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = row + 8 * h;
+          if (i >= nvalid) continue;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + 8 * j + col;
+            const size_t o = (size_t)(r0 + i) * C + c;
+            if (wg == 0) {
+              const uint32_t br = *reinterpret_cast<const uint32_t*>(rows + 8 * j + col);
+              const float res0 = __fadd_rn(racc[4 * j + 2 * h], bf_lo(br));
+              const float res1 = __fadd_rn(racc[4 * j + 2 * h + 1], bf_hi(br));
+              const uint32_t hv = sw_ld<uint32_t>(hs, i, 2 * (8 * j + col));
+              const uint32_t hn = pack_bf16x2((bf_lo(hv) + res0) * 0.70710678118654752f,
+                                              (bf_hi(hv) + res1) * 0.70710678118654752f);
+              st32(op.h + o, hn);
+              if (op.y_next != nullptr) {
+                const uint32_t nr = *reinterpret_cast<const uint32_t*>(rows + 128 + 8 * j + col);
+                st32(op.y_next + ((size_t)b * (op.T + 2 * op.halo) + op.halo + t0 + i) * C + c,
+                     pack_bf16x2(bf_lo(hn) + bf_lo(nr), bf_hi(hn) + bf_hi(nr)));
+              }
+            } else {
+              const uint32_t bs = *reinterpret_cast<const uint32_t*>(rows + 64 + 8 * j + col);
+              const float sk0 = __fadd_rn(racc[4 * j + 2 * h], bf_lo(bs));
+              const float sk1 = __fadd_rn(racc[4 * j + 2 * h + 1], bf_hi(bs));
+              const float2 sk = sw_ld<float2>(hs + (1 + (j >> 2)) * WG_TILE_BYTES, i, 4 * (8 * (j & 3) + col));
+              st64(op.skip + o, sk.x + sk0, sk.y + sk1);
+            }
+          }
+        }
+      }
+      // this tile's reads of shared memory are complete before the next tile's loads, which the
+      // producer issues after the barrier below
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
+    __syncthreads();  // the tile's shared memory is read: the next tile's loads may overwrite it
   }
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // no block leaves while another reads
 }
+
 
 // --- int8 launches (K6): the wgmma s8 tile over per-clip row tiles. The
 // gate, split over its taps, quantises its tap's box of y from h; "int8"
@@ -949,10 +1206,21 @@ __global__ void __launch_bounds__(WG_THREADS) step_gemm_s8_kernel(const W8Op op,
   }
 }
 
-// launch_ex (common.cuh), with a cluster for the split gates: 3 taps, by
-// W8_GATE_Q column tiles for the int8 gate.
+// launch_ex (common.cuh), with a cluster for the int8 gate: 3 taps by
+// W8_GATE_Q column tiles.
+// The launches of one entry-point call, for the caller's counters: each
+// launch helper below adds its own, and the entry point passes the sums on.
+struct Issued {
+  int launches = 0;  // kernel launches
+  int layers = 0;    // of them step_layer_kernel's, one a fused residual layer
+  int tiled = 0;     // of them step_pf_kernel's, on the prefetching tile of
+  int nk = 0;        // ... nk resident K chunks
+};
+thread_local Issued issued;
+
 template <bool A_F32, int EPI>
 void launch_wg(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
+  ++issued.launches;
   auto kernel = step_gemm_wg_kernel<A_F32, EPI>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM_BYTES);
@@ -973,11 +1241,6 @@ int resident_blocks(Kernel kernel, int smem) {
   return sms * per_sm;
 }
 
-// A launch whose grid is resident at once triggers its dependents right
-// after its wait (`early`), so that their blocks start and put their loads in
-// flight while it runs; a longer one triggers nothing, lest waiting blocks of
-// the next launch hold an SM that one of its later blocks needs. The gate
-// triggers once its K loop is done.
 // All of the SM's shared memory for `kernel`, so that three 73 KB blocks
 // fit; returns resident_blocks (a refused attribute shows as the launch's
 // error)
@@ -988,25 +1251,104 @@ int big_smem(Kernel kernel, int smem) {
   return resident_blocks(kernel, smem);
 }
 
+// A launch whose grid is resident at once triggers its dependents right
+// after its wait (`early`), so that their blocks start and put their loads in
+// flight while it runs; a longer one triggers nothing, lest waiting blocks of
+// the next launch hold an SM that one of its later blocks needs.
 template <bool A_F32, int EPI, class S>
 void launch_pf(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
+  ++issued.launches;
+  ++issued.tiled;
+  issued.nk = S::NK;
   auto kernel = step_pf_kernel<A_F32, EPI, S>;
   static const int resident = big_smem(kernel, S::SMEM);
-  const int ny = op.half > 0 ? op.half / 32 : op.N / WG_BN;
-  const dim3 grid(B * cdiv(e.T, WG_BM), ny);
+  const dim3 grid(B * cdiv(e.T, WG_BM), op.N / WG_BN);
   const bool early = (int)(grid.x * grid.y) <= resident;
   launch_ex(kernel, grid, dim3(WG_THREADS), S::SMEM, dim3(1), s, op, e, early);
 }
 
-void launch_gate(const WgOp& op, const StepEpi& e, int B, cudaStream_t s) {
-  static const int resident = big_smem(step_gate_kernel, GATE_SMEM_BYTES);
-  (void)resident;
-  launch_ex(step_gate_kernel, dim3(3 * B * cdiv(e.T, WG_BM), op.half / WG_BN), dim3(WG_THREADS), GATE_SMEM_BYTES,
-            dim3(3), s, op, e);
+// Clusters of step_layer_kernel that the device holds at once, for clusters
+// of nq blocks (0 when the query fails)
+int layer_resident_clusters(int nq) {
+  static int cached[PF_MAX_K / WG_BN + 1] = {};  // by nq <= 8
+  if (cached[nq] == 0) {
+    big_smem(step_layer_kernel, LAYER_SMEM_BYTES);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(nq, 1);
+    cfg.blockDim = dim3(LAYER_THREADS);
+    cfg.dynamicSmemBytes = LAYER_SMEM_BYTES;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = nq;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, step_layer_kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();  // a failed query is no launch error
+      return 0;
+    }
+    cached[nq] = n;
+  }
+  return cached[nq];
+}
+
+// libcuda's cuTensorMapEncodeTiled, fetched through the runtime's entry-point
+// lookup (the library links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+    cudaGetLastError();
+    return nullptr;
+  }
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+// A row-major matrix [rows, cols] (row stride ld elements) of bf16, or of
+// f32 with `f32`, as a tensor map of boxes 64 rows by 128 bytes, swizzled as
+// the wgmma tiles read them; rows past the end read 0
+bool tile_map(CUtensorMap* map, const void* base, int cols, long rows, int ld, bool f32 = false) {
+  static const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const int size = f32 ? 4 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * size};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / size), WG_BM};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One residual layer: a cluster of C/64 blocks a row tile, as many clusters
+// as the device holds at once at most, each walking its row tiles (on an
+// H100 2-3% faster than waves of one tile a cluster where the tiles take
+// more than one wave). It triggers its dependents right after its wait.
+void launch_layer(const LayerMaps& maps, const LayerOp& op, cudaStream_t s) {
+  ++issued.launches;
+  ++issued.layers;
+  const int nq = op.C / WG_BN;
+  const int resident = layer_resident_clusters(nq);
+  const int clusters = resident > 0 ? std::min(op.tiles, resident) : op.tiles;
+  launch_ex(step_layer_kernel, dim3(nq, clusters), dim3(LAYER_THREADS), LAYER_SMEM_BYTES, dim3(nq, 1), s, maps, op,
+            clusters <= resident);
 }
 
 template <int EPI>
 void launch_s8(const W8Op& op, const StepEpi& e, int B, cudaStream_t s) {
+  ++issued.launches;
   constexpr bool SPLIT = EPI == EPI_GATE;
   auto kernel = step_gemm_s8_kernel<EPI>;
   static const cudaError_t attr =
@@ -1017,7 +1359,7 @@ void launch_s8(const W8Op& op, const StepEpi& e, int B, cudaStream_t s) {
 }
 
 WgOp plain_op(const void* a, int lda, const bf16* w, int ldw, int half, int N, int K, float scale = 1.0f) {
-  return WgOp{a, lda, 0, 0, w, ldw, half, N, K, scale};
+  return WgOp{a, lda, w, ldw, half, N, K, scale};
 }
 
 // Operands of one denoiser forward (both entry points).
@@ -1025,9 +1367,9 @@ struct Forward {
   const float* x_in;          // f32 [B*T, mp], mel padded with zeros
   bf16* h;                    // scratch bf16 [B*T, C]
   float* skip;                // scratch f32 [B*T, C]
-  void* g;                    // scratch [B*T, C]: bf16, or int8 in "int8" mode
+  void* g;                    // int8 stack: scratch [B*T, C], bf16 g, or int8 in "int8" mode; else null
   bf16* s1;                   // scratch bf16 [B*T, C]
-  bf16* y;                    // bf16 stack: scratch [B, T + 2*halo, C], halo rows zero; else null
+  bf16* y;                    // bf16 stack: scratch [2, B, T + 2*halo, C], halo rows zero; else null
   const bf16* step_rows_t;    // [L, C] this step's rows
   const void* w1;             // bf16 [L, 3C, 2C], or int8 K-major [L, 3, 2C, C] when w1s != null
   const bf16* condb;          // [L, B*T, 2C]
@@ -1040,54 +1382,62 @@ struct Forward {
   int B, T, C, L, cycle, mp;
 };
 
-// Prologue, the L layers and the skip projection on a bf16 stack (the
-// prefetching tile of shape S): s1 is then ready for the output projection.
+// Prologue, the L layers (one step_layer_kernel launch each) and the skip
+// projection on a bf16 stack (the prefetching tile of shape S): s1 is then
+// ready for the output projection. False, launching nothing, where the
+// layers' tensor maps cannot be made.
 template <class S>
-void run_body_bf16(const Forward& f, cudaStream_t st) {
+bool run_body_bf16(const Forward& f, cudaStream_t st) {
   const int M = f.B * f.T;
   const int C = f.C;
   const int halo = 1 << (f.cycle - 1);
-  const bf16* w1 = static_cast<const bf16*>(f.w1);
-  const bf16* wout = static_cast<const bf16*>(f.wout);
+  const int rows = f.B * (f.T + 2 * halo);  // y's parity buffer l % 2 is rows l % 2 ..
+  const size_t parity = (size_t)rows * C;   // ... and starts `parity` elements in
+  LayerMaps maps;
+  if (!tile_map(&maps.y, f.y, C, 2L * rows, C) || !tile_map(&maps.w1, f.w1, 2 * C, 3L * f.L * C, 2 * C) ||
+      !tile_map(&maps.wout, f.wout, 2 * C, (long)f.L * C, 2 * C) ||
+      !tile_map(&maps.cond, f.condb, 2 * C, (long)f.L * M, 2 * C) || !tile_map(&maps.h, f.h, C, M, C) ||
+      !tile_map(&maps.skip, f.skip, C, M, C, true))
+    return false;
 
   StepEpi pro{};
   pro.out = f.h; pro.ldo = C; pro.bias = f.bmel; pro.zero_f32 = f.skip; pro.T = f.T;
-  pro.next_row = f.step_rows_t; pro.y_out = f.y; pro.halo = halo;
+  pro.next_row = f.step_rows_t; pro.y_out = f.y; pro.halo = halo; pro.y_parity = parity;
   launch_pf<true, EPI_RELU, S>(plain_op(f.x_in, f.mp, f.wmel, C, 0, C, f.mp), pro, f.B, st);
 
   for (int l = 0; l < f.L; ++l) {
-    StepEpi ge{};
-    ge.out = f.g; ge.ldo = C; ge.cond = f.condb + (size_t)l * M * 2 * C; ge.T = f.T;
-    const WgOp gate{f.y, C, halo, 1 << (l % f.cycle), w1 + (size_t)l * 3 * C * 2 * C, 2 * C, C, 2 * C, C, 1.0f};
-    launch_gate(gate, ge, f.B, st);
-
-    StepEpi re{};
-    re.out = f.h; re.ldo = C; re.bias = f.bout + (size_t)l * 2 * C; re.skip = f.skip; re.T = f.T;
+    LayerOp op{};
+    op.bout = f.bout + (size_t)l * 2 * C; op.h = f.h; op.skip = f.skip;
+    op.T = f.T; op.C = C; op.halo = halo; op.dil = 1 << (l % f.cycle);
+    op.y_row0 = (l % 2) * rows; op.cond_row0 = l * M; op.layer = l; op.tiles = f.B * cdiv(f.T, WG_BM);
     if (l + 1 < f.L) {
-      re.next_row = f.step_rows_t + (size_t)(l + 1) * C; re.y_out = f.y; re.halo = halo;
+      op.y_next = f.y + ((l + 1) % 2) * parity;
+      op.next_row = f.step_rows_t + (size_t)(l + 1) * C;
     }
-    launch_pf<false, EPI_RESSKIP, S>(plain_op(f.g, C, wout + (size_t)l * C * 2 * C, 2 * C, C, 2 * C, C), re, f.B,
-                                     st);
+    launch_layer(maps, op, st);
   }
 
   StepEpi sk{};
   sk.out = f.s1; sk.ldo = C; sk.bias = f.bskip; sk.T = f.T;
   const float inv_sqrt_l = (float)(1.0 / sqrt((double)f.L));
   launch_pf<true, EPI_RELU, S>(plain_op(f.skip, C, f.wskip, C, 0, C, C, inv_sqrt_l), sk, f.B, st);
+  return true;
 }
 
 // A bf16 stack's whole forward, ending with the output projection's
-// epilogue `oe` (DDPM update or eps): every launch but the gate on the
-// narrow tile where C, mp <= PF_NARROW_K, else on the wide one
+// epilogue `oe` (DDPM update or eps): the prologue, skip and output
+// projections on the narrow tile where C, mp <= PF_NARROW_K, else on the
+// wide one. False where run_body_bf16 is.
 template <int EPI>
-void run_bf16(const Forward& f, const WgOp& out, const StepEpi& oe, cudaStream_t st) {
+bool run_bf16(const Forward& f, const WgOp& out, const StepEpi& oe, cudaStream_t st) {
   if (f.C <= PF_NARROW_K && f.mp <= PF_NARROW_K) {
-    run_body_bf16<PfNarrow>(f, st);
+    if (!run_body_bf16<PfNarrow>(f, st)) return false;
     launch_pf<false, EPI, PfNarrow>(out, oe, f.B, st);
   } else {
-    run_body_bf16<PfWide>(f, st);
+    if (!run_body_bf16<PfWide>(f, st)) return false;
     launch_pf<false, EPI, PfWide>(out, oe, f.B, st);
   }
+  return true;
 }
 
 // The same on an int8 stack (K6): the int8 GEMMs on the s8 tile, the bf16
@@ -1146,6 +1496,21 @@ bool shapes_ok(const Forward& f) {
   return f.w1s != nullptr ? f.C <= W8_MAX_K : f.C <= PF_MAX_K && f.mp <= PF_MAX_K;
 }
 
+// An entry point's status: the launches' error, or 0 after adding what the
+// call issued to `launched` (when not null): [0] its kernel launches, [1] of
+// them step_layer_kernel's, [2] step_pf_kernel's, and setting [3] to the
+// NK of that prefetching tile (when [2] grew)
+int report(int* launched) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && launched != nullptr) {
+    launched[0] += issued.launches;
+    launched[1] += issued.layers;
+    launched[2] += issued.tiled;
+    if (issued.tiled > 0) launched[3] = issued.nk;
+  }
+  return (int)err;
+}
+
 }  // namespace
 }  // namespace svc
 
@@ -1164,22 +1529,25 @@ using svc::bf16;
   }
 
 // K1 (K6 on an int8 stack). x_in/x_out/z: f32 [B*T, mp]; h, s1: bf16
-// [B*T, C] scratch; g: [B*T, C] bf16-sized scratch; skip: f32 [B*T, C]
-// scratch; y: bf16 [B, T + 2*2^(cycle-1), C] scratch with zero halo rows
-// (bf16 stack; null on an int8 stack); step_rows_t: bf16 [L, C] (this step's
+// [B*T, C] scratch; g: [B*T, C] bf16-sized scratch on an int8 stack (null on
+// a bf16 stack); skip: f32 [B*T, C] scratch; y: bf16 [2, B, T +
+// 2*2^(cycle-1), C] scratch, the two conv-input buffers (bf16 stack; null on
+// an int8 stack); step_rows_t: bf16 [L, C] (this step's
 // rows); w1: bf16 [L, 3C, 2C] tap-major, or the int8 K-major copy
 // [L, 3, 2C, C] (then w1s f32 [L, 2C] and amax f32 [L, B] scratch); condb:
 // bf16 [L, B*T, 2C]; wout: bf16 [L, C, 2C], or the int8 K-major copy
 // [L, 2C, C] (then wouts f32 [L, 2C]); bout: bf16 [L, 2C]; wmel [mp, C], bmel
 // [C], wskip [C, C], bskip [C], wo [C, mp], bo [mp], all bf16. C and mp are
 // multiples of 64, C <= W8_MAX_K on an int8 stack and C, mp <= 512 on a bf16
-// stack. s0..s4: this step's schedule scalars.
+// stack. s0..s4: this step's schedule scalars. launched: null, or 4 host
+// ints to which the call adds what it launched (report, below).
 extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SVC_FORWARD_PARAMS,
-                             float s0, float s1c, float s2, float s3, float s4, void* stream) {
+                             float s0, float s1c, float s2, float s3, float s4, int* launched, void* stream) {
   using namespace svc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Forward f = SVC_FORWARD(x_in);
   if (!shapes_ok(f)) return (int)cudaErrorInvalidValue;
+  issued = {};
   StepEpi dd{};
   dd.out = x_out; dd.ldo = mp; dd.bias = bo; dd.x = x_in; dd.z = z; dd.T = T;
   dd.s0 = s0; dd.s1 = s1c; dd.s2 = s2; dd.s3 = s3; dd.s4 = s4;
@@ -1188,19 +1556,20 @@ extern "C" int svc_ddpm_step(const float* x_in, const float* z, float* x_out, SV
     run_body_i8(f, st);
     launch_wg<false, EPI_DDPM>(out, dd, B, st);
   } else {
-    run_bf16<EPI_DDPM>(f, out, dd, st);
+    if (!run_bf16<EPI_DDPM>(f, out, dd, st)) return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return report(launched);
 }
 
 // K5 (K6 on an int8 stack): the same forward, storing eps f32 [B*T, n_mel]
-// from the padded f32 input x_in [B*T, mp].
+// from the padded f32 input x_in [B*T, mp]; launched as svc_ddpm_step's.
 extern "C" int svc_denoise(const float* x_in, float* eps, SVC_FORWARD_PARAMS, int n_mel,
-                           void* stream) {
+                           int* launched, void* stream) {
   using namespace svc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Forward f = SVC_FORWARD(x_in);
   if (!shapes_ok(f)) return (int)cudaErrorInvalidValue;
+  issued = {};
   StepEpi ee{};
   ee.out = eps; ee.ldo = n_mel; ee.bias = bo; ee.n_out = n_mel; ee.T = T;
   const WgOp out = plain_op(s1, C, wo, mp, 0, mp, C);
@@ -1208,7 +1577,7 @@ extern "C" int svc_denoise(const float* x_in, float* eps, SVC_FORWARD_PARAMS, in
     run_body_i8(f, st);
     launch_wg<false, EPI_EPS>(out, ee, B, st);
   } else {
-    run_bf16<EPI_EPS>(f, out, ee, st);
+    if (!run_bf16<EPI_EPS>(f, out, ee, st)) return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return report(launched);
 }

@@ -439,7 +439,7 @@ def k6_ties(gpu: str) -> None:
         eps = torch.empty_like(x)
         scratch, ptrs, dims = ds._forward_operands(st, condb, row, x)
         _build.check(_build.lib().svc_denoise(xp.data_ptr(), eps.data_ptr(), *ptrs, *dims, x.shape[-1],
-                                              torch.cuda.current_stream().cuda_stream), "svc_denoise")
+                                              None, torch.cuda.current_stream().cuda_stream), "svc_denoise")
         torch.cuda.synchronize()
         h, _g, _s1, _skip, amax, _y = scratch
         return h.float().view(b, t_len, c), amax.clone()

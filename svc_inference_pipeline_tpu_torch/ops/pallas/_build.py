@@ -38,8 +38,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu)
 _SIGNATURES = {
-    "svc_ddpm_step": [_P] * 22 + [_I] * 6 + [_F] * 5 + [_P],
-    "svc_denoise": [_P] * 21 + [_I] * 7 + [_P],
+    "svc_ddpm_step": [_P] * 22 + [_I] * 6 + [_F] * 5 + [_P, _P],
+    "svc_denoise": [_P] * 21 + [_I] * 7 + [_P, _P],
     "svc_encoder_attention": [_P] * 4 + [_I] * 3 + [_F, _P],
     "svc_activation1d": [_P, _I, _P, _I, _P, _P, _P] + [_I] * 4 + [_P],
     "svc_amp_stage": [_P] * 9 + [_I, _P] + [_I] * 4 + [_P],

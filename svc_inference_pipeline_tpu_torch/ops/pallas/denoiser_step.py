@@ -10,21 +10,24 @@ Counterpart of ``svc_inference_pipeline_tpu/ops/pallas/denoiser_step.py``:
   same two entry points on a stack made with ``quantize="int8"`` or
   ``"int8-w1"``.
 
-All are ``csrc/denoiser_step.cu`` (2L + 3 GEMM launches per call with fused
-epilogues; on a bf16 stack every launch on a prefetching wgmma tile, which
-puts all that the launch before it does not write in flight before its
-dependent-launch wait and runs its epilogue from the accumulator registers,
-the gate split over its three taps in a cluster of three blocks and read
-from the zero-halo buffer of :func:`conv_input_buffer`; on an int8 stack the
-bf16 launches on the ring tile of ``csrc/gemm_wg.cuh`` and the int8 GEMMs on
-the wgmma s8 tile of
-``csrc/gemm_wg_s8.cuh``, whose K-major weights the int8 stacks carry as
-copies, the gate split over its taps in clusters of 3 taps x 2 column tiles
-that quantise the union of their tap boxes from h once, the three int32
-partials summed exactly). One forward: mel preprocess, L gated
-dilated-conv layers over the precomputed conditioner and step rows, skip
-and output projections;
-K1 then applies x0 = clamp(c0 x - c1 eps, +-1), x' = c2 x0 + c3 x + sigma z.
+All are ``csrc/denoiser_step.cu``, GEMM launches with fused epilogues. On a
+bf16 stack a call is L + 3 launches: the prologue, skip and output
+projections on a prefetching wgmma tile (all that the launch before does
+not write in flight before its dependent-launch wait, the epilogue from the
+accumulator registers), and one launch a residual layer
+(``step_layer_kernel``): a cluster of C/64 blocks owns a 64-row tile, each
+block's three warpgroups multiply the gate's three taps, read by TMA from
+the zero-halo buffers of :func:`conv_input_buffer`, the gated g crosses the
+cluster through distributed shared memory and the residual GEMM runs from
+it, so g never goes to device memory. On an int8 stack a call is 2L + 3
+launches: the bf16 launches on the ring tile of ``csrc/gemm_wg.cuh``, the
+int8 GEMMs on the wgmma s8 tile of ``csrc/gemm_wg_s8.cuh``, whose K-major
+weights the int8 stacks carry as copies, the gate split over its taps in
+clusters of 3 taps x 2 column tiles that quantise the union of their tap
+boxes from h once, the three int32 partials summed exactly. One forward:
+mel preprocess, L gated dilated-conv layers over the precomputed
+conditioner and step rows, skip and output projections; K1 then applies
+x0 = clamp(c0 x - c1 eps, +-1), x' = c2 x0 + c3 x + sigma z.
 
 Numerics follow the TPU kernel: operands rounded to the compute dtype, f32
 accumulation, f32 gates and skip sum, h stored at the compute dtype, the
@@ -51,8 +54,8 @@ compute only) or raise.
 from __future__ import annotations
 
 import collections
+import ctypes
 import math
-import re
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -193,13 +196,15 @@ def halo_rows(cycle: int) -> int:
 
 
 def conv_input_buffer(b: int, t_len: int, c: int, cycle: int, device) -> torch.Tensor:
-    """The bf16 kernels' conv-input scratch [B, T + 2*halo, C], uninitialised.
-    The prologue kernel writes zeros into each clip's halo rows, and the
-    epilogue that writes h writes y = bf16(h + step_row) into rows
-    [halo, halo + T); so tap m of the gate at dilation d is the T-row box
-    that starts at row halo + (m-1)*d: ``_taps(r(y), d)`` of the plain
+    """The bf16 kernels' conv-input scratch [2, B, T + 2*halo, C],
+    uninitialised: two buffers by layer parity, layer l reading buffer
+    l % 2 and writing layer l + 1's input into the other. The prologue
+    kernel writes zeros into each clip's halo rows of both and y_0 into
+    buffer 0; the epilogue that writes h writes y = bf16(h + step_row) into
+    rows [halo, halo + T); so tap m of the gate at dilation d is the T-row
+    box that starts at row halo + (m-1)*d: ``_taps(r(y), d)`` of the plain
     version."""
-    return torch.empty((b, t_len + 2 * halo_rows(cycle), c), dtype=torch.bfloat16, device=device)
+    return torch.empty((2, b, t_len + 2 * halo_rows(cycle), c), dtype=torch.bfloat16, device=device)
 
 
 def _int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -361,20 +366,23 @@ def _ptr(v: Optional[torch.Tensor]) -> Optional[int]:
 
 def _forward_operands(st, condb, step_rows_t, x):
     """Scratch buffers and the pointer arguments every entry point shares:
-    h, skip, g, s1, the bf16 stack's conv-input buffer y
-    (:func:`conv_input_buffer`), step rows, the weights (the K-major copies
-    of the int8 ones), the scales and the [L, B] per-layer abs-max buffer of
-    the int8 conv input."""
+    h, skip, the int8 stack's gate g, s1, the bf16 stack's conv-input
+    buffers y (:func:`conv_input_buffer`), step rows, the weights (the
+    K-major copies of the int8 ones), the scales and the [L, B] per-layer
+    abs-max buffer of the int8 conv input."""
     b, t_len = x.shape[:2]
     n_layers, _, c2 = st.w1.shape
     c = c2 // 2
     h = torch.empty((b * t_len, c), dtype=torch.bfloat16, device=x.device)
-    g = torch.empty_like(h)  # bf16 gate, or int8 gate in its first half
     s1 = torch.empty_like(h)
     skip = torch.empty((b * t_len, c), dtype=torch.float32, device=x.device)
-    amax = None if st.w1s is None else torch.empty((n_layers, b), dtype=torch.float32, device=x.device)
-    y = conv_input_buffer(b, t_len, c, st.cycle, x.device) if st.w1s is None else None
-    ptrs = (h.data_ptr(), skip.data_ptr(), g.data_ptr(), s1.data_ptr(), _ptr(y), step_rows_t.data_ptr(),
+    g = amax = y = None
+    if st.w1s is None:
+        y = conv_input_buffer(b, t_len, c, st.cycle, x.device)
+    else:
+        g = torch.empty_like(h)  # bf16 gate, or int8 gate in its first half
+        amax = torch.empty((n_layers, b), dtype=torch.float32, device=x.device)
+    ptrs = (h.data_ptr(), skip.data_ptr(), _ptr(g), s1.data_ptr(), _ptr(y), step_rows_t.data_ptr(),
             (st.w1 if st.w1s is None else st.w1_kmajor).data_ptr(), condb.data_ptr(),
             (st.wout if st.wouts is None else st.wout_kmajor).data_ptr(), st.bout.data_ptr(),
             st.wmel.data_ptr(), st.bmel.data_ptr(), st.wskip.data_ptr(), st.bskip.data_ptr(),
@@ -388,46 +396,52 @@ def _count(fn, mode: str, calls: int = 1) -> None:
     fn.launches_by_mode[mode] += calls
 
 
-def launches_per_call(n_layers: int) -> int:
-    """Kernel launches of one K1 or K5 call: the prologue, two a layer, the
-    skip and the output projections."""
-    return 2 * n_layers + 3
+# K1/K5 launches by kernel, as the C entry points report them (_count_launches):
+# "PfShape<NK>" those of step_pf_kernel on the prefetching tile of NK resident K
+# chunks of 64, "layer" those of step_layer_kernel
+_by_kernel: Dict[str, int] = collections.Counter()
 
 
-def _count_launches(st: StackedDenoiser, calls: int) -> None:
-    """``denoiser/launches`` of ``calls`` K1 or K5 calls on ``st``."""
-    Metrics.default().incr("denoiser/launches", calls * launches_per_call(st.w1.shape[0]))
+def _launch_report():
+    """The host ints a K1/K5 entry point adds its launches to: [0] all, [1]
+    ``step_layer_kernel``'s, [2] ``step_pf_kernel``'s, and [3] the NK of that
+    prefetching tile."""
+    return (ctypes.c_int * 4)()
+
+
+def _count_launches(launched) -> None:
+    """``denoiser/launches`` and ``denoiser/fused_layers`` from what K1/K5
+    calls launched, as their C entry points report it in ``launched``
+    (:func:`_launch_report`): L + 3 and L a call on a bf16 stack, 2L + 3 and
+    0 on an int8 one; and the launches by kernel that
+    :func:`launched_tiles` reads."""
+    metrics = Metrics.default()
+    metrics.incr("denoiser/launches", launched[0])
+    metrics.incr("denoiser/fused_layers", launched[1])
+    if launched[1]:
+        _by_kernel["layer"] += launched[1]
+    if launched[2]:
+        _by_kernel[f"PfShape<{launched[3]}>"] += launched[2]
 
 
 def launched_tiles(run) -> Tuple[Any, Dict[str, int]]:
-    """(``run()``, the K1/K5 kernels it launched by tile) on a CUDA device,
-    observed under ``torch.profiler``: ``"PfShape<NK>"`` counts the launches
-    of ``step_pf_kernel`` on the prefetching tile of NK resident K chunks of
-    64 (the C++ side's choice, read from the demangled kernel name), ``"gate"``
-    those of ``step_gate_kernel``. A bf16 K1/K5 call on L layers makes L + 3
-    of the first and L of the second."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = run()
-        torch.cuda.synchronize()
-    tiles: Dict[str, int] = collections.Counter()
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        if "step_gate_kernel" in ev.name:
-            tiles["gate"] += 1
-        elif "step_pf_kernel" in ev.name:
-            shape = re.search(r"PfShape<\d+>", ev.name)
-            tiles[shape.group(0) if shape else ev.name] += 1
-    return out, dict(tiles)
+    """(``run()``, the K1/K5 kernels its calls launched by kernel), as the C
+    entry points report their launches (the C++ side's choice of kernel and
+    tile): ``"PfShape<NK>"`` counts the launches of ``step_pf_kernel`` on the
+    prefetching tile of NK resident K chunks of 64, ``"layer"`` those of
+    ``step_layer_kernel``, the fused residual layer. A bf16 K1/K5 call on L
+    layers makes 3 of the first and L of the second; an int8 one neither."""
+    before = dict(_by_kernel)
+    out = run()
+    grown = {k: v - before.get(k, 0) for k, v in _by_kernel.items()}
+    return out, {k: n for k, n in grown.items() if n}
 
 
 class _StepChain:
     """K1 on one stack over a run of steps of one shape: the operands checked
     and the scratch allocated once, then one C call a step. The scratch is
-    reused from step to step, which the stream's order makes safe."""
+    reused from step to step, which the stream's order makes safe.
+    ``launched`` sums what the steps issued (:func:`_count_launches`)."""
 
     def __init__(self, st: StackedDenoiser, condb: torch.Tensor, step_rows: torch.Tensor,
                  x: torch.Tensor, z: torch.Tensor):
@@ -440,6 +454,7 @@ class _StepChain:
             _check_f32("ddpm_step", key, v, (x.shape[0], x.shape[1], st.wmel.shape[0]))
         self.st = st
         self.steps = 0
+        self.launched = _launch_report()
         self._scratch, ptrs, self._dims = _forward_operands(st, condb, step_rows[0], x)
         self._head, self._tail = ptrs[:5], ptrs[6:]  # around the step row's pointer
         self._step_rows = step_rows
@@ -454,7 +469,8 @@ class _StepChain:
         schedule scalars srow; x, z and out as the chain was made for, out
         not x."""
         status = self._fn(x.data_ptr(), z.data_ptr(), out.data_ptr(), *self._head,
-                          self._rows + k * self._row_bytes, *self._tail, *self._dims, *srow, self._stream)
+                          self._rows + k * self._row_bytes, *self._tail, *self._dims, *srow, self.launched,
+                          self._stream)
         self._check(status, "svc_ddpm_step")
         self.steps += 1
 
@@ -474,7 +490,7 @@ def ddpm_step(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tenso
     out = torch.empty_like(x)
     chain.step(0, x, z, out, [float(v) for v in srow])
     _count(ddpm_step, st.mode)
-    _count_launches(st, 1)
+    _count_launches(chain.launched)
     return out
 
 
@@ -498,13 +514,14 @@ def denoise(st: StackedDenoiser, condb: torch.Tensor, step_rows_t: torch.Tensor,
     xp = F.pad(x, (0, m_pad - n_mel))
     eps = torch.empty_like(x)
     _scratch, ptrs, dims = _forward_operands(st, condb, step_rows_t, x)  # alive until enqueued
+    launched = _launch_report()
     status = _build.lib().svc_denoise(
-        xp.data_ptr(), eps.data_ptr(), *ptrs, *dims, n_mel,
+        xp.data_ptr(), eps.data_ptr(), *ptrs, *dims, n_mel, launched,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "svc_denoise")
     _count(denoise, st.mode)
-    _count_launches(st, 1)
+    _count_launches(launched)
     return eps
 
 
@@ -533,6 +550,8 @@ def ddpm_sample_fused(st: StackedDenoiser, condb: torch.Tensor, step_rows: torch
     m_pad = st.wmel.shape[0]
     device = condb.device
     num_steps = schedule.num_steps
+    if step_rows.shape[0] < num_steps:
+        raise ValueError(f"ddpm_sample_fused: {step_rows.shape[0]} step rows for {num_steps} steps")
     tail = min(max(int(tail), 0), num_steps) if st_fp is not None else 0
     x_t = initial_noise(shape, device, generator, None if noise is None else noise[0])
     x = F.pad(x_t, (0, m_pad - n_mel)).contiguous()
@@ -557,7 +576,7 @@ def ddpm_sample_fused(st: StackedDenoiser, condb: torch.Tensor, step_rows: torch
         x = carry[(i + 1) % 2]
     for chain in chains.values():
         _count(ddpm_step, chain.st.mode, chain.steps)
-        _count_launches(chain.st, chain.steps)
+        _count_launches(chain.launched)
     return x[..., :n_mel]
 
 

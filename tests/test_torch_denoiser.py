@@ -1,6 +1,10 @@
 """PyTorch port vs the JAX package: condition encoder, DiffSVC denoiser, the
 plain K1 step, and the DDPM samplers (f32, CPU, same weights and noise)."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +23,7 @@ from svc_inference_pipeline_tpu_torch.checkpoints.from_jax import load_jax_param
 from svc_inference_pipeline_tpu_torch.config import HParams
 from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
 from svc_inference_pipeline_tpu_torch.models.encoder import ConditionEncoder
-from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
+from svc_inference_pipeline_tpu_torch.ops.pallas import _build, denoiser_step
 from svc_inference_pipeline_tpu_torch.sampling.ddpm import ddpm_sample
 from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
 
@@ -283,18 +287,93 @@ def _small_stack(quantize, c=64, layers=3):
                 denoiser_step.fold_conditioner(den, cp, torch.bfloat16), rows)
 
 
+def _reported(quantize, calls, layers):
+    """What ``calls`` K1/K5 calls on a stack of ``layers`` layers add to the
+    C entry points' ``launched`` ints: on a bf16 stack L + 3 launches, L of
+    them the fused layer and 3 on the narrow prefetching tile; on an int8 one
+    2L + 3 launches on its ring and s8 tiles."""
+    launched = denoiser_step._launch_report()
+    if quantize is None:
+        launched[:] = [calls * (layers + 3), calls * layers, calls * 3, 6]
+    else:
+        launched[:] = [calls * (2 * layers + 3), 0, 0, 0]
+    return launched
+
+
 @pytest.mark.parametrize("quantize", [None, "int8-w1", "int8"])
 def test_launch_counter_counts_2l_plus_3_launches_a_call(quantize):
-    """``denoiser/launches`` adds 2L + 3 kernel launches for each K1 or K5
-    call, on every stack mode."""
+    """``denoiser/launches`` adds the kernel launches that the C entry points
+    report for K1 or K5 calls: L + 3 a call on a bf16 stack (one fused
+    launch a layer), 2L + 3 on an int8 stack (the gate and the residual)."""
     from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
-    st, _, _ = _small_stack(quantize)
     counters = Metrics.default().counters
     before = counters["denoiser/launches"]
-    denoiser_step._count_launches(st, 7)
-    assert denoiser_step.launches_per_call(3) == 9
-    assert counters["denoiser/launches"] - before == 63
+    denoiser_step._count_launches(_reported(quantize, 7, 3))
+    assert counters["denoiser/launches"] - before == 7 * (3 + 3 if quantize is None else 2 * 3 + 3)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8-w1", "int8"])
+def test_fused_layers_counter_counts_the_bf16_layers(quantize):
+    """``denoiser/fused_layers`` adds the fused layer launches that the C
+    entry points report: L for each K1 or K5 call on a bf16 stack, nothing
+    on an int8 stack, whose gate and residual stay two launches."""
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
+
+    counters = Metrics.default().counters
+    before = counters["denoiser/fused_layers"]
+    denoiser_step._count_launches(_reported(quantize, 7, 3))
+    assert counters["denoiser/fused_layers"] - before == (7 * 3 if quantize is None else 0)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8-w1", "int8"])
+def test_launched_tiles_reads_what_the_entry_points_report(quantize):
+    """``launched_tiles(run)`` gives the K1/K5 launches by kernel that the C
+    entry points reported while ``run`` ran: 7 bf16 calls at L = 3 launched
+    21 of the fused layer and 21 on the narrow prefetching tile; int8 calls
+    launch neither kernel."""
+    denoiser_step._count_launches(_reported(None, 2, 3))  # before the run: not counted
+    out, tiles = denoiser_step.launched_tiles(lambda: denoiser_step._count_launches(_reported(quantize, 7, 3)))
+    assert out is None
+    assert tiles == ({"PfShape<6>": 21, "layer": 21} if quantize is None else {})
+
+
+def test_fused_sampler_refuses_fewer_step_rows_than_steps():
+    """The sampler reads step row k for each of its steps: a schedule longer
+    than the step rows made for it is refused before any step runs."""
+    st, condb, rows = _small_stack(None)
+    with pytest.raises(ValueError, match="10 step rows for 20 steps"):
+        denoiser_step.ddpm_sample_fused(st, condb, rows, DiffusionSchedule.from_factors([1e-4, 0.02, 20]),
+                                        (1, 16, 100))
+
+
+def _c_params(name):
+    """The kinds ("p" pointer, "i" int, "f" float) of the parameters of the C
+    entry point ``name`` as ``csrc/*.cu`` defines it, macros of parameters
+    expanded."""
+    csrc = Path(_build.__file__).resolve().parents[2] / "csrc"
+    src = "\n".join(p.read_text() for p in sorted(csrc.glob("*.cu")))
+    macros = {m.group(1): m.group(2).replace("\\\n", " ")
+              for m in re.finditer(r"#define (SVC_\w+_PARAMS)\s+((?:.*\\\n)*.*)", src)}
+    head = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    assert head is not None, name
+    params = head.group(1)
+    for key, body in macros.items():
+        params = params.replace(key, body)
+    kinds = []
+    for p in params.split(","):
+        p = p.strip()
+        kinds.append("p" if "*" in p else "f" if p.startswith("float") else "i")
+    return kinds
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_c_entry_points_take_the_bound_arguments(name):
+    """The ctypes signature each C entry point is bound with has the
+    parameters its definition takes, one for one: a pointer, an int or a
+    float in each place (a missing one shifts every argument after it)."""
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    assert [kinds[t] for t in _build._SIGNATURES[name]] == _c_params(name)
 
 
 def test_bf16_tile_refuses_widths_past_its_resident_k():

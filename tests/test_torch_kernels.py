@@ -323,9 +323,10 @@ def test_k6_equals_its_plain_version_bit_for_bit(dev, quantize, b, t_len, c, lay
 
 
 def test_k1_is_deterministic(dev):
-    """The gate's three tap partials are summed through distributed shared
-    memory in a fixed order, with no atomics: two K1 calls on the same
-    operands agree bit for bit (T = 384, C = 384, the main path's widths)."""
+    """The gate's three tap sums are added in a fixed order and g's chunks
+    cross the cluster through distributed shared memory, with no atomics:
+    two K1 calls on the same operands agree bit for bit (T = 384, C = 384,
+    the main path's widths)."""
     st, condb, rows, x, g = _denoiser_operands(dev, 1, 384, 384, 4, None, conv_fan_in=True)
     xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
     z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
@@ -334,27 +335,33 @@ def test_k1_is_deterministic(dev):
     assert all(torch.equal(first, denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)) for _ in range(3))
 
 
+@pytest.mark.parametrize("b,t_len", [(2, 100), (1, 960)])
 @pytest.mark.parametrize("quantize,tail", [(None, 0), ("int8-w1", 4)])
-def test_fused_sampler_equals_k1_step_by_step(dev, quantize, tail):
+def test_fused_sampler_equals_k1_step_by_step(dev, quantize, tail, b, t_len):
     """``ddpm_sample_fused`` checks its operands and allocates its scratch
     once per stack and alternates two carries: over 10 steps (the last
     ``tail`` on the bf16 stack of an int8 one) it equals ``ddpm_step``
-    called step by step on the same draws, bit for bit. Its counters: 10 K1
-    calls and 10 (2L + 3) launches."""
+    called step by step on the same draws, bit for bit, at 4 row tiles and
+    at the offline cell's 15. Its counters, as the C entry points report
+    them: 10 K1 calls, L + 3 launches and L fused layers a bf16 call, 2L + 3
+    launches and no fused layer an int8 one."""
     from svc_inference_pipeline_tpu_torch.sampling.schedule import DiffusionSchedule
     from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
 
-    st, condb, rows, x, g = _denoiser_operands(dev, 2, 100, 128, 5, quantize, conv_fan_in=True)
+    st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, 128, 5, quantize, conv_fan_in=True)
     # the same draws stacked in bf16: the unquantised stack of the same denoiser
-    st_fp = _denoiser_operands(dev, 2, 100, 128, 5, None, conv_fan_in=True)[0] if tail else None
+    st_fp = _denoiser_operands(dev, b, t_len, 128, 5, None, conv_fan_in=True)[0] if tail else None
     sched = DiffusionSchedule.from_factors([1e-4, 0.02, 10])
     x_t = torch.randn(x.shape, generator=g, device=dev)
     z = torch.randn((10,) + x.shape, generator=g, device=dev)
     counters = Metrics.default().counters
-    before = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"])
+    keys = ("denoiser/launches", "denoiser/fused_layers")
+    before = (denoiser_step.ddpm_step.launches, *(counters[k] for k in keys))
     got = denoiser_step.ddpm_sample_fused(st, condb, rows, sched, x.shape, noise=(x_t, z), st_fp=st_fp, tail=tail)
-    after = (denoiser_step.ddpm_step.launches, counters["denoiser/launches"])
-    assert tuple(a - b for a, b in zip(after, before)) == (10, 10 * denoiser_step.launches_per_call(5))
+    after = (denoiser_step.ddpm_step.launches, *(counters[k] for k in keys))
+    bf16_calls = 10 if quantize is None else tail
+    launches = bf16_calls * (5 + 3) + (10 - bf16_calls) * (2 * 5 + 3)
+    assert tuple(a - b for a, b in zip(after, before)) == (10, launches, bf16_calls * 5)
     pad = (0, 28)
     want = torch.nn.functional.pad(x_t, pad).contiguous()
     srows = denoiser_step.schedule_rows(sched)
@@ -417,8 +424,9 @@ def k1_k5_digests(dev, case):
 def test_k1_k5_equal_the_recorded_outputs_bit_for_bit(dev, case):
     """K1 and K5 give the very bits that the kernels before the prefetching
     tile gave (``tests/data/k1_k5_sha256.json``, written by their build on
-    an H100): the redesign changed where operands are loaded and how the
-    tile is kept, not any element's arithmetic. At C = 512 the digests are
+    an H100): the redesigns (the prefetching tile, the one-launch layer)
+    changed where operands are loaded and how the tiles are kept, not any
+    element's arithmetic. At C = 512 the digests are
     the wide tile's own. The operands' own digest is checked first: a
     PyTorch whose generator or GEMMs draw other operands fails there, not on
     the kernels."""
@@ -467,9 +475,9 @@ def test_k1_k5_at_the_bidilconv_widths(dev, b, t_len):
     version round the same f32 sums to bf16 after summing them in another
     order, and 40 layers carry those ulps on through h (as the 20-layer
     cells' 1e-2 allows for). The second clip's result equals that clip alone
-    (its tiles and halos are its own). Under the profiler, every launch of
-    ``step_pf_kernel`` in the K1 and K5 calls is on the wide tile,
-    ``PfShape<8>``: 43 a call, beside 40 of the gate."""
+    (its tiles and halos are its own). As the C entry points report their
+    launches, every ``step_pf_kernel`` in the K1 and K5 calls is on the wide
+    tile, ``PfShape<8>``: 3 a call beside 40 of the fused layer."""
     st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, 512, 40, None, conv_fan_in=True, fc=512,
                                                growth=2.0)
     xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
@@ -480,7 +488,7 @@ def test_k1_k5_at_the_bidilconv_widths(dev, b, t_len):
         return denoiser_step.denoise(st, condb, rows[3], x), denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
 
     (eps, step), tiles = denoiser_step.launched_tiles(k5_k1)
-    assert tiles == {"PfShape<8>": 2 * 43, "gate": 2 * 40}
+    assert tiles == {"PfShape<8>": 2 * 3, "layer": 2 * 40}
     ref_eps = denoiser_step.denoise_plain(st, condb, rows[3], x)
     for i in range(b):
         _close(eps, ref_eps, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
@@ -491,6 +499,84 @@ def test_k1_k5_at_the_bidilconv_widths(dev, b, t_len):
     if b > 1:
         one = (condb[:, 1:2].contiguous(), rows[3])
         assert torch.equal(eps[1:2], denoiser_step.denoise(st, *one, x[1:2].contiguous()))
+
+
+# the fused layer's chain: (B, T, true lengths or None, C, L). T = 1536 at B = 2
+# is more row tiles (48) than clusters of 6 the card holds at once; T = 1000
+# ends each clip in a partial tile, and the masked second clip's halo rows
+# meet its neighbours' zero rows; 1 to 4 row tiles are the short solo clips
+# of a served cell
+_LAYER_CASES = {
+    "b1_t960_c384": (1, 960, None, 384, 20),
+    "b2_t1536_c384": (2, 1536, None, 384, 20),
+    "b2_t1024_c512": (2, 1024, None, 512, 40),
+    "b3_t1000_ragged_c384": (3, 1000, (1000, 137, 9), 384, 20),
+    "b1_t320_c384": (1, 320, None, 384, 20),
+    "b3_t200_c128": (3, 200, None, 128, 5),  # clusters of 2
+    "b2_t300_ragged_c192": (2, 300, (300, 7), 192, 5),  # clusters of 3
+    "b5_t64_c64": (5, 64, None, 64, 3),  # clusters of 1
+    "b1_t128_c384": (1, 128, None, 384, 20),
+    "b1_t256_c384": (1, 256, None, 384, 20),
+    "b2_t100_c384": (2, 100, None, 384, 20),
+    "b1_t40_c512": (1, 40, None, 512, 40),  # one partial row tile
+}
+
+
+@pytest.mark.parametrize("case", list(_LAYER_CASES))
+def test_fused_layer_chain_against_the_plain_versions(dev, case):
+    """K1 (on x' - x/2 - z/2 = eps) and K5, each residual layer one launch of
+    ``step_layer_kernel``, against their plain versions per clip to 1e-2 of
+    its range (bf16 sums in another order, carried on through h; the cells'
+    limit). Each clip's result equals that clip alone, and two calls agree bit
+    for bit (the gate's tap sums and g's exchange have a fixed order). As the
+    C entry points report their launches, a call is 3 of ``step_pf_kernel``
+    and L of the fused layer, and ``denoiser/launches`` and
+    ``denoiser/fused_layers`` grow by L + 3 and L a call."""
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
+
+    b, t_len, n_true, c, layers = _LAYER_CASES[case]
+    st, condb, rows, x, g = _denoiser_operands(dev, b, t_len, c, layers, None, conv_fan_in=True, n_true=n_true,
+                                               fc=512 if c == 512 else 128, growth=2.0)
+    xp = torch.nn.functional.pad(x, (0, 28)).contiguous()
+    z = torch.nn.functional.pad(torch.randn(x.shape, generator=g, device=dev), (0, 28)).contiguous()
+    srow = SROWS[0]
+
+    def k5_k1():
+        return denoiser_step.denoise(st, condb, rows[3], x), denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow)
+
+    counters = Metrics.default().counters
+    before = (counters["denoiser/launches"], counters["denoiser/fused_layers"])
+    (eps, step), tiles = denoiser_step.launched_tiles(k5_k1)
+    assert (counters["denoiser/launches"] - before[0], counters["denoiser/fused_layers"] - before[1]) == (
+        2 * (layers + 3), 2 * layers)
+    assert tiles == {"PfShape<8>" if c > 384 else "PfShape<6>": 2 * 3, "layer": 2 * layers}
+    ref_eps = denoiser_step.denoise_plain(st, condb, rows[3], x)
+    ref_step = denoiser_step.ddpm_step_plain(st, condb, rows[3], xp, z, srow)
+    for i in range(b):
+        _close(eps, ref_eps, tol=lambda m: 1e-2 * m, view=lambda y, i=i: y[i])
+        _close(step, ref_step, tol=lambda m: 1e-2 * m, view=lambda y, i=i: (y - 0.5 * xp - 0.5 * z)[i])
+        one = (condb[:, i:i + 1].contiguous(), rows[3])
+        assert torch.equal(eps[i:i + 1], denoiser_step.denoise(st, *one, x[i:i + 1].contiguous()))
+    assert torch.all(step[..., 100:] == 0)
+    assert torch.equal(eps, denoiser_step.denoise(st, condb, rows[3], x))
+    assert torch.equal(step, denoiser_step.ddpm_step(st, condb, rows[3], xp, z, srow))
+
+
+@pytest.mark.parametrize("quantize", ["int8-w1", "int8"])
+def test_k6_keeps_its_split_launches_at_the_cells_shape(dev, quantize):
+    """K6 does not run the fused layer: at T = 960, C = 384, L = 20 its K5
+    form launches neither ``step_layer_kernel`` nor ``step_pf_kernel`` (its
+    ring and s8 tiles), counts 2L + 3 launches and no fused layer, and equals
+    its plain version bit for bit."""
+    from svc_inference_pipeline_tpu_torch.utils.observability import Metrics
+
+    st, condb, rows, x, _ = _denoiser_operands(dev, 1, 960, 384, 20, quantize)
+    counters = Metrics.default().counters
+    before = (counters["denoiser/launches"], counters["denoiser/fused_layers"])
+    eps, tiles = denoiser_step.launched_tiles(lambda: denoiser_step.denoise(st, condb, rows[3], x))
+    assert tiles == {}
+    assert (counters["denoiser/launches"] - before[0], counters["denoiser/fused_layers"] - before[1]) == (43, 0)
+    assert torch.equal(eps, denoiser_step.denoise_plain(st, condb, rows[3], x))
 
 
 def test_denoiser_wrappers_refuse_what_the_kernels_do_not_take(dev):

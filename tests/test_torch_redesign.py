@@ -7,11 +7,12 @@ the CPU where the kernels cannot run.
   (and the TPU kernel) round P after the full normalisation. The emulation
   below follows the kernel's order and must stay within the card's limit
   for K4: 2 bf16 ulps of max|plain|.
-- K1/K5's gate reads its conv taps as plain row boxes of a buffer
-  [B, T + 2*halo, C] that holds y = bf16(h + step_row) between zero halo
-  rows (``denoiser_step.conv_input_buffer``), in 64-row tiles per clip whose
-  rows past T read nothing. The emulation reads the buffer as the kernel
-  does and must give ``_taps(r(h + row), d)`` exactly.
+- K1/K5's fused layer reads its conv taps as plain row boxes of one of two
+  buffers [B, T + 2*halo, C] (by layer parity) that hold y = bf16(h +
+  step_row) between zero halo rows (``denoiser_step.conv_input_buffer``),
+  in 64-row tiles per clip whose rows past T read nothing. The emulation
+  reads a buffer as the kernel does and must give ``_taps(r(h + row), d)``
+  exactly.
 - K6's int8 gate: a cluster of 3 taps x 2 column tiles quantises the union
   of its three taps' 64-row boxes of y = h + step_row once and stores each
   row into the K-major int8 tile of every block whose tap box holds it (K
@@ -127,35 +128,40 @@ def _gate_taps_from_buffer(buf, t_len, d):
     return out[:, :t_len]
 
 
-def _prologue_halo_zeros(buf, t_len, halo):
-    """What the prologue's blocks write into the buffer: the halo rows above
-    a clip's first 64-row tile and below its last."""
+def _prologue_halo_zeros(bufs, t_len, halo):
+    """What the prologue's blocks write into both parity buffers: the halo
+    rows above a clip's first 64-row tile and below its last."""
     for t0 in range(0, t_len, TILE):
         if t0 == 0:
-            buf[:, :halo] = 0
+            bufs[:, :, :halo] = 0
         if t0 + TILE >= t_len:
-            buf[:, halo + t_len:] = 0
+            bufs[:, :, halo + t_len:] = 0
 
 
 @pytest.mark.parametrize("t_len", [9, 100])
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
 def test_zero_halo_conv_input_gives_the_taps(t_len, d):
-    """B = 2 clips, C = 16, dilation cycle 4 (halo 8): the uninitialised
-    buffer (NaN here), after the prologue's halo zeros and the epilogue's
-    bf16(h + row), reproduces the plain version's ``_taps(r(h + row), d)``
-    bit for bit, for every dilation of the cycle."""
+    """B = 2 clips, C = 16, dilation cycle 4 (halo 8): each of the two
+    uninitialised parity buffers (NaN here), after the prologue's halo zeros
+    and the epilogue's bf16(h + row) into it, reproduces the plain version's
+    ``_taps(r(h + row), d)`` bit for bit, for every dilation of the cycle,
+    and writing one leaves the other's rows as they were."""
     rng = np.random.default_rng(100 * t_len + d)
     c = 16
     h = torch.from_numpy(rng.standard_normal((2, t_len, c)).astype(np.float32)).to(BF).float()
     row = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(BF).float()
-    buf = denoiser_step.conv_input_buffer(2, t_len, c, 4, "cpu").fill_(math.nan)
+    bufs = denoiser_step.conv_input_buffer(2, t_len, c, 4, "cpu").fill_(math.nan)
+    assert bufs.shape[0] == 2
     halo = denoiser_step.halo_rows(4)
-    _prologue_halo_zeros(buf, t_len, halo)
-    buf[:, halo:halo + t_len] = (h + row).to(BF)  # what the epilogue that writes h writes
-    got = _gate_taps_from_buffer(buf, t_len, d)
+    _prologue_halo_zeros(bufs, t_len, halo)
     want = denoiser_step._taps((h + row).to(BF).float(), d)
-    assert torch.equal(got.float(), want)
-    assert torch.all(buf[:, :halo] == 0) and torch.all(buf[:, halo + t_len:] == 0)
+    for parity in range(2):
+        buf = bufs[parity]
+        buf[:, halo:halo + t_len] = (h + row).to(BF)  # what the epilogue that writes h writes
+        got = _gate_taps_from_buffer(buf, t_len, d)
+        assert torch.equal(got.float(), want)
+        assert torch.all(buf[:, :halo] == 0) and torch.all(buf[:, halo + t_len:] == 0)
+        assert parity or torch.all(bufs[1, :, halo:halo + t_len].isnan())
 
 
 # --- K6: the int8 gate on the wgmma s8 tile ---------------------------------

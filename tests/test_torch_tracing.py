@@ -417,28 +417,25 @@ def test_readers_find_nothing_in_a_program_without_the_spans():
 # ---------------------------------------------------------------------------
 
 
-def _stack(c, layers):
-    from svc_inference_pipeline_tpu_torch.models.diffsvc import DiffSVCDenoiser
-    from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
-
-    cfg = HParams(residual_channels=c, residual_layer_num=layers, n_mel=100, conditioner_size=c,
-                  diffusion_fc_size=128, dilation_cycle_length=4, residual_kernel_size=3)
-    return denoiser_step.stack_denoiser_params(DiffSVCDenoiser(cfg, torch.bfloat16).to(torch.bfloat16))
-
-
+@pytest.mark.parametrize("quantize", [None, "int8-w1"])
 @pytest.mark.parametrize("c,layers", [(512, 40), (384, 20)])
-def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatch, c, layers):
+def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatch, c, layers, quantize):
     """Ten K1 calls' counting on a 512 x 40 stack (the wide tile) and a
-    384 x 20 one, made inside a conversion's sampler: ``denoiser/launches``
-    and the ``sampling`` span's ``launches`` add 10 (2L + 3) each; the
-    ``vocoder`` span after it counts nothing."""
+    384 x 20 one, bf16 and int8-w1, made inside a conversion's sampler:
+    ``denoiser/launches`` and the ``sampling`` span's ``launches`` add what
+    the C entry points report, 10 (L + 3) on the bf16 stack and 10 (2L + 3)
+    on the int8 one; the ``vocoder`` span after it counts nothing."""
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
 
-    st = _stack(c, layers)
     run_sampler = tiny_pipe._run_sampler
 
+    # what ten K1 calls on the stack add to the C entry points' ``launched`` ints
+    n = 10 * ((2 if quantize else 1) * layers + 3)
+    launched = denoiser_step._launch_report()
+    launched[:] = [n, 0, 0, 0] if quantize else [n, 10 * layers, 10 * 3, 8 if c > 384 else 6]
+
     def counted(*args):
-        denoiser_step._count_launches(st, 10)
+        denoiser_step._count_launches(launched)
         return run_sampler(*args)
 
     monkeypatch.setattr(tiny_pipe, "_run_sampler", counted)
@@ -447,8 +444,6 @@ def test_wide_launches_and_the_sampling_spans_launch_count(tiny_pipe, monkeypatc
     t0 = time.perf_counter_ns()
     tiny_pipe.convert(synth_clip(24000, 0.5), SINGER, generator=torch.Generator().manual_seed(0))
     spans = _call_spans(t0)
-    n = 10 * denoiser_step.launches_per_call(layers)
-    assert n == 10 * (2 * layers + 3)
     (sampling,), (vocoder,) = spans["sampling"], spans["vocoder"]
     assert sampling.attrs == {"channels": 64, "layers": 2, "launches": n}
     assert vocoder.attrs == {}

@@ -69,15 +69,21 @@ def test_cli_profile_puts_the_idle_time_under_spans(dev, tmp_path):
     assert idle["idle_s"] > 0 and idle["covered_share"] >= COVERED, idle
 
 
+@pytest.mark.parametrize("seconds", [1.0, 4.0])
+@pytest.mark.parametrize("quantize", [None, "int8-w1"])
 @pytest.mark.parametrize("c,layers,fc,tile", [(512, 40, 512, "PfShape<8>"), (384, 20, 128, "PfShape<6>")])
-def test_sampling_span_counts_the_k1_launches_of_a_conversion(dev, c, layers, fc, tile):
-    """A 1 s conversion over 4 DDPM steps on K1, with the denoiser at
-    Amphion's BiDilConv widths (512 x 40) and at the reference's (384 x 20):
-    its ``sampling`` span names the widths and counts 4 (2L + 3) launches,
-    ``denoiser/launches`` grows by as many, and under the profiler every
-    launch of ``step_pf_kernel`` is on the tile the kernel picks for the
-    width (``PfShape<8>``, the wide one, at 512; ``PfShape<6>`` at 384): 4 (L
-    + 3) of them, beside 4 L of the gate."""
+def test_sampling_span_counts_the_k1_launches_of_a_conversion(dev, c, layers, fc, tile, quantize, seconds):
+    """A 1 s and a 4 s conversion (2 and 6 row tiles) over 4 DDPM steps on
+    K1, with the denoiser at Amphion's BiDilConv widths (512 x 40) and at the
+    reference's (384 x 20), on a bf16 and an int8-w1 stack: its ``sampling``
+    span names the widths and counts 4 (L + 3) launches on the bf16 stack
+    (one fused launch a layer), 4 (2L + 3) on the int8 one;
+    ``denoiser/launches`` grows by as many and ``denoiser/fused_layers`` by
+    4 L on the bf16 stack, 0 on the int8 one. As the C entry points report
+    their launches, every bf16 ``step_pf_kernel`` is on the tile it picks for the
+    width (``PfShape<8>``, the wide one, at 512; ``PfShape<6>`` at 384): 4 x
+    3 of them beside 4 L of the fused layer; the int8 stack's launches are
+    neither (its ring and s8 tiles)."""
     from svc_inference_pipeline_tpu_torch.config import HParams, load_config
     from svc_inference_pipeline_tpu_torch.ops.pallas import denoiser_step
     from svc_inference_pipeline_tpu_torch.pipeline.convert import SVCPipeline
@@ -89,15 +95,18 @@ def test_sampling_span_counts_the_k1_launches_of_a_conversion(dev, c, layers, fc
                        diffusion_fc_size=fc, sampler="ddpm")
     d["vocoder"]["upsample_initial_channel"] = 512  # K2 takes multiples of 8 channels: 8 at the last stage
     pipe = SVCPipeline.from_config(HParams(**d), random_weights=True, device="cuda")
+    if quantize:
+        pipe.set_quantize(quantize)
     counters = obs.Metrics.default().counters
-    clip = synth_clip(24000, 1.0)
+    clip = synth_clip(24000, seconds)
     pipe.convert(clip, "svcc_CDF1", generator=torch.Generator(device=dev).manual_seed(0))  # build, first calls
-    before = counters["denoiser/launches"]
+    before = (counters["denoiser/launches"], counters["denoiser/fused_layers"])
     t0 = time.perf_counter_ns()
     _, tiles = denoiser_step.launched_tiles(
         lambda: pipe.convert(clip, "svcc_CDF1", generator=torch.Generator(device=dev).manual_seed(1)))
     (sampling,) = obs.spans(t0, name="sampling")
-    n = 4 * denoiser_step.launches_per_call(layers)
+    n = 4 * ((2 if quantize else 1) * layers + 3)
     assert sampling.attrs == {"channels": c, "layers": layers, "launches": n}
-    assert counters["denoiser/launches"] - before == n
-    assert tiles == {tile: 4 * (layers + 3), "gate": 4 * layers}
+    assert counters["denoiser/launches"] - before[0] == n
+    assert counters["denoiser/fused_layers"] - before[1] == (0 if quantize else 4 * layers)
+    assert tiles == ({} if quantize else {tile: 4 * 3, "layer": 4 * layers})
